@@ -1,9 +1,10 @@
 """Codec registry and probe cascade of the port.
 
-The port decodes FLAC and Ogg-FLAC so far.  A stream of a format that the
-JAX package decodes but the port does not yet is recognised by its magic
-bytes and raises an AudioFormatError that names the format, so it becomes
-a lane error that says so rather than an "unrecognized encoding".
+The port decodes FLAC, Ogg-FLAC and QOA so far, probed in the JAX
+cascade's order (stream.d:1586-1838).  A stream of a format that the JAX
+package decodes but the port does not yet is recognised by its magic bytes
+and raises an AudioFormatError that names the format, so it becomes a lane
+error that says so rather than an "unrecognized encoding".
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from ..errors import AudioFormatError
 from ..io import ogg
 from ..io.source import ByteSource
 from . import flac as _flac
+from . import qoa as _qoa
 
 #: MOD format tags at byte 1080 (models/mod.py of the JAX package)
 _MOD_TAGS = {
@@ -36,8 +38,6 @@ def unported_format(src: ByteSource):
     head = bytes(src.peek(64))
     if head[:4] == b"RIFF" and head[8:12] == b"WAVE":
         return "WAV"
-    if head[:4] == b"qoaf":
-        return "QOA"
     if head[:17] == b"Extended Module: ":
         return "XM"
     if head[:4] == b"OggS":
@@ -61,10 +61,11 @@ def unported_format(src: ByteSource):
 def probe_all(src: ByteSource, device="cuda"):
     """A decoder for the stream on `device`, or None when unrecognized.
     Raises AudioFormatError for a format the port does not decode yet."""
-    src.seek(0)
-    dec = _flac.probe(src, device)
-    if dec is not None:
-        return dec
+    for probe in (_flac.probe, _qoa.probe):
+        src.seek(0)
+        dec = probe(src, device)
+        if dec is not None:
+            return dec
     src.seek(0)
     name = unported_format(src)
     if name is not None:

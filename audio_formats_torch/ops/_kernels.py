@@ -28,9 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of every kernel library's entry: (name, argtypes)
+#: C signatures of every kernel library's entries: ((name, argtypes), ...)
 _ENTRIES = {
-    "flac_lpc": ("af_flac_lpc", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
+    "flac_lpc": (("af_flac_lpc", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),),
+    "qoa_lms": (("af_qoa_decode", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
+                ("af_qoa_encode", [_V, _I, _V, _V, _V, _V, _V, _V, _I, _V])),
 }
 
 _lock = threading.Lock()
@@ -81,9 +83,9 @@ def load(name: str):
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
-            fn_name, argtypes = _ENTRIES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _ENTRIES[name]:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib

@@ -1,3 +1,4 @@
 from .batch import BatchDecoder
+from .encode import encode_qoa_batch
 
-__all__ = ["BatchDecoder"]
+__all__ = ["BatchDecoder", "encode_qoa_batch"]

@@ -1,12 +1,15 @@
 """BatchDecoder — batched lockstep decode with PyTorch device stages.
 
-N independent compressed streams decode in lockstep.  The host entropy
-stage (the C library in host/src/af_host.cc) parses a *window* of W frames
-per stream, and ONE upload plus one chain of device work runs per window:
-packed residual unpack → LPC kernel → stereo decorrelation.  The PCM
-windows stay on the device with ``decode_all(output="device")``.
+N independent compressed streams decode in lockstep.  FLAC: the host
+entropy stage (the C library in host/src/af_host.cc) parses a *window* of W
+frames per stream, and ONE upload plus one chain of device work runs per
+window: packed residual unpack → LPC kernel → stereo decorrelation.  QOA:
+every frame carries its LMS state, so every (frame, channel) of a group is
+an independent lane, and one upload plus one LMS decode kernel runs per
+window of lanes.  The PCM windows stay on the device with
+``decode_all(output="device")``.
 
-The port decodes FLAC and Ogg-FLAC so far; every other lane carries an
+The port decodes FLAC, Ogg-FLAC and QOA so far; every other lane carries an
 error that names its format.
 
 Error lattice: a corrupt stream only poisons its own lane — it stops
@@ -30,10 +33,14 @@ from ..errors import AudioFormatError
 from ..host import native as _native
 from ..io.source import ByteSource, FileSource, MemorySource
 from ..models.flac import FlacDecoder, device_of
+from ..models.qoa import _F32_RECIP, QoaDecoder
+from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
 
 #: FLAC frames per device call
 FLAC_WINDOW_FRAMES = 12
+#: QOA (frame, channel) lanes per device call (bounds upload and memory)
+QOA_WINDOW_LANES = 8192
 
 #: FLAC packed-residual width buckets
 _FLAC_W_BUCKETS = (4, 6, 8, 10, 12, 14, 17, 20, 26, 32)
@@ -136,7 +143,9 @@ class _PendingGroup:
         self._result = None
 
     def seconds(self) -> float:
-        return sum(d._frame_pos / max(1, d.sample_rate) for d in self.decs)
+        # QOA decoders count decoded frames in _pos, FLAC in _frame_pos
+        pos = "_pos" if self.kind == "qoa" else "_frame_pos"
+        return sum(getattr(d, pos) / max(1, d.sample_rate) for d in self.decs)
 
     def finalize(self):
         if self._result is None:
@@ -340,12 +349,15 @@ class BatchDecoder:
         finalizers = []
 
         flac_groups = {}
+        qoa_groups = {}
         for i, d in enumerate(self.decoders):
             if isinstance(d, FlacDecoder):
                 # >16 bps lanes ride the exact LPC lanes and the full-width
                 # output; frames beyond 18 bits take the host path per frame
                 # inside the group
                 flac_groups.setdefault(d.channels, []).append(i)
+            elif isinstance(d, QoaDecoder):
+                qoa_groups.setdefault(d.channels, []).append(i)
 
         # lockstep group width: with device-resident output the whole batch
         # can ride one group (no per-window PCM download); when PCM is
@@ -367,6 +379,10 @@ class BatchDecoder:
         for nch, lanes in flac_groups.items():
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_flac_group,
+                             (nch,)))
+        for nch, lanes in qoa_groups.items():
+            for c in range(0, len(lanes), GROUP):
+                jobs.append((lanes[c: c + GROUP], self._decode_qoa_group,
                              (nch,)))
         # groups run concurrently on multi-core hosts (lane sets are
         # disjoint; stats ride _stat_add's lock): one group's host parse
@@ -841,4 +857,86 @@ class BatchDecoder:
                 np.float32
             )
             result.append(pcm)
+        return result
+
+    # --------------------------------------------------- batched QOA frames
+    def _decode_qoa_group(self, decs: List[QoaDecoder], nch: int,
+                          to_device: bool = False):
+        """QOA batching: LMS state is in-band per frame (qoa.d:488-503), so
+        every frame of every stream is an independent lane — the whole
+        group decodes as a few large [lanes, 5120] device calls.  Slice
+        payloads ship as int8 (3-bit codes, 4-bit scalefactors) and the
+        kernel dequantizes them as it decodes."""
+        FULL_S = lms_ops.QOA_SLICES_PER_FRAME
+        t_host = time.perf_counter()
+        ct_host = time.thread_time()
+        metas = []   # (stream index, f_samples)
+        H, Wt, SF, CD = [], [], [], []
+        for bi, d in enumerate(decs):
+            pos = d._byte_pos
+            got = 0
+            while True:
+                p = d._parse_frame_at(pos)
+                if p is None:
+                    break
+                h, w, sf, codes, f_samples, f_size = p
+                S = sf.shape[1]
+                if S < FULL_S:
+                    sf = np.pad(sf, ((0, 0), (0, FULL_S - S)))
+                    codes = np.pad(codes,
+                                   ((0, 0), (0, FULL_S - S), (0, 0)))
+                H.append(h)
+                Wt.append(w)
+                SF.append(sf.astype(np.int8))
+                CD.append(codes.astype(np.int8))
+                metas.append((bi, f_samples))
+                pos += f_size
+                got += f_samples
+            d._byte_pos = pos
+            d._pos += got
+        pending = []  # (device out [Lc, 5120] int32 or its host copy, Lc)
+        if metas:
+            hist = np.concatenate(H)
+            wts = np.concatenate(Wt)
+            sf8 = np.concatenate(SF)
+            cd8 = np.concatenate(CD)
+            self._note_stage("host_ms", "qoa", t_host)
+            self._note_host_cpu("qoa", ct_host)
+            L = hist.shape[0]
+            for c0 in range(0, L, QOA_WINDOW_LANES):
+                t_enq = time.perf_counter()
+                sl = slice(c0, min(L, c0 + QOA_WINDOW_LANES))
+                arrays = (hist[sl], wts[sl], sf8[sl], cd8[sl])
+                out = lms_ops.decode_slices(*_upload(self.device, *arrays))
+                pending.append((_prefetch(out, to_device), sl.stop - c0))
+                self._note_stage("enqueue_ms", "qoa", t_enq)
+                h2d = sum(a.nbytes for a in arrays)
+                self._stat_add("h2d_bytes", h2d)
+                self._stat_add("h2d_bytes_by_format", h2d, fmt="qoa")
+                self._stat_add("windows", 1)
+        group = _PendingGroup("qoa", decs, pending, self._qoa_finalize,
+                              (decs, metas, pending, nch))
+        return group if to_device else group.finalize()
+
+    def _qoa_finalize(self, decs, metas, pending, nch):
+        t0 = time.perf_counter()
+        chunks = []
+        for out, n in pending:
+            arr = _to_numpy(out)[:n]
+            self._stat_add("d2h_bytes", arr.nbytes)
+            chunks.append(arr)
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        outputs = [[] for _ in decs]
+        flat = np.concatenate(chunks) if chunks else \
+            np.zeros((0, lms_ops.QOA_FRAME_LEN), np.int32)
+        for k, (bi, f_samples) in enumerate(metas):
+            lanes = flat[k * nch: (k + 1) * nch]
+            outputs[bi].append(lanes[:, :f_samples].T.astype(np.int16))
+        result = []
+        for bi, d in enumerate(decs):
+            s16 = (np.concatenate(outputs[bi]) if outputs[bi]
+                   else np.zeros((0, nch), np.int16))
+            s16 = s16[: d.length_frames]
+            # same float conversion as the facade (qoa.d:825-834)
+            result.append(s16.astype(np.float32) * _F32_RECIP)
         return result

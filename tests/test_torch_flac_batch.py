@@ -20,8 +20,7 @@ from audio_formats_torch.io.source import MemorySource
 from audio_formats_torch.models.flac import FlacDecoder
 from audio_formats_torch.parallel import batch as tbatch
 
-from golden import flac_ref, mp3_ref, mod_ref, opus_ref, qoa_ref, wav_ref, \
-    xm_ref
+from golden import flac_ref, mp3_ref, mod_ref, opus_ref, wav_ref, xm_ref
 
 
 def _pcm(rng, frames, channels, bps, amp=9000.0, noise=300.0):
@@ -281,7 +280,6 @@ def _unported_streams(rng):
     return {
         "WAV": wav_ref.build_wav(wav_ref.pack_pcm(s16, 16), fmt_tag=1,
                                  channels=1, sample_rate=44100, bits=16),
-        "QOA": qoa_ref.encode(s16.reshape(-1, 1).astype(np.int16), 44100),
         "MP3": mp3,
         "Ogg Vorbis": vorbis,
         "Ogg Opus": opus_ref.build_ogg_opus([opus_ref.silence_packet()] * 2,
