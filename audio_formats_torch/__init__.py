@@ -5,7 +5,8 @@ compressed byte streams into dense tensors, and device stages written in
 PyTorch, with hand-written CUDA kernels where the JAX package had Pallas
 kernels, decode many streams in lockstep on one GPU.
 
-The port decodes FLAC, Ogg-FLAC and QOA, and encodes QOA, so far.  Public
+The port decodes FLAC, Ogg-FLAC, QOA and MP3 (Layers I–III), and encodes
+QOA, so far.  Public
 surface:
 
 * :class:`BatchDecoder` — ``BatchDecoder(items, device="cuda")``, then

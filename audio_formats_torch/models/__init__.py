@@ -1,10 +1,14 @@
 """Codec registry and probe cascade of the port.
 
-The port decodes FLAC, Ogg-FLAC and QOA so far, probed in the JAX
-cascade's order (stream.d:1586-1838).  A stream of a format that the JAX
-package decodes but the port does not yet is recognised by its magic bytes
-and raises an AudioFormatError that names the format, so it becomes a lane
-error that says so rather than an "unrecognized encoding".
+The port decodes FLAC, Ogg-FLAC, QOA and MP3 (Layers I–III) so far, probed
+in the JAX cascade's order (stream.d:1586-1838: Opus → FLAC → WAV → QOA →
+Vorbis → MP3 → XM → MOD).  A stream of a format that the JAX package
+decodes but the port does not yet is recognised by its magic bytes at that
+format's place in the cascade, and raises an AudioFormatError that names
+the format, so it becomes a lane error that says so rather than an
+"unrecognized encoding".  The MP3 probe scans for a run of frame headers
+anywhere in the stream, so the sniffs of the formats probed before it run
+before it.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from ..errors import AudioFormatError
 from ..io import ogg
 from ..io.source import ByteSource
 from . import flac as _flac
+from . import mp3 as _mp3
 from . import qoa as _qoa
 
 #: MOD format tags at byte 1080 (models/mod.py of the JAX package)
@@ -23,23 +28,12 @@ _MOD_TAGS = {
 }
 
 
-def _mp3_sync(h: bytes) -> bool:
-    """An MPEG audio frame header (models/mp3.py:_hdr_valid)."""
-    return (h[0] == 0xFF
-            and ((h[1] & 0xF0) == 0xF0 or (h[1] & 0xFE) == 0xE2)
-            and ((h[1] >> 1) & 3) != 0
-            and (h[2] >> 4) != 15
-            and ((h[2] >> 2) & 3) != 3)
-
-
-def unported_format(src: ByteSource):
-    """Name of a format the port does not decode yet, sniffed from its
-    magic bytes; None when none matches."""
+def _unported_before_mp3(src: ByteSource):
+    """Name of an unported format probed before MP3 (WAV, Ogg Vorbis, Ogg
+    Opus), sniffed from its magic bytes; None when none matches."""
     head = bytes(src.peek(64))
     if head[:4] == b"RIFF" and head[8:12] == b"WAVE":
         return "WAV"
-    if head[:17] == b"Extended Module: ":
-        return "XM"
     if head[:4] == b"OggS":
         view = src.view()
         page = ogg.parse_page(view, 0)
@@ -49,13 +43,25 @@ def unported_format(src: ByteSource):
                 return "Ogg Vorbis"
             if body == b"OpusHead":
                 return "Ogg Opus"
-        return None
+    return None
+
+
+def _unported_after_mp3(src: ByteSource):
+    """Name of an unported format probed after MP3 (XM, MOD); None when
+    none matches."""
+    if bytes(src.peek(17)) == b"Extended Module: ":
+        return "XM"
     view = src.view()
     if len(view) >= 1084 and bytes(view[1080:1084]) in _MOD_TAGS:
         return "MOD"
-    if head[:3] == b"ID3" or (len(head) >= 4 and _mp3_sync(head[:4])):
-        return "MP3"
     return None
+
+
+def _unported(name):
+    if name is not None:
+        raise AudioFormatError(
+            f"Cannot decode stream: {name} is not decoded by "
+            "audio_formats_torch yet.")
 
 
 def probe_all(src: ByteSource, device="cuda"):
@@ -67,9 +73,11 @@ def probe_all(src: ByteSource, device="cuda"):
         if dec is not None:
             return dec
     src.seek(0)
-    name = unported_format(src)
-    if name is not None:
-        raise AudioFormatError(
-            f"Cannot decode stream: {name} is not decoded by "
-            "audio_formats_torch yet.")
+    _unported(_unported_before_mp3(src))
+    src.seek(0)
+    dec = _mp3.probe(src, device)
+    if dec is not None:
+        return dec
+    src.seek(0)
+    _unported(_unported_after_mp3(src))
     return None

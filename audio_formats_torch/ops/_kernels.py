@@ -33,7 +33,21 @@ _ENTRIES = {
     "flac_lpc": (("af_flac_lpc", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),),
     "qoa_lms": (("af_qoa_decode", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
                 ("af_qoa_encode", [_V, _I, _V, _V, _V, _V, _V, _V, _I, _V])),
+    "mp3_huff": (("af_mp3_huff", [_V, _V, _V, _V, _I, _I, _I, _V, _V, _V]),),
 }
+
+
+
+class KernelError(RuntimeError):
+    """A kernel did not build, load or launch, or the card refused the call
+    as configured: a fault of the program or the card, never of a stream's
+    data.  BatchDecoder lets it through instead of demoting lanes around
+    the kernel."""
+
+
+class KernelArgError(KernelError, ValueError):
+    """A kernel's wrapper was given tensors it cannot take."""
+
 
 _lock = threading.Lock()
 _libs = {}
@@ -50,8 +64,8 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build "
+                      "the port's kernels")
 
 
 def build(name: str) -> str:
@@ -66,15 +80,35 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                         capture_output=True, text=True, timeout=600)
+    try:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                             capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise KernelError(f"nvcc did not run on {src}: {e}") from e
     if res.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed to build {src}:\n{res.stderr}")
+        raise KernelError(f"nvcc failed to build {src}:\n{res.stderr}")
     os.replace(tmp, so)
     BUILD_LOG[name] = (time.perf_counter() - t0, res.stdout + res.stderr)
     return so
+
+
+def check_args(fn: str, dev, want) -> None:
+    """Raise KernelArgError (a ValueError) unless every (name, tensor,
+    dtypes, shape) in `want` lies contiguous on the CUDA device `dev` with
+    one of the dtypes and the shape: what a kernel's wrapper checks before
+    it passes pointers."""
+    for name, t, dtypes, shape in want:
+        if t.device != dev or dev.type != "cuda":
+            raise KernelArgError(f"{fn}: {name} on {t.device}, want {dev} "
+                                 "(a CUDA device)")
+        if t.dtype not in dtypes or tuple(t.shape) != shape:
+            raise KernelArgError(f"{fn}: {name} is {t.dtype}"
+                                 f"{list(t.shape)}, want {dtypes[0]}"
+                                 f"{list(shape)}")
+        if not t.is_contiguous():
+            raise KernelArgError(f"{fn}: {name} must be contiguous")
 
 
 def load(name: str):
@@ -82,10 +116,22 @@ def load(name: str):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            for fn_name, argtypes in _ENTRIES[name]:
-                fn = getattr(lib, fn_name)
+            path = build(name)
+            try:
+                lib = ctypes.CDLL(path)
+                fns = [(getattr(lib, fn_name), argtypes)
+                       for fn_name, argtypes in _ENTRIES[name]]
+            except (OSError, AttributeError) as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
+            for fn, argtypes in fns:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def check_launch(fn: str, rc: int) -> None:
+    """Raise KernelError when a kernel library's entry returned a CUDA
+    error code."""
+    if rc != 0:
+        raise KernelError(f"{fn} kernel launch failed: CUDA error {rc}")

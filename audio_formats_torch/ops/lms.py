@@ -96,20 +96,6 @@ def _as_tensors(*arrays):
     return tuple(torch.as_tensor(a) for a in arrays)
 
 
-def _check(fn: str, dev: torch.device, want) -> None:
-    """Raise unless every (name, tensor, dtypes, shape) lies contiguous on
-    the CUDA device `dev` with one of the dtypes and the shape."""
-    for name, t, dtypes, shape in want:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{fn}: {name} on {t.device}, want {dev} "
-                             "(a CUDA device)")
-        if t.dtype not in dtypes or tuple(t.shape) != shape:
-            raise ValueError(f"{fn}: {name} is {t.dtype}{list(t.shape)}, "
-                             f"want {dtypes[0]}{list(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-
-
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -127,7 +113,8 @@ def qoa_decode(history, weights, dequantized):
         return qoa_decode_torch(history, weights, dequantized)
     if dequantized.device.type == "cuda":
         return qoa_decode_cuda(history, weights, dequantized=dequantized)
-    raise ValueError(f"qoa_decode: no kernel for device {dequantized.device}")
+    raise _kernels.KernelArgError(
+        f"qoa_decode: no kernel for device {dequantized.device}")
 
 
 def qoa_decode_torch(history, weights, dequantized):
@@ -169,12 +156,13 @@ def qoa_decode_cuda(history, weights, dequantized=None, scalefactors=None,
         T = S * QOA_SLICE_LEN
         data = (("scalefactors", scalefactors, (torch.int8,), (L, S)),
                 ("codes", codes, (torch.int8,), (L, S, QOA_SLICE_LEN)))
-    _check("qoa_decode", dev, (
+    _kernels.check_args("qoa_decode", dev, (
         ("history", history, (torch.int32,), (L, QOA_LMS_LEN)),
         ("weights", weights, (torch.int32,), (L, QOA_LMS_LEN)),
     ) + data)
     if dequantized is None and codes.data_ptr() % 4:
-        raise ValueError("qoa_decode: codes must start 4-byte aligned")
+        raise _kernels.KernelArgError(
+            "qoa_decode: codes must start 4-byte aligned")
     out = torch.empty((L, T), dtype=torch.int32, device=dev)
     if L == 0 or T == 0:
         return out
@@ -187,8 +175,7 @@ def qoa_decode_cuda(history, weights, dequantized=None, scalefactors=None,
             None if dequantized is not None else scalefactors.data_ptr(),
             None if dequantized is not None else codes.data_ptr(),
             out.data_ptr(), L, T, stream)
-    if rc != 0:
-        raise RuntimeError(f"qoa_decode kernel launch failed: CUDA error {rc}")
+    _kernels.check_launch("qoa_decode", rc)
     with _launch_lock:
         DECODE_LAUNCHES += 1
     return out
@@ -212,7 +199,8 @@ def decode_slices(history, weights, scalefactors, codes):
                                scalefactors=scalefactors.to(torch.int8),
                                codes=codes.to(torch.int8))
     if dev.type != "cpu":
-        raise ValueError(f"decode_slices: no kernel for device {dev}")
+        raise _kernels.KernelArgError(
+            f"decode_slices: no kernel for device {dev}")
     tab = torch.from_numpy(DEQUANT_TAB)
     deq = tab[scalefactors.to(torch.int64)[..., None], codes.to(torch.int64)]
     return qoa_decode_torch(history, weights, deq.reshape(codes.shape[0], -1))
@@ -246,7 +234,8 @@ def qoa_encode_frame_scan(samples, history, weights, frame_len):
     if dev.type == "cpu":
         return qoa_encode_frame_torch(samples, history, weights, frame_len)
     if dev.type != "cuda":
-        raise ValueError(f"qoa_encode_frame_scan: no kernel for device {dev}")
+        raise _kernels.KernelArgError(
+            f"qoa_encode_frame_scan: no kernel for device {dev}")
     words, h, w = qoa_encode_cuda(samples, history, weights,
                                   _lane_lengths(frame_len, samples.shape[0],
                                                 dev))
@@ -275,7 +264,8 @@ def qoa_encode_frame_words(samples, frame_len):
         sf, codes, _, _ = qoa_encode_frame_torch(samples, h0, w0, frame_len)
         return pack_words(sf, codes)
     if dev.type != "cuda":
-        raise ValueError(f"qoa_encode_frame_words: no kernel for device {dev}")
+        raise _kernels.KernelArgError(
+            f"qoa_encode_frame_words: no kernel for device {dev}")
     words, _, _ = qoa_encode_cuda(samples, h0, w0,
                                   _lane_lengths(frame_len, L, dev))
     return words
@@ -374,10 +364,10 @@ def qoa_encode_cuda(samples, history, weights, frame_len):
     weights' [L, 4])."""
     global ENCODE_LAUNCHES
     if samples.dim() != 2:
-        raise ValueError("qoa_encode: samples must be [L, 5120]")
+        raise _kernels.KernelArgError("qoa_encode: samples must be [L, 5120]")
     L = samples.shape[0]
     dev = samples.device
-    _check("qoa_encode", dev, (
+    _kernels.check_args("qoa_encode", dev, (
         ("samples", samples, (torch.int16, torch.int32), (L, QOA_FRAME_LEN)),
         ("history", history, (torch.int32,), (L, QOA_LMS_LEN)),
         ("weights", weights, (torch.int32,), (L, QOA_LMS_LEN)),
@@ -396,8 +386,7 @@ def qoa_encode_cuda(samples, history, weights, frame_len):
             samples.data_ptr(), samples.element_size(), history.data_ptr(),
             weights.data_ptr(), frame_len.data_ptr(), words.data_ptr(),
             h_out.data_ptr(), w_out.data_ptr(), L, stream)
-    if rc != 0:
-        raise RuntimeError(f"qoa_encode kernel launch failed: CUDA error {rc}")
+    _kernels.check_launch("qoa_encode", rc)
     with _launch_lock:
         ENCODE_LAUNCHES += 1
     return words, h_out, w_out

@@ -81,7 +81,8 @@ def flac_lpc(residual, coeffs, order, shift, exact=None):
         return flac_lpc_torch(residual, coeffs, order, shift, exact)
     if residual.device.type == "cuda":
         return flac_lpc_cuda(residual, coeffs, order, shift, exact)
-    raise ValueError(f"flac_lpc: no kernel for device {residual.device}")
+    raise _kernels.KernelArgError(
+        f"flac_lpc: no kernel for device {residual.device}")
 
 
 def flac_lpc_torch(residual, coeffs, order, shift, exact=None):
@@ -119,25 +120,16 @@ def flac_lpc_cuda(residual, coeffs, order, shift, exact):
     one CUDA device, contiguous, with the dtypes of the flac_lpc contract."""
     global KERNEL_LAUNCHES
     if residual.dim() != 2:
-        raise ValueError("flac_lpc: residual must be [L, B]")
+        raise _kernels.KernelArgError("flac_lpc: residual must be [L, B]")
     L, B = residual.shape
     dev = residual.device
-    want = (
-        ("residual", residual, torch.int32, (L, B)),
-        ("coeffs", coeffs, torch.int32, (L, MAX_ORDER)),
-        ("order", order, torch.int32, (L,)),
-        ("shift", shift, torch.int32, (L,)),
-        ("exact", exact, torch.bool, (L,)),
-    )
-    for name, t, dtype, shape in want:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"flac_lpc: {name} on {t.device}, want {dev} "
-                             "(a CUDA device)")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"flac_lpc: {name} is {t.dtype}{list(t.shape)}, "
-                             f"want {dtype}{list(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"flac_lpc: {name} must be contiguous")
+    _kernels.check_args("flac_lpc", dev, (
+        ("residual", residual, (torch.int32,), (L, B)),
+        ("coeffs", coeffs, (torch.int32,), (L, MAX_ORDER)),
+        ("order", order, (torch.int32,), (L,)),
+        ("shift", shift, (torch.int32,), (L,)),
+        ("exact", exact, (torch.bool,), (L,)),
+    ))
     out = torch.empty_like(residual)
     if L == 0 or B == 0:
         return out
@@ -147,8 +139,7 @@ def flac_lpc_cuda(residual, coeffs, order, shift, exact):
         rc = lib.af_flac_lpc(
             residual.data_ptr(), coeffs.data_ptr(), order.data_ptr(),
             shift.data_ptr(), exact.data_ptr(), out.data_ptr(), L, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"flac_lpc kernel launch failed: CUDA error {rc}")
+    _kernels.check_launch("flac_lpc", rc)
     with _launch_lock:
         KERNEL_LAUNCHES += 1
     return out

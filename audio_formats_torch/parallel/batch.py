@@ -3,14 +3,20 @@
 N independent compressed streams decode in lockstep.  FLAC: the host
 entropy stage (the C library in host/src/af_host.cc) parses a *window* of W
 frames per stream, and ONE upload plus one chain of device work runs per
-window: packed residual unpack → LPC kernel → stereo decorrelation.  QOA:
+window: packed residual unpack → LPC kernel → stereo decorrelation.  MP3
+Layer III: the C stage parses 24 frames a stream (side info, reservoir
+splice, scalefactors) and ships every granule-channel's Huffman bits in one
+exact-size pool; one device chain a window runs the Huffman kernel,
+dequant, stereo mix, reorder and the window DSP (IMDCT, synthesis) with
+carried overlap and slot history.  MP3 Layers I/II: the host parses
+scalefactor-applied subband slots, one synthesis call a window.  QOA:
 every frame carries its LMS state, so every (frame, channel) of a group is
 an independent lane, and one upload plus one LMS decode kernel runs per
 window of lanes.  The PCM windows stay on the device with
 ``decode_all(output="device")``.
 
-The port decodes FLAC, Ogg-FLAC and QOA so far; every other lane carries an
-error that names its format.
+The port decodes FLAC, Ogg-FLAC, MP3 (Layers I–III) and QOA so far; every
+other lane carries an error that names its format.
 
 Error lattice: a corrupt stream only poisons its own lane — it stops
 producing frames and its `errors` entry is set; other lanes are unaffected.
@@ -33,12 +39,17 @@ from ..errors import AudioFormatError
 from ..host import native as _native
 from ..io.source import ByteSource, FileSource, MemorySource
 from ..models.flac import FlacDecoder, device_of
+from ..models.mp3 import Mp3Decoder
 from ..models.qoa import _F32_RECIP, QoaDecoder
 from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
+from ..ops._kernels import KernelError
+from ..ops import mp3_dsp, mp3_huff
 
 #: FLAC frames per device call
 FLAC_WINDOW_FRAMES = 12
+#: MP3 frames per device call (Layer III and Layers I/II)
+MP3_WINDOW_FRAMES = 24
 #: QOA (frame, channel) lanes per device call (bounds upload and memory)
 QOA_WINDOW_LANES = 8192
 
@@ -143,6 +154,10 @@ class _PendingGroup:
         self._result = None
 
     def seconds(self) -> float:
+        if self.kind == "mp3":
+            # MP3 decoders count interleaved samples in _cur_sample
+            return sum(d._cur_sample / max(1, d.channels)
+                       / max(1, d.sample_rate) for d in self.decs)
         # QOA decoders count decoded frames in _pos, FLAC in _frame_pos
         pos = "_pos" if self.kind == "qoa" else "_frame_pos"
         return sum(getattr(d, pos) / max(1, d.sample_rate) for d in self.decs)
@@ -246,6 +261,7 @@ class BatchDecoder:
             "h2d_bytes_by_format": {},
             "d2h_bytes": 0,
             "windows": 0,
+            "windows_by_format": {},
             "group_demotions": 0,
         }
 
@@ -257,7 +273,12 @@ class BatchDecoder:
                 self.stats[key] = self.stats.get(key, 0) + val
             else:
                 by = self.stats[key]
-                by[fmt] = by.get(fmt, 0.0) + val
+                by[fmt] = by.get(fmt, 0) + val
+
+    def _note_window(self, fmt: str):
+        """Count one device window (device call) of format `fmt`."""
+        self._stat_add("windows", 1)
+        self._stat_add("windows_by_format", 1, fmt=fmt)
 
     def _note_seconds(self, fmt: str, seconds: float):
         self._stat_add("decoded_seconds", seconds)
@@ -302,10 +323,14 @@ class BatchDecoder:
         leaves the grouped path (stats["lanes_demoted"]); the per-stream
         loop then decodes it with its own error handling.  The exception
         is recorded in stats["group_exceptions"] so code faults don't
-        masquerade as corrupt data."""
+        masquerade as corrupt data.  A KernelError (a kernel that does not
+        build, load or launch) is no lane's fault and propagates: demoting
+        around it would move the kernel's work to another path."""
         try:
             return fn([self.decoders[i] for i in chunk], *args,
                       to_device=to_device)
+        except KernelError:
+            raise
         except Exception as e:
             self._stat_add("group_demotions", 1)
             with self._stats_lock:
@@ -348,10 +373,18 @@ class BatchDecoder:
         out: List[Optional[object]] = [None] * len(self.decoders)
         finalizers = []
 
+        mp3_groups = {}
+        l12_groups = {}
         flac_groups = {}
         qoa_groups = {}
         for i, d in enumerate(self.decoders):
-            if isinstance(d, FlacDecoder):
+            if isinstance(d, Mp3Decoder) and d._layer == 3:
+                mp3_groups.setdefault((d.channels, d._mpeg1), []).append(i)
+            elif isinstance(d, Mp3Decoder):
+                # Layers I/II: no bit reservoir, so frames are independent
+                # subband blocks — host parses, one synthesis a window
+                l12_groups.setdefault((d.channels, d._layer), []).append(i)
+            elif isinstance(d, FlacDecoder):
                 # >16 bps lanes ride the exact LPC lanes and the full-width
                 # output; frames beyond 18 bits take the host path per frame
                 # inside the group
@@ -376,6 +409,14 @@ class BatchDecoder:
                     out[i] = pcm
 
         jobs = []
+        for (nch, mpeg1), lanes in mp3_groups.items():
+            for c in range(0, len(lanes), GROUP):
+                jobs.append((lanes[c: c + GROUP], self._decode_mp3_group,
+                             (nch, 2 if mpeg1 else 1)))
+        for (nch, _layer), lanes in l12_groups.items():
+            for c in range(0, len(lanes), GROUP):
+                jobs.append((lanes[c: c + GROUP], self._decode_l12_group,
+                             (nch,)))
         for nch, lanes in flac_groups.items():
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_flac_group,
@@ -425,6 +466,326 @@ class BatchDecoder:
                     pcm.shape[0] / max(1, self.decoders[i].sample_rate),
                 )
         return out
+
+    # ------------------------------------------------ batched MP3 lockstep
+    def _decode_l12_group(self, decs: List[Mp3Decoder], nch: int,
+                          to_device: bool = False):
+        """Layer I/II lockstep: no bit reservoir, so frames are independent
+        subband blocks (minimp3.d:286-486).  The host parses W frames per
+        lane into scalefactor-applied slot tensors; one batched synthesis
+        FIR a window (ops/mp3_dsp.mp3_synth_slots) with carried slot
+        history turns the whole group into PCM.  Corrupt frames vanish from
+        a lane's slot sequence exactly as in the facade (history kept)."""
+        W = MP3_WINDOW_FRAMES
+        layer = decs[0]._layer
+        spf_slots = 12 if layer == 1 else 36
+        TS = W * spf_slots
+        B = len(decs)
+        shist = torch.zeros((B, nch, 16, 32), dtype=torch.float32,
+                            device=self.device)
+        offs = [d._offset for d in decs]
+        active = np.ones(B, bool)
+        pending = []
+        while active.any():
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            Sarr = np.zeros((B, nch, TS, 32), np.float32)
+            n_slots = np.zeros(B, np.int32)
+            for bi, d in enumerate(decs):
+                if not active[bi]:
+                    continue
+                got = 0
+                while got < W:
+                    if offs[bi] >= len(d._view) - 4:
+                        active[bi] = False
+                        break
+                    S2, fb = d._l12_parse_subbands(offs[bi])
+                    if S2 is None:
+                        if fb:
+                            offs[bi] += fb
+                            continue
+                        active[bi] = False
+                        break
+                    offs[bi] += fb
+                    Sarr[bi, :, got * spf_slots: got * spf_slots
+                         + S2.shape[1]] = S2
+                    got += 1
+                n_slots[bi] = got * spf_slots
+                d._cur_sample += got * d._spf * nch
+                d._offset = offs[bi]
+            self._note_stage("host_ms", "mp3_l12", t_host)
+            self._note_host_cpu("mp3_l12", ct_host)
+            if not n_slots.any():
+                break
+            t_enq = time.perf_counter()
+            (S_d,) = _upload(self.device, Sarr)
+            pcm, shist = mp3_dsp.mp3_synth_slots(S_d, shist, nch=nch)
+            pending.append((_prefetch(pcm, to_device), n_slots))
+            self._note_stage("enqueue_ms", "mp3_l12", t_enq)
+            self._stat_add("h2d_bytes", Sarr.nbytes)
+            self._stat_add("h2d_bytes_by_format", Sarr.nbytes, fmt="mp3_l12")
+            self._note_window("mp3_l12")
+        group = _PendingGroup("mp3", decs, pending, self._l12_finalize,
+                              (decs, pending, nch))
+        return group if to_device else group.finalize()
+
+    def _l12_finalize(self, decs, pending, nch):
+        t0 = time.perf_counter()
+        outs = [[] for _ in decs]
+        for pcm, n_slots in pending:
+            arr = _to_numpy(pcm)  # [B, nch, TS*32]
+            self._stat_add("d2h_bytes", arr.nbytes)
+            for bi in range(len(decs)):
+                k = int(n_slots[bi]) * 32
+                if k:
+                    outs[bi].append(arr[bi, :, :k].T)
+        result = []
+        for bi, d in enumerate(decs):
+            full = np.concatenate(outs[bi]) if outs[bi] else \
+                np.zeros((0, nch), np.float32)
+            full = full[d._start_delay // max(1, nch):]
+            if d._total_samples:
+                full = full[: d._total_samples // max(1, nch)]
+            result.append(np.ascontiguousarray(full, np.float32))
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        return result
+
+    def _decode_mp3_group(self, decs: List[Mp3Decoder], nch: int, ngr: int,
+                          to_device: bool = False):
+        lib = _native.get_lib()
+        if lib is None:
+            raise RuntimeError("the MP3 batch path needs the C host stage "
+                               "(host/src/af_host.cc), which did not load")
+        pending = self._decode_mp3_group_packed(decs, nch, ngr, lib,
+                                                to_device)
+        group = _PendingGroup("mp3", decs, pending, self._mp3_finalize,
+                              (decs, pending, nch))
+        return group if to_device else group.finalize()
+
+    def _decode_mp3_group_packed(self, decs, nch: int, ngr: int, lib,
+                                 to_device: bool = False):
+        """Device-Huffman lockstep over the pooled wire: per window the C
+        stage parses 24 frames of every lane into Huffman bit rows, side
+        info and quarter-exponent scalefactors (one C call per lane chunk,
+        on a parse pool); the rows pack into one exact-size u32 pool (each
+        lane's span, lane after lane); one dispatch worker uploads it and
+        runs ops/mp3_huff.packed_window — the Huffman kernel, dequant,
+        stereo mix, reorder and the window DSP — with the carried overlap
+        and slot history.  Returns the pending (PCM window, n_act) list."""
+        B = len(decs)
+        W = MP3_WINDOW_FRAMES
+        G = W * ngr
+        NL = G * nch
+        LW = _native.LANE_WORDS
+        device = self.device
+        dev_state = {
+            "overlap": torch.zeros((B, nch, 32, 18), dtype=torch.float32,
+                                   device=device),
+            "shist": torch.zeros((B, nch, 16, 32), dtype=torch.float32,
+                                 device=device),
+        }
+        active = np.ones(B, bool)
+        # per-lane state as batch-contiguous rows: the multi-lane C entry
+        # (af_mp3_parse_window_packed_multi) derives lane pointers from
+        # base + lane * stride
+        data_keep = []
+        data_ptrs = np.zeros(B, np.uint64)
+        data_lens = np.zeros(B, np.int64)
+        offs_a = np.zeros(B, np.int64)
+        hdr0s = np.zeros((B, 4), np.uint8)
+        ffb = np.zeros(B, np.int32)
+        rb_all = np.zeros((B, 511), np.uint8)
+        rl_all = np.zeros(B, np.int32)
+        ist_all = np.zeros((B, 2, 40), np.int32)
+        for bi, d in enumerate(decs):
+            addr, nb, keep = _native.buf_addr(d._view)
+            data_keep.append(keep)
+            data_ptrs[bi] = addr
+            data_lens[bi] = nb
+            offs_a[bi] = d._offset
+            hdr0s[bi] = np.frombuffer(d._hdr0, np.uint8, 4)
+            ffb[bi] = d._free_format_bytes
+            cur = d._reserv_buf
+            if cur:
+                rb_all[bi, : len(cur)] = np.frombuffer(cur, np.uint8)
+                rl_all[bi] = min(d._reserv, len(cur))
+            ist_all[bi] = d._ist_pos
+        flags_all = np.zeros((B, W), np.uint8)
+        aa_all = np.zeros((B, G, nch), np.int32)
+        wt_all = np.zeros((B, G, nch, 32), np.int32)
+        n_out = np.zeros(B, np.int32)
+        mw_all = np.zeros(B, np.int32)
+        idx_w = np.arange(W)
+        win = {}  # this window's host arrays, rebound every window
+
+        def _parse_chunk(lanes):
+            _ct0 = time.thread_time()
+            try:
+                gated = []
+                for bi in lanes:
+                    d = decs[bi]
+                    if offs_a[bi] >= data_lens[bi] - 4 or (
+                        d._total_samples
+                        and d._cur_sample >= d._total_samples
+                    ):
+                        active[bi] = False
+                    else:
+                        gated.append(bi)
+                if gated:
+                    _native.mp3_parse_window_packed_multi(
+                        lib, gated, data_ptrs, data_lens, offs_a, hdr0s,
+                        W, ffb, rb_all, rl_all, ist_all, win["bits"],
+                        mw_all, win["meta"], win["scfq"],
+                        win["ists"] if nch == 2 else None,
+                        aa_all, wt_all, flags_all, n_out)
+                return gated
+            finally:
+                self._note_host_cpu("mp3", _ct0)
+
+        def _post_parse(gated):
+            """Frame activity, intensity flags, the rare compaction of
+            silent-frame holes to the n_act prefix the window DSP needs,
+            and the per-decoder positions.  Returns the window's widest
+            lane in words."""
+            if not gated:
+                return 16
+            bits, meta, scfq, ists = (win[k] for k in
+                                      ("bits", "meta", "scfq", "ists"))
+            g = np.asarray(gated, np.int64)
+            ng = n_out[g]
+            fl = flags_all[g]
+            validm = idx_w[None, :] < ng[:, None]
+            actm = ((fl & 1) != 0) & validm
+            n_fr_g = actm.sum(1)
+            win["win_ist"][g] = (((fl & 4) != 0) & validm).any(1)
+            win["n_act"][g] = (n_fr_g * ngr).astype(np.int32)
+            pref = actm.cumsum(1)
+            hole = np.zeros(g.size, bool)
+            nz = n_fr_g > 0
+            hole[nz] = pref[nz, n_fr_g[nz] - 1] < n_fr_g[nz]
+            for i in np.flatnonzero(hole):
+                bi = int(g[i])
+                li = np.flatnonzero(np.repeat(actm[i], ngr * nch))
+                bits[bi, : len(li)] = bits[bi, li]
+                meta[bi, : len(li)] = meta[bi, li]
+                scfq[bi, : len(li)] = scfq[bi, li]
+                meta[bi, len(li):] = 0
+                gi = np.flatnonzero(np.repeat(actm[i], ngr))
+                ists[bi, : len(gi)] = ists[bi, gi]
+                ists[bi, len(gi):] = 0
+            for i, bi in enumerate(gated):
+                d = decs[bi]
+                d._offset = int(offs_a[bi])
+                d._cur_sample += int(n_fr_g[i]) * ngr * 576 * nch
+                if ng[i] < W:
+                    active[bi] = False
+            return max(16, int(mw_all[g].max()))
+
+        def _dispatch(pool_w, meta16, scfq, ists, n_act, Wrow, short):
+            pool_d, meta_d, scf_d, n_act_d = _upload(
+                device, pool_w, meta16, scfq, n_act)
+            ist_d = None if ists is None else _upload(device, ists)[0]
+            pcm, dev_state["overlap"], dev_state["shist"] = \
+                mp3_huff.packed_window(
+                    pool_d, meta_d, scf_d, ist_d, dev_state["overlap"],
+                    dev_state["shist"], n_act_d, B=B, G=G, nch=nch, W=Wrow,
+                    mpeg1=ngr == 2, short=short)
+            return _prefetch(pcm, to_device)
+
+        pending = []
+        # one dispatch worker: window t+1's parse overlaps window t's
+        # upload and device chain
+        pool = ThreadPoolExecutor(max_workers=1)
+        n_workers = max(1, min(8, (os.cpu_count() or 1)))
+        parse_pool = ThreadPoolExecutor(max_workers=n_workers) \
+            if n_workers > 1 else None
+        short_pats = np.zeros(mp3_huff.N_PATTERNS, bool)
+        short_pats[list(mp3_huff.SHORT_PATTERNS)] = True
+        try:
+            while active.any():
+                t_host = time.perf_counter()
+                win.update(
+                    bits=np.empty((B, NL, LW), np.uint32),
+                    meta=np.zeros((B, NL, 16), np.int32),
+                    scfq=np.zeros((B, NL, 40), np.int16),
+                    ists=np.zeros((B, G, 40), np.int16),
+                    win_ist=np.zeros(B, bool),
+                    n_act=np.zeros(B, np.int32))
+                live = [bi for bi in range(B) if active[bi]]
+                if parse_pool is not None:
+                    gated = [bi for sub in parse_pool.map(
+                        _parse_chunk, _lane_chunks(live, n_workers))
+                        for bi in sub]
+                else:
+                    gated = _parse_chunk(live)
+                mw_max = _post_parse(gated)
+                self._note_stage("host_ms", "mp3", t_host)
+                n_act = win["n_act"]
+                if not n_act.any():
+                    break
+                t_enq = time.perf_counter()
+                meta = win["meta"]
+                L = B * NL
+                meta16 = mp3_huff.meta16_from_c(meta).reshape(L, 16)
+                # one C pass copies each lane's span of words into the pool
+                t_pack = time.perf_counter()
+                span32 = meta16[:, mp3_huff.M_SPAN].astype(np.int32)
+                pool_w = np.empty(int(span32.sum()), np.uint32)
+                u32p = ctypes.POINTER(ctypes.c_uint32)
+                lib.af_u32_pack_prefix_rows(
+                    win["bits"].reshape(L, LW).ctypes.data_as(u32p), L, LW,
+                    span32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                    pool_w.ctypes.data_as(u32p))
+                self._stat_add("enq_mp3_pack_ms",
+                               (time.perf_counter() - t_pack) * 1e3)
+                ists = win["ists"].reshape(B * G, 40) \
+                    if nch == 2 and win["win_ist"].any() else None
+                short = bool(short_pats[meta[:, :, 10]].any())
+                scfq = win["scfq"].reshape(L, 40)
+                fut = pool.submit(_dispatch, pool_w, meta16, scfq, ists,
+                                  n_act, mp3_huff.row_width(mw_max), short)
+                self._note_stage("enqueue_ms", "mp3", t_enq)
+                h2d = (pool_w.nbytes + meta16.nbytes + scfq.nbytes
+                       + n_act.nbytes + (0 if ists is None else ists.nbytes))
+                self._stat_add("h2d_bytes", h2d)
+                self._stat_add("h2d_bytes_by_format", h2d, fmt="mp3")
+                self._note_window("mp3")
+                pending.append((fut, n_act))
+        finally:
+            # a lane fault raising out of the window loop must not leak the
+            # dispatch or parse workers
+            pool.shutdown(wait=True)
+            if parse_pool is not None:
+                parse_pool.shutdown(wait=True)
+        # the parse ran against the batch copy of the persistent intensity
+        # positions; write them back so the decoders stay consistent
+        for bi, d in enumerate(decs):
+            d._ist_pos[:] = ist_all[bi]
+        return [(f.result(), n) for f, n in pending]
+
+    def _mp3_finalize(self, decs, pending, nch):
+        """Download the pending windows and assemble each lane's PCM (delay
+        skip, total-length clamp)."""
+        outputs = [[] for _ in decs]
+        t0 = time.perf_counter()
+        for pcm_dev, n_act in pending:
+            pcm = _to_numpy(pcm_dev)
+            self._stat_add("d2h_bytes", pcm.nbytes)
+            for bi in range(len(decs)):
+                n = int(n_act[bi])
+                if n:
+                    outputs[bi].append(
+                        pcm[bi, :n].transpose(0, 2, 1).reshape(-1, nch))
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        result = []
+        for bi, d in enumerate(decs):
+            pcm = np.concatenate(outputs[bi]) if outputs[bi] else \
+                np.zeros((0, nch), np.float32)
+            pcm = pcm[d._start_delay // nch:]
+            if d._total_samples:
+                pcm = pcm[: d._total_samples // nch]
+            result.append(pcm)
+        return result
 
     # ------------------------------------------------ batched FLAC lockstep
     def _decode_flac_group(self, decs: List[FlacDecoder], nch: int,
@@ -803,7 +1164,7 @@ class BatchDecoder:
                     order, shift, exact, assigns, wasteds, out_shifts,
                     max_bs, S, use_s16)
                 self._note_stage("enqueue_ms", "flac", t_enq)
-                self._stat_add("windows", 1)
+                self._note_window("flac")
                 # slots were claimed at parse time, in frame order; p[8] is
                 # the frame's slot
                 pending.append((fut, [(p[8], si, p[0]) for si, (bi, p)
@@ -913,7 +1274,7 @@ class BatchDecoder:
                 h2d = sum(a.nbytes for a in arrays)
                 self._stat_add("h2d_bytes", h2d)
                 self._stat_add("h2d_bytes_by_format", h2d, fmt="qoa")
-                self._stat_add("windows", 1)
+                self._note_window("qoa")
         group = _PendingGroup("qoa", decs, pending, self._qoa_finalize,
                               (decs, metas, pending, nch))
         return group if to_device else group.finalize()

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
-These tests need a CUDA GPU and nvcc, and skip elsewhere.  They import
-neither jax nor audio_formats_tpu, so they also run where JAX is missing:
+These tests need a CUDA GPU and nvcc, and skip elsewhere.  The port's code
+under test imports no jax; the MP3 cases build their streams with the
+golden MP3 coder, which reads the spec tables of audio_formats_tpu.  Run
+them without the conftest, which sets JAX up for the CPU:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -251,3 +253,166 @@ def test_encode_qoa_batch_cuda_equals_cpu(cuda, parallel_frames):
     assert got == encode_qoa_batch(pcms, 44100,
                                    parallel_frames=parallel_frames,
                                    device="cpu")
+
+
+# ------------------------------------------------------------------- MP3
+def mp3_random_lanes(rng, L, W):
+    """L lanes of random words (int32 pool) and random side info for the
+    Huffman FSM: spans up to the row width, bit limits anywhere up to it,
+    any table, region bounds and sfb pattern, a fifth of the lanes near
+    the 288-pair maximum (little or no count1)."""
+    from audio_formats_torch.ops import mp3_huff
+
+    pats = [p for p in range(48) if mp3_huff._sfb_widths(p)]
+    span = rng.integers(0, W - 3, L)
+    pool = rng.integers(0, 2 ** 32, int(span.sum()), dtype=np.uint64)\
+        .astype(np.uint32)
+    tabs = rng.integers(0, 32, (L, 3))
+    meta = np.zeros((L, 16), np.int16)
+    meta[:, 0] = rng.integers(0, 8, L)
+    meta[:, 1] = meta[:, 0] + rng.integers(0, W * 32, L)
+    meta[:, 2] = np.where(rng.random(L) < 0.2, rng.integers(250, 289, L),
+                          rng.integers(0, 289, L))
+    meta[:, 3] = rng.integers(1, 17, L)
+    meta[:, 4] = meta[:, 3] + rng.integers(1, 30, L)
+    meta[:, 5:8] = tabs
+    meta[:, 8:11] = mp3_huff.LINBITS_TAB[tabs]
+    meta[:, 11] = rng.integers(0, 2, L)
+    meta[:, 12] = rng.choice(pats, L)
+    meta[:, 15] = span
+    return pool.view(np.int32), meta
+
+
+@pytest.mark.parametrize("L,W", [(1, 20), (300, 20), (5000, 52), (257, 136)])
+def test_mp3_huff_kernel_matches_twin(cuda, L, W):
+    from audio_formats_torch.ops import mp3_huff
+
+    rng = np.random.default_rng(L + W)
+    pool, meta = (torch.from_numpy(a).to(cuda)
+                  for a in mp3_random_lanes(rng, L, W))
+    before = mp3_huff.HUFF_LAUNCHES
+    # q comes from torch.empty: hand the kernel a block of -7s, so a
+    # position it does not write shows
+    torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
+    q, err = mp3_huff.huff_decode(pool, meta, W)
+    torch.cuda.synchronize()
+    assert mp3_huff.HUFF_LAUNCHES == before + 1
+    assert q.device.type == "cuda" and q.dtype == torch.int32
+    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W)
+    assert torch.equal(q, qt) and torch.equal(err, errt)
+
+
+def test_mp3_huff_kernel_rejects_bad_arguments(cuda):
+    from audio_formats_torch.ops import mp3_huff
+
+    rng = np.random.default_rng(5)
+    pool, meta = (torch.from_numpy(a).to(cuda)
+                  for a in mp3_random_lanes(rng, 16, 20))
+    for bad in ((pool, meta.to(torch.int32), 20), (pool.cpu(), meta, 20),
+                (pool.to(torch.int64), meta, 20),
+                (pool, meta.t().contiguous().t(), 20), (pool, meta, 1000)):
+        with pytest.raises(ValueError):
+            mp3_huff.huff_decode_cuda(*bad)
+
+
+def _mp3_streams():
+    """Golden MP3 streams with PCM in [-1, 1]: mono, LR stereo with short
+    blocks and linbits escapes, MS, intensity, a 3-window stream."""
+    from golden import mp3_ref
+
+    rng = np.random.default_rng(12)
+
+    def stream(channels, n_frames, mode_ext=None):
+        frames = []
+        for i in range(n_frames):
+            grs = []
+            for g in range(2):
+                q = np.zeros(576, np.int64)
+                idx = rng.choice(400, 60, replace=False)
+                q[idx] = rng.integers(-40, 41, 60)
+                q[rng.choice(100, 4, replace=False)] = \
+                    rng.integers(-900, 901, 4)
+                gr = {"q": q, "global_gain": 146}
+                if i % 5 == 3:
+                    gr["block_type"] = 2
+                chans = [dict(gr) for _ in range(channels)]
+                if channels == 2:
+                    qr = q.copy()
+                    qr[200:] = 0
+                    chans[1]["q"] = qr
+                grs.append(chans)
+            frames.append(grs)
+        return mp3_ref.build_mp3(frames, channels=channels,
+                                 mode_ext=mode_ext)
+
+    return [stream(1, 12), stream(2, 12), stream(2, 12, 2),
+            stream(2, 12, [1, 3, 0, 2] * 3), stream(2, 55, 2)]
+
+
+def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
+    from audio_formats_torch.ops import mp3_huff
+
+    streams = _mp3_streams()
+    before = mp3_huff.HUFF_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda)
+    res = dec.decode_all(output="device")
+    for kind, wins in res.windows():
+        assert kind == "mp3" and all(w.device.type == "cuda" for w in wins)
+    got = res.sync().to_numpy()
+    assert dec.stats["group_demotions"] == 0
+    assert mp3_huff.HUFF_LAUNCHES - before == dec.stats["windows"]
+    want = BatchDecoder(streams, device="cpu").decode_all()
+    got_np = BatchDecoder(streams, device=cuda).decode_all()
+    for a, b, c in zip(got, want, got_np):
+        assert a.shape == b.shape and np.abs(b).max() <= 1.0
+        # the same torch ops on the card and the CPU: sums in another order
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(c, a)
+
+
+def test_mp3_facade_cuda_state_moves_to_cpu(cuda):
+    """The facade on the card reads part of a stream; its carried state
+    (tensors on the card) loads into a CPU decoder, which reads the rest:
+    together equal to one whole CPU read."""
+    from audio_formats_torch.io.source import MemorySource
+    from audio_formats_torch.models import mp3 as tmp3
+
+    data = _mp3_streams()[3]
+    whole = tmp3.Mp3Decoder(MemorySource(data), device="cpu").read(10 ** 6)
+    dec = tmp3.Mp3Decoder(MemorySource(data), device=cuda)
+    first = dec.read(5 * 1152 + 333)
+    assert dec._overlap.device.type == "cuda"
+    rest_dec = tmp3.Mp3Decoder(MemorySource(data), device="cpu")
+    tmp3.load_state(rest_dec, tmp3.save_state(dec))
+    got = np.concatenate([first, rest_dec.read(10 ** 6)])
+    assert got.shape == whole.shape and np.abs(whole).max() > 0.05
+    np.testing.assert_allclose(got, whole, rtol=0, atol=1e-5)
+
+
+def test_mp3_kernel_launch_failure_raises(cuda, monkeypatch):
+    """A failing Huffman launch makes decode_all raise: no lane is demoted
+    to the facade, whose Huffman decode runs on the host."""
+    import types
+
+    from audio_formats_torch.ops import _kernels
+
+    monkeypatch.setitem(_kernels._libs, "mp3_huff", types.SimpleNamespace(
+        af_mp3_huff=lambda *args: 700))
+    dec = BatchDecoder(_mp3_streams()[:2], device=cuda)
+    with pytest.raises(_kernels.KernelError, match="CUDA error 700"):
+        dec.decode_all(output="device")
+    assert dec.stats["group_demotions"] == 0
+
+
+def test_mp3_dsp_refuses_tf32(cuda):
+    from audio_formats_torch.ops import mp3_dsp
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            mp3_dsp.mp3_synth_slots(torch.zeros((1, 1, 4, 32), device=cuda),
+                                    torch.zeros((1, 1, 16, 32), device=cuda),
+                                    nch=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
