@@ -16,8 +16,9 @@ take the exact sum.
 
 ``flac_lpc`` dispatches on the tensor's device: a CPU tensor takes the plain
 twin ``flac_lpc_torch``; a CUDA tensor takes the hand-written kernel
-(``csrc/flac_lpc.cu``) or raises.  ``KERNEL_LAUNCHES`` counts the kernel's
-launches.
+(``csrc/flac_lpc.cu``), its lanes grouped by kind by a plan kernel whose
+plain twin is ``lpc_lane_perm``, or raises.  ``KERNEL_LAUNCHES`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -114,11 +115,33 @@ def flac_lpc_torch(residual, coeffs, order, shift, exact=None):
     return out
 
 
+def lpc_lane_key(coeffs, order, exact, B: int) -> torch.Tensor:
+    """Each lane's kind, the key the CUDA kernel's warps are grouped by:
+    0 for a lane that only copies its residual (order >= B, or no nonzero
+    coefficient), else 2·b - 1 + exact for tap bucket b = 1..5 (its last
+    nonzero coefficient within 4, 8, 12, 16 or 32 taps).  [L] int64."""
+    taps = torch.where(coeffs != 0, torch.arange(1, MAX_ORDER + 1,
+                                                 device=coeffs.device), 0)
+    taps = torch.where(order >= B, 0, taps.amax(1))
+    b = ((taps + 3) >> 2).clamp(max=5)
+    return torch.where(b == 0, 0, 2 * b - 1 + exact.to(torch.int64))
+
+
+def lpc_lane_perm(coeffs, order, exact, B: int) -> torch.Tensor:
+    """A permutation of the lanes that groups them by lpc_lane_key (stable
+    within a kind), so that 16 consecutive lanes, one warp of the kernel,
+    are nearly always of one kind.  [L] int32 on the lanes' device.  The
+    plain twin of lpc_plan_cuda, which the CUDA path takes."""
+    key = lpc_lane_key(coeffs, order, exact, B)
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
 def flac_lpc_cuda(residual, coeffs, order, shift, exact):
     """Launch the CUDA LPC kernel (csrc/flac_lpc.cu) on the tensors' card,
-    on that card's current stream.  Every argument must already lie on
-    one CUDA device, contiguous, with the dtypes of the flac_lpc contract."""
-    global KERNEL_LAUNCHES
+    on that card's current stream, its lanes grouped by kind (the plan
+    kernel, the card's lpc_lane_perm).  Every argument must already lie on
+    one CUDA device, contiguous, with the dtypes of the flac_lpc
+    contract."""
     if residual.dim() != 2:
         raise _kernels.KernelArgError("flac_lpc: residual must be [L, B]")
     L, B = residual.shape
@@ -133,15 +156,71 @@ def flac_lpc_cuda(residual, coeffs, order, shift, exact):
     out = torch.empty_like(residual)
     if L == 0 or B == 0:
         return out
+    perm = torch.empty(L, dtype=torch.int32, device=dev)
     lib = _kernels.load("flac_lpc")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.af_flac_lpc(
-            residual.data_ptr(), coeffs.data_ptr(), order.data_ptr(),
-            shift.data_ptr(), exact.data_ptr(), out.data_ptr(), L, B, stream)
+        _plan(lib, stream, coeffs, order, exact, perm, B)
+        _launch(lib, stream, residual, coeffs, order, shift, exact, perm, out)
+    return out
+
+
+def _plan(lib, stream, coeffs, order, exact, perm, B):
+    L = coeffs.shape[0]
+    scratch = torch.empty(lib.af_flac_lpc_plan_scratch(L), dtype=torch.int32,
+                          device=coeffs.device)
+    rc = lib.af_flac_lpc_plan(coeffs.data_ptr(), order.data_ptr(),
+                              exact.data_ptr(), scratch.data_ptr(),
+                              perm.data_ptr(), L, B, stream)
+    _kernels.check_launch("flac_lpc plan", rc)
+
+
+def _launch(lib, stream, residual, coeffs, order, shift, exact, perm, out):
+    global KERNEL_LAUNCHES
+    L, B = residual.shape
+    rc = lib.af_flac_lpc(residual.data_ptr(), coeffs.data_ptr(),
+                         order.data_ptr(), shift.data_ptr(), exact.data_ptr(),
+                         perm.data_ptr(), out.data_ptr(), L, B, stream)
     _kernels.check_launch("flac_lpc", rc)
     with _launch_lock:
         KERNEL_LAUNCHES += 1
+
+
+def lpc_plan_cuda(coeffs, order, exact, B: int) -> torch.Tensor:
+    """The plan alone (csrc/flac_lpc.cu af_flac_lpc_plan, three small
+    launches): the lane grouping of flac_lpc_cuda, lpc_lane_perm on the
+    card.  Arguments as flac_lpc_cuda takes them."""
+    L = coeffs.shape[0]
+    dev = coeffs.device
+    _kernels.check_args("flac_lpc plan", dev, (
+        ("coeffs", coeffs, (torch.int32,), (L, MAX_ORDER)),
+        ("order", order, (torch.int32,), (L,)),
+        ("exact", exact, (torch.bool,), (L,)),
+    ))
+    perm = torch.empty(L, dtype=torch.int32, device=dev)
+    if L:
+        lib = _kernels.load("flac_lpc")
+        with torch.cuda.device(dev):
+            _plan(lib, torch.cuda.current_stream(dev).cuda_stream, coeffs,
+                  order, exact, perm, B)
+    return perm
+
+
+def flac_lpc_launch(residual, coeffs, order, shift, exact, perm, out):
+    """The LPC kernel's launch alone, into `out`, with the lanes in the
+    order of `perm` ([L] int32, a permutation of the lanes): flac_lpc_cuda
+    without its plan.  The arguments as flac_lpc_cuda checked them.
+    Returns out."""
+    L, B = residual.shape
+    dev = residual.device
+    _kernels.check_args("flac_lpc", dev, (
+        ("perm", perm, (torch.int32,), (L,)),
+        ("out", out, (torch.int32,), (L, B)),
+    ))
+    lib = _kernels.load("flac_lpc")
+    with torch.cuda.device(dev):
+        _launch(lib, torch.cuda.current_stream(dev).cuda_stream, residual,
+                coeffs, order, shift, exact, perm, out)
     return out
 
 

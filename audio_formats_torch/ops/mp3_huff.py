@@ -10,7 +10,9 @@ bitstream, so a window's lanes decode in lockstep:
   sign bits, then count1 quads), the counterpart of the JAX package's
   ``_huff_core`` (minimp3.d:748-883, af_host.cc af_mp3_huffman).  A CUDA
   tensor takes the hand-written kernel of ``csrc/mp3_huff.cu`` (one thread
-  a lane, direct table lookups in shared memory) or raises; a CPU tensor
+  a lane, lanes ordered by pair count by a plan on the card whose twin is
+  ``huff_lane_perm``, direct table lookups in shared memory) or raises; a
+  CPU tensor
   takes the plain twin ``huff_decode_torch``.  ``HUFF_LAUNCHES`` counts the
   kernel's launches.
 * ``dequant``, ``reorder_short``, ``_intensity_abcd`` and
@@ -343,6 +345,15 @@ def huff_decode_torch(pool, meta16, W: int):
     huff_decode.  A Python loop over steps, the lanes side by side, with
     per-lane table lookups by gather (int64 holding u32 words): the test
     oracle and the on-card comparison, never the CUDA main path."""
+    q, err, _steps = huff_decode_steps(pool, meta16, W)
+    return q, err
+
+
+def huff_decode_steps(pool, meta16, W: int):
+    """huff_decode_torch, and the steps each lane's FSM runs in the kernel
+    ([L] int64: its big-values pairs plus its count1 iterations, the one
+    that stops included): what the lanes of a warp wait on each other
+    for."""
     dev = meta16.device
     L = meta16.shape[0]
     m = meta16.to(torch.int64)
@@ -365,8 +376,9 @@ def huff_decode_torch(pool, meta16, W: int):
     q = torch.zeros((L, 576), dtype=torch.int32, device=dev)
     err = torch.zeros(L, dtype=torch.bool, device=dev)
     if L == 0:
-        return q, err
+        return q, err, torch.zeros(0, dtype=torch.int64, device=dev)
     bv = m[:, M_BV]
+    steps = torch.clamp(bv, 0, 288)
     pattern = m[:, M_PATTERN]
     max_pos = (W - 3) * 32
     bop = torch.from_numpy(BAND_OF_PAIR).to(dev, torch.int64)
@@ -420,6 +432,7 @@ def huff_decode_torch(pool, meta16, W: int):
         live = (~stopped) & (s0 <= 572)
         if not bool(live.any()):
             break
+        steps = steps + live.to(torch.int64)
         a, b, c, sh = window(pos)
         e = blob[c1 + (_shift64(a, b, sh) >> 26)]
         ln, vmask = e & 7, (e >> 8) & 15
@@ -436,14 +449,25 @@ def huff_decode_torch(pool, meta16, W: int):
             o = o + take.to(torch.int64)
         pos = torch.where(act, torch.clamp(pos + o - sh, max=max_pos), pos)
         stopped = stopped | ~bit_ok | (s0 + 2 >= tw)
-    return q, err
+    return q, err, steps
+
+
+def huff_lane_perm(meta16) -> torch.Tensor:
+    """A permutation of the lanes by their big-values pair count (stable),
+    so that the 32 lanes of one warp of the kernel run about as many steps
+    each: the pairs are nearly all of a lane's steps (count1 ran ~1 step a
+    lane on the MP3 slice's window).  [L] int32 on meta16's device.  The
+    plain twin of the lane order huff_plan_cuda makes on the card."""
+    npairs = meta16[:, M_BV].clamp(0, 288)
+    return torch.argsort(npairs, stable=True).to(torch.int32)
 
 
 def huff_decode_cuda(pool, meta16, W: int):
     """Launch the CUDA Huffman kernel (csrc/mp3_huff.cu) on the tensors'
-    card, on that card's current stream.  pool [N] int32 and meta16
-    [L, 16] int16, contiguous on one CUDA device."""
-    global HUFF_LAUNCHES
+    card, on that card's current stream, after its plan (each lane's first
+    pool word and the lane order of huff_lane_perm, made on the card).
+    pool [N] int32 and meta16 [L, 16] int16, contiguous on one CUDA
+    device."""
     dev = meta16.device
     L = meta16.shape[0] if meta16.dim() == 2 else -1
     _kernels.check_args("huff_decode", dev, (
@@ -458,19 +482,75 @@ def huff_decode_cuda(pool, meta16, W: int):
     err = torch.empty(L, dtype=torch.bool, device=dev)
     if L == 0:
         return q, err
-    offs = _lane_offsets(meta16[:, M_SPAN]).to(torch.int32)
-    blob = device_const(HUFF_BLOB, dev)
+    offs = torch.empty(L, dtype=torch.int32, device=dev)
+    perm = torch.empty(L, dtype=torch.int32, device=dev)
     lib = _kernels.load("mp3_huff")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.af_mp3_huff(pool.data_ptr(), offs.data_ptr(),
-                             meta16.data_ptr(), blob.data_ptr(),
-                             blob.shape[0], L, W, q.data_ptr(),
-                             err.data_ptr(), stream)
+        _plan(lib, stream, meta16, offs, perm)
+        _launch(lib, stream, pool, meta16, W, offs, perm, q, err)
+    return q, err
+
+
+def huff_plan_cuda(meta16):
+    """The plan alone (csrc/mp3_huff.cu af_mp3_huff_plan, three small
+    launches): each lane's first pool word (the exclusive cumsum of the
+    spans, int32) and the lane order of huff_lane_perm, made on the card.
+    meta16 as huff_decode_cuda takes it.  Returns (offs, perm), [L] int32
+    each."""
+    dev = meta16.device
+    L = meta16.shape[0] if meta16.dim() == 2 else -1
+    _kernels.check_args("huff_decode plan", dev, (
+        ("meta16", meta16, (torch.int16,), (L, 16)),))
+    offs = torch.empty(L, dtype=torch.int32, device=dev)
+    perm = torch.empty(L, dtype=torch.int32, device=dev)
+    if L:
+        lib = _kernels.load("mp3_huff")
+        with torch.cuda.device(dev):
+            _plan(lib, torch.cuda.current_stream(dev).cuda_stream, meta16,
+                  offs, perm)
+    return offs, perm
+
+
+def huff_launch(pool, meta16, W: int, offs, perm, q, err):
+    """The kernel's launch alone, into q and err, given each lane's first
+    pool word (offs [L] int32) and the lane order (perm [L] int32, a
+    permutation of the lanes): huff_decode_cuda without its plan.  The
+    other arguments as huff_decode_cuda checked them.  Returns (q, err)."""
+    L = meta16.shape[0]
+    dev = meta16.device
+    _kernels.check_args("huff_decode", dev, (
+        ("offs", offs, (torch.int32,), (L,)),
+        ("perm", perm, (torch.int32,), (L,)),
+        ("q", q, (torch.int32,), (L, 576)),
+        ("err", err, (torch.bool,), (L,)),
+    ))
+    lib = _kernels.load("mp3_huff")
+    with torch.cuda.device(dev):
+        _launch(lib, torch.cuda.current_stream(dev).cuda_stream, pool,
+                meta16, W, offs, perm, q, err)
+    return q, err
+
+
+def _plan(lib, stream, meta16, offs, perm):
+    L = meta16.shape[0]
+    scratch = torch.empty(lib.af_mp3_huff_plan_scratch(L), dtype=torch.int32,
+                          device=meta16.device)
+    rc = lib.af_mp3_huff_plan(meta16.data_ptr(), L, scratch.data_ptr(),
+                              offs.data_ptr(), perm.data_ptr(), stream)
+    _kernels.check_launch("huff_decode plan", rc)
+
+
+def _launch(lib, stream, pool, meta16, W, offs, perm, q, err):
+    global HUFF_LAUNCHES
+    blob = device_const(HUFF_BLOB, meta16.device)
+    rc = lib.af_mp3_huff(pool.data_ptr(), offs.data_ptr(), meta16.data_ptr(),
+                         perm.data_ptr(), blob.data_ptr(), blob.shape[0],
+                         meta16.shape[0], W, q.data_ptr(), err.data_ptr(),
+                         stream)
     _kernels.check_launch("huff_decode", rc)
     with _launch_lock:
         HUFF_LAUNCHES += 1
-    return q, err
 
 
 # ----------------------------------------------------- dequant and stereo

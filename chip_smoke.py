@@ -9,14 +9,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the C host entropy stage loads;
 2. build  — nvcc builds every CUDA kernel from csrc/, all at once;
 3. kernel — each kernel against its plain PyTorch twin on the card at the
-   main path's shape, bit for bit, both timed: the LPC kernel at 12,288
-   lanes x 4,096 samples (and against the exact int64 host oracle on a
-   subset of lanes); the QOA decode kernel at 8,192 x 5,120 in both input
-   forms (int32 residuals, int8 scalefactors and codes); the QOA encode
-   search at 2,048 x 5,120 with frame lengths around slice edges and
-   full-scale square waves; the MP3 Huffman kernel at one full window of
-   the MP3 slice (98,304 granule-channel lanes parsed by the C stage from
-   the MP3 corpus) and on random-bit lanes at two row widths;
+   main path's shape, bit for bit, both timed, each beside its bound (the
+   least time for its bytes or its int32 operations on an H100 SXM): the
+   LPC kernel at 12,288 random lanes x 4,096 samples (and against the
+   exact int64 host oracle on a subset of lanes), and again at the FLAC
+   slice's own first window (phase 4 keeps that call's arguments); the QOA
+   decode kernel at 8,192 x 5,120 in both input forms (int32 residuals,
+   int8 scalefactors and codes); the QOA encode search at 2,048 x 5,120
+   with frame lengths around slice edges and full-scale square waves; the
+   MP3 Huffman kernel at one full window of the MP3 slice (98,304
+   granule-channel lanes parsed by the C stage from the MP3 corpus) and on
+   random-bit lanes at two row widths.  The LPC and Huffman kernels are
+   timed through their wrappers, alone, and by their lane grouping;
 4. FLAC   — ``BatchDecoder(streams, device="cuda").decode_all(output="device")``
    over 512 FLAC lanes cut from 16 synthetic masters (16-bit stereo 44.1 kHz
    mid/side LPC-8, block 4096, 6-10 s), then ``.sync()``; the PCM stays on
@@ -46,9 +50,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Layer I and II, a corrupt MP3 lane, FLAC and QOA lanes in one batch:
    every lane within 1e-4 of the port's own device="cpu" decode.
 
-Prints a JSON line with the kernels' launches, errors and times, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX or of the JAX package, and checks so before the result.
+Prints a JSON line with the kernels' launches, errors, times and bounds,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX or of the JAX package, and checks so
+before the result.
+
+    python3 chip_smoke.py --ab DIR     # on the card
+    python3 chip_smoke.py --divergence # on the CPU
+
+``--ab`` times the Huffman and LPC kernels of this tree against those built
+from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
+``git archive``), parent / change / change / parent in one process, and
+the MP3 and FLAC slices with either side's kernel; it prints no result
+line.  ``--divergence`` counts each lane's Huffman FSM steps on one MP3
+window with the twin and prints the warp ratio in the window's order and
+in the order the Huffman wrapper gives the kernel.
 """
 
 import json
@@ -407,7 +423,97 @@ def time_cuda(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def time_host(fn, reps=20):
+    """The host's time to enqueue one call, in ms: where it exceeds the
+    card's time, back-to-back calls leave the card waiting, and time_cuda
+    of the call measures the host."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its integer operations over the INT32 rate.  NVIDIA H100 SXM:
+# 3.35 TB/s of HBM3; 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7 T
+# int32 operations/s (a multiply-add counted as one), at a 700 W limit.
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+HUFF_STEP_OPS = 40    # int operations of one K3 step (lookups, shifts, selects)
+LMS_STEP_OPS = 12     # K2: 4 multiply-adds, 4 weight updates, shift, clamp
+QOA_ENC_OPS = 30      # K5: one candidate's step (predict, divide, quantize,
+                      # dequantize, clamp, error, update)
+
+
+def bound(nbytes, ops):
+    """{"bound_ms", "bound_by"} of a kernel that moves nbytes and does ops
+    int32 operations."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / INT32_OPS_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def lpc_work(targs):
+    """(bytes, multiply-adds) of K1 on these lanes: the residual in and
+    the samples out, the lane parameters; each predicted step's taps up to
+    the lane's last nonzero coefficient."""
+    import torch
+
+    residual, coeffs, order, _, _ = targs
+    L, B = residual.shape
+    taps = torch.where(coeffs != 0, torch.arange(1, 33, device=coeffs.device),
+                       0).amax(1)
+    steps = (B - order.to(torch.int64)).clamp(min=0)
+    macs = int((steps * taps).sum())
+    return 2 * residual.numel() * 4 + L * (32 * 4 + 4 + 4 + 1), macs
+
+
+def time_lpc(targs, reps=20):
+    """K1 at these lanes: the wrapper (the plan kernel's lane grouping and
+    the launch), the launch alone with the grouping made beforehand, and
+    the plan kernel alone, in ms."""
+    import torch
+    from audio_formats_torch.ops import lpc
+
+    B = targs[0].shape[1]
+    for _ in range(3):
+        lpc.flac_lpc(*targs)
+    ms = time_cuda(lambda: lpc.flac_lpc(*targs), reps)
+    perm = lpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B)
+    out = torch.empty_like(targs[0])
+    kernel_ms = time_cuda(lambda: lpc.flac_lpc_launch(*targs, perm, out), reps)
+    plan_ms = time_cuda(
+        lambda: lpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B), reps)
+    return ms, kernel_ms, plan_ms, time_host(lambda: lpc.flac_lpc(*targs))
+
+
+def check_lpc(targs):
+    """K1 against its twin on these lanes, bit for bit.  Returns (the
+    kernel's output, the twin's time in ms)."""
+    import torch
+    from audio_formats_torch.ops import lpc
+
+    got = lpc.flac_lpc(*targs)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(lpc.flac_lpc_torch(*targs)), 1)
+    err = int((got.to(torch.int64) - want[0].to(torch.int64)).abs().max())
+    if not torch.equal(got, want[0]):
+        raise AssertionError(f"LPC kernel != twin: max abs err {err}")
+    return got, plain_ms
+
+
 def phase_kernel(card, L=L_KERNEL, B=B_KERNEL, n_sig=256):
+    """K1 on random lanes (every order, shift and kind; the window PRs 1-3
+    timed), bit-equal to the twin, and to the int64 host oracle on the
+    signal lanes."""
     import torch
     from audio_formats_torch.ops import lpc
 
@@ -415,27 +521,48 @@ def phase_kernel(card, L=L_KERNEL, B=B_KERNEL, n_sig=256):
     args, sig = kernel_lanes(rng, L, B, n_sig)
     dev = torch.device("cuda")
     targs = [torch.from_numpy(a).to(dev) for a in args]
-    got = lpc.flac_lpc(*targs)
-    torch.cuda.synchronize()
-    want = lpc.flac_lpc_torch(*targs)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"LPC kernel != twin: max abs err {err}")
+    got, plain_ms = check_lpc(targs)
     sub = got[:n_sig].cpu().numpy()
     # drflac stores the exact sum's sample into int32
     oracle = lpc.flac_lpc_np(*(a[:n_sig] for a in args[:4])).astype(np.int32)
     if not (np.array_equal(sub, oracle) and np.array_equal(sub, sig)):
         raise AssertionError("LPC kernel != int64 host oracle on the "
                              "signal lanes")
-    for _ in range(3):
-        lpc.flac_lpc(*targs)
-    ms = time_cuda(lambda: lpc.flac_lpc(*targs), 20)
-    plain_ms = time_cuda(lambda: lpc.flac_lpc_torch(*targs), 1)
-    print(f"# kernel flac_lpc L={L} B={B}: bit-equal to the twin on all "
-          f"lanes, to the int64 oracle on {n_sig}; kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.1f} ms [{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    ms, kernel_ms, plan_ms, host_ms = time_lpc(targs)
+    b = bound(*lpc_work(targs))
+    print(f"# kernel flac_lpc, random lanes L={L} B={B}: bit-equal to the "
+          f"twin on all lanes, to the int64 oracle on {n_sig}; wrapper "
+          f"{ms:.4f} ms (its host enqueue {host_ms:.4f} ms), kernel alone "
+          f"{kernel_ms:.4f} ms, plan {plan_ms:.4f} ms, twin "
+          f"{plain_ms:.1f} ms; bound_ms "
+          f"{b['bound_ms']:.4f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} [{card}]")
+    return {"random_ms": ms, "random_kernel_ms": kernel_ms,
+            "random_bound_ms": b["bound_ms"], "random_plain_ms": plain_ms}
+
+
+def phase_flac_kernel(card, targs):
+    """K1 at the FLAC slice's own window (the arguments of the slice's
+    first flac_lpc call), bit-equal to the twin, timed."""
+    from audio_formats_torch.ops import lpc
+
+    L, B = targs[0].shape
+    _, plain_ms = check_lpc(targs)
+    ms, kernel_ms, plan_ms, host_ms = time_lpc(targs)
+    nbytes, macs = lpc_work(targs)
+    b = bound(nbytes, macs)
+    kinds = np.bincount(lpc.lpc_lane_key(targs[1], targs[2], targs[4], B)
+                        .cpu().numpy(), minlength=11)
+    print(f"# kernel flac_lpc, the FLAC slice's first window L={L} B={B} "
+          f"(lanes by kind {kinds.tolist()}, {macs} multiply-adds): "
+          f"bit-equal to the twin; wrapper {ms:.4f} ms, kernel alone "
+          f"{kernel_ms:.4f} ms, plan {plan_ms:.4f} ms, host enqueue "
+          f"{host_ms:.4f} ms, twin "
+          f"{plain_ms:.1f} ms; bound_ms {b['bound_ms']:.4f} "
+          f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "kernel_ms": kernel_ms,
+            "plan_ms": plan_ms, "host_ms": host_ms, "plain_ms": plain_ms, **b,
+            "library_ms": None, "share": b["bound_ms"] / ms}
 
 
 def phase_qoa_kernels(card):
@@ -473,9 +600,15 @@ def phase_qoa_kernels(card):
         lms.decode_slices(h, w, sf, codes)
     dec_ms = time_cuda(lambda: lms.decode_slices(h, w, sf, codes), 20)
     dec_deq_ms = time_cuda(lambda: lms.qoa_decode(h, w, deq), 20)
+    # the int8 form: scalefactors and codes in, history and weights in,
+    # samples out
+    dec_b = bound(sf.numel() + codes.numel() + 2 * L * 16 + L * QOA_FRAME * 4,
+                  L * QOA_FRAME * LMS_STEP_OPS)
     print(f"# kernel qoa_decode L={L} T={QOA_FRAME}: both forms bit-equal to "
           f"the twin; int8 sf/codes {dec_ms:.4f} ms, int32 residuals "
-          f"{dec_deq_ms:.4f} ms, twin {dec_plain_ms:.1f} ms [{card}]")
+          f"{dec_deq_ms:.4f} ms, twin {dec_plain_ms:.1f} ms; bound_ms "
+          f"{dec_b['bound_ms']:.4f} ({dec_b['bound_by']}), share "
+          f"{dec_b['bound_ms'] / dec_ms:.3f} [{card}]")
 
     # encode: full-scale squares (qoa_div's int32 product overflows),
     # noise and tones; frame lengths around slice edges; carried and
@@ -520,11 +653,21 @@ def phase_qoa_kernels(card):
     for _ in range(3):
         lms.qoa_encode_cuda(*args)
     enc_ms = time_cuda(lambda: lms.qoa_encode_cuda(*args), 20)
+    # 16 candidates run each sample of a frame; int16 samples and the
+    # states in, slice words and the states out
+    enc_b = bound(x.size * 2 + L * 32 + L * 256 * 8 + L * 32,
+                  int(flen.sum()) * 16 * QOA_ENC_OPS)
     print(f"# kernel qoa_encode L={L} T={QOA_FRAME}: words, scalefactors, "
           f"codes, history' and weights' equal to the twin; kernel "
-          f"{enc_ms:.4f} ms, twin {enc_plain_ms:.1f} ms [{card}]")
-    return ({"max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms},
-            {"max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms})
+          f"{enc_ms:.4f} ms, twin {enc_plain_ms:.1f} ms; bound_ms "
+          f"{enc_b['bound_ms']:.4f} ({enc_b['bound_by']}), share "
+          f"{enc_b['bound_ms'] / enc_ms:.3f} [{card}]")
+    return ({"max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+             **dec_b, "library_ms": None,
+             "share": dec_b["bound_ms"] / dec_ms},
+            {"max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
+             **enc_b, "library_ms": None,
+             "share": enc_b["bound_ms"] / enc_ms})
 
 
 def decode_checked(streams, expect, device, corrupt=(), tol=0.0):
@@ -835,24 +978,66 @@ def mp3_random_lanes(rng, L, W):
     return pool.view(np.int32), meta
 
 
+def warp_step_ratio(steps, order=None):
+    """What divergence costs K3: the sum over warps of the longest lane's
+    steps against the sum of all steps / 32, for the lanes taken in
+    `order` (the window's own order when None)."""
+    s = np.asarray(steps, np.int64)
+    if order is not None:
+        s = s[np.asarray(order)]
+    s = np.concatenate([s, np.zeros(-s.size % 32, np.int64)])
+    return float(s.reshape(-1, 32).max(1).sum() / max(s.sum() / 32, 1))
+
+
+def divergence(workers=4):
+    """CPU only: the step counts of one 98,304-lane window of the MP3
+    slice (the twin's count of each lane's big-values pairs and count1
+    iterations) and the warp ratio in the window's order, sorted by the
+    steps, and in the order the K3 wrapper gives the kernel
+    (mp3_huff.huff_lane_perm, from the side info alone).  Prints one
+    line."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from audio_formats_torch.ops import mp3_huff
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
+        masters = list(ex.map(mp3_master, range(MP3_MASTERS)))
+    streams, _ = mp3_corpus(masters)
+    pool, meta16, W = mp3_window(streams)
+    _, _, steps = mp3_huff.huff_decode_steps(
+        torch.from_numpy(pool), torch.from_numpy(meta16), W)
+    steps = steps.numpy()
+    perm = mp3_huff.huff_lane_perm(torch.from_numpy(meta16)).numpy()
+    print(f"# K3 divergence, one MP3 window (L={steps.size}, W={W}): steps "
+          f"a lane mean {steps.mean():.1f}, max {steps.max()}; warp max / "
+          f"mean: window order {warp_step_ratio(steps):.4f}, sorted by "
+          f"steps {warp_step_ratio(steps, np.argsort(steps, kind='stable')):.4f}"
+          f", in the wrapper's order {warp_step_ratio(steps, perm):.4f}")
+
+
 def phase_mp3_kernel(card, streams):
     """The Huffman kernel against its twin at one full window of the MP3
-    slice (timed, both), and on random-bit lanes at two row widths."""
+    slice (timed: the wrapper, the launch alone, its plan alone, the host's
+    enqueue, the twin), and on random-bit lanes at two row widths."""
     import torch
     from audio_formats_torch.ops import mp3_huff
 
     dev = torch.device("cuda")
     pool, meta16, W = mp3_window(streams)
+    L = meta16.shape[0]
     p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
     # the kernel's q comes from torch.empty: hand it a block of -7s, so a
     # position the kernel does not write shows in the comparison
-    torch.full((meta16.shape[0], 576), -7, dtype=torch.int32, device=dev)
+    torch.full((L, 576), -7, dtype=torch.int32, device=dev)
     q, err = mp3_huff.huff_decode(p_d, m_d, W)
     torch.cuda.synchronize()
     want = []
     plain_ms = time_cuda(
-        lambda: want.append(mp3_huff.huff_decode_torch(p_d, m_d, W)), 1)
-    qt, errt = want[0]
+        lambda: want.append(mp3_huff.huff_decode_steps(p_d, m_d, W)), 1)
+    qt, errt, steps = want[0]
     max_err = int((q.long() - qt.long()).abs().max())
     if not (torch.equal(q, qt) and torch.equal(err, errt)):
         raise AssertionError(f"MP3 Huffman kernel != twin on the corpus "
@@ -873,12 +1058,37 @@ def phase_mp3_kernel(card, streams):
     for _ in range(3):
         mp3_huff.huff_decode(p_d, m_d, W)
     ms = time_cuda(lambda: mp3_huff.huff_decode(p_d, m_d, W), 20)
-    print(f"# kernel mp3_huff L={meta16.shape[0]} W={W} (one MP3 window, "
-          f"{pool.size} pool words, {nz} nonzero q): bit-equal to the twin, "
-          f"and on 2 x 16,384 random-bit lanes at W=20 and 136; kernel "
-          f"{ms:.4f} ms (it writes every q position itself), twin "
-          f"{plain_ms:.1f} ms [{card}]")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+    offs, perm = mp3_huff.huff_plan_cuda(m_d)
+    if not (torch.equal(perm, mp3_huff.huff_lane_perm(m_d)) and torch.equal(
+            offs, mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN])
+            .to(torch.int32))):
+        raise AssertionError("MP3 Huffman plan != its twins")
+    q2 = torch.empty_like(q)
+    e2 = torch.empty_like(err)
+    kernel_ms = time_cuda(
+        lambda: mp3_huff.huff_launch(p_d, m_d, W, offs, perm, q2, e2), 20)
+    plan_ms = time_cuda(lambda: mp3_huff.huff_plan_cuda(m_d), 20)
+    host_ms = time_host(lambda: mp3_huff.huff_decode(p_d, m_d, W))
+    steps_np = steps.cpu().numpy()
+    ratio = warp_step_ratio(steps_np)
+    ratio_perm = warp_step_ratio(steps_np, perm.cpu().numpy())
+    # q and err out; pool words and meta in
+    b = bound(L * 576 * 4 + L + pool.size * 4 + L * 32,
+              int(steps_np.sum()) * HUFF_STEP_OPS)
+    print(f"# kernel mp3_huff L={L} W={W} (one MP3 window, {pool.size} pool "
+          f"words, {nz} nonzero q, {int(steps_np.sum())} steps, warp max / "
+          f"mean {ratio:.4f} in the window's order, {ratio_perm:.4f} in the "
+          f"wrapper's): bit-equal to the twin, and on 2 x 16,384 random-bit "
+          f"lanes at W=20 and 136; wrapper {ms:.4f} ms (its host enqueue "
+          f"{host_ms:.4f} ms), kernel alone "
+          f"{kernel_ms:.4f} ms, plan (offsets and lane order, equal to "
+          f"their twins) {plan_ms:.4f} ms, twin "
+          f"{plain_ms:.1f} ms; bound_ms {b['bound_ms']:.4f} "
+          f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} [{card}]")
+    return {"max_abs_err": max_err, "ms": ms, "kernel_ms": kernel_ms,
+            "plan_ms": plan_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            **b, "library_ms": None, "share": b["bound_ms"] / ms}
 
 
 def phase_mp3(card, streams, info, masters):
@@ -1026,6 +1236,30 @@ def main():
     run_phases(card, mp3_masters)
 
 
+def flac_slice(streams, pcms):
+    """The FLAC slice on the card (decode_checked), with the arguments of
+    its first flac_lpc call kept: the slice's own window of K1, which
+    phase_flac_kernel times.  Holding the tensors costs the run nothing.
+    Returns (decoder, wall seconds, launches by kernel, K1's arguments)."""
+    from audio_formats_torch.ops import lpc
+
+    captured = []
+    flac_lpc = lpc.flac_lpc
+
+    def first_call(*args):
+        if not captured:
+            captured.extend(args)
+        return flac_lpc(*args)
+
+    lpc.flac_lpc = first_call
+    try:
+        dec, wall, launches, _, _ = decode_checked(
+            streams, lambda i: expected_f32(pcms[i], 16), "cuda")
+    finally:
+        lpc.flac_lpc = flac_lpc
+    return dec, wall, launches, captured
+
+
 def run_phases(card, mp3_masters):
     import torch
 
@@ -1039,8 +1273,7 @@ def run_phases(card, mp3_masters):
     print(f"# corpus: {len(streams)} lanes, "
           f"{sum(len(s) for s in streams) / 1e6:.1f} MB, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    dec, wall, launches, _, _ = decode_checked(
-        streams, lambda i: expected_f32(pcms[i], 16), "cuda")
+    dec, wall, launches, captured = flac_slice(streams, pcms)
     if launches["flac_lpc"] != dec.stats["windows"]:
         raise AssertionError(f"LPC launches {launches}")
     st = dec.stats
@@ -1050,6 +1283,9 @@ def run_phases(card, mp3_masters):
           f"h2d_bytes {st['h2d_bytes']}, windows {st['windows']}, "
           f"LPC launches {launches['flac_lpc']}, host_ms "
           f"{st['host_ms']:.0f}, enqueue_ms {st['enqueue_ms']:.0f} [{card}]")
+
+    fres = phase_flac_kernel(card, captured)
+    del captured
 
     # 5. QOA encode, 6. QOA decode
     masters = qoa_masters()
@@ -1101,7 +1337,7 @@ def run_phases(card, mp3_masters):
         {"name": "flac_lpc", "route": "cuda",
          "source": "audio_formats_torch/csrc/flac_lpc.cu",
          "replaces": "audio_formats_tpu/ops/lpc.py:158",
-         "launches": launches["flac_lpc"], **kres},
+         "launches": launches["flac_lpc"], **fres, **kres},
         {"name": "qoa_decode", "route": "cuda",
          "source": "audio_formats_torch/csrc/qoa_lms.cu",
          "replaces": "audio_formats_tpu/ops/lms.py:135",
@@ -1121,5 +1357,161 @@ def run_phases(card, mp3_masters):
         "count": torch.cuda.device_count()}}))
 
 
+def ab_compare(parent):
+    """--ab PARENT: K3 and K1 of this tree against the kernels built from
+    PARENT/audio_formats_torch/csrc (an earlier commit's sources, called
+    through the C entries and wrappers they had then), in one process on
+    one card, in turns parent / change / change / parent: K3's wrapper and
+    launch alone at one 98,304-lane window of the MP3 slice, K1's at the
+    FLAC slice's first window and at the random-lane window of
+    phase_kernel.  Each pair is first held equal, bit for bit.  Prints one
+    line a measurement and the card; no result line."""
+    import ctypes
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from audio_formats_torch.ops import _kernels, lpc, mp3_huff
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: the comparison runs on the card")
+    card = card_line()
+    print(card)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    old_entries = {"flac_lpc": ("af_flac_lpc", [V] * 6 + [I, I, V]),
+                   "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V])}
+
+    def build_parent(name):
+        src = os.path.join(parent, "audio_formats_torch", "csrc", name + ".cu")
+        out = os.path.join(os.path.abspath(parent), "build", name + ".so")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", out,
+                        src], check=True, capture_output=True, timeout=600)
+        fn = getattr(ctypes.CDLL(out), old_entries[name][0])
+        fn.argtypes, fn.restype = old_entries[name][1], ctypes.c_int
+        return fn
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=8, mp_context=ctx) as pool:
+        mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            olds = list(ex.map(build_parent, ("flac_lpc", "mp3_huff")))
+            list(ex.map(_kernels.build, ("flac_lpc", "mp3_huff")))
+        mp3_masters = list(mp3_masters)
+    old_lpc, old_huff = olds
+    dev = torch.device("cuda")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def turns(label, parent_fn, change_fn, reps=20):
+        for fn in (parent_fn, change_fn):
+            for _ in range(3):
+                fn()
+        t = [time_cuda(fn, reps) for fn in (parent_fn, change_fn, change_fn,
+                                            parent_fn)]
+        print(f"# ab {label}: parent {t[0]:.4f} ms, change {t[1]:.4f} ms, "
+              f"change {t[2]:.4f} ms, parent {t[3]:.4f} ms [{card}]")
+
+    # the parent's wrappers: int64 offsets cast to int32, q and err (or
+    # out) from torch.empty; `out` given: the launch alone
+    def huff_old(pool_d, meta_d, Wd, offs=None, out=None):
+        Ld = meta_d.shape[0]
+        if offs is None:
+            offs = mp3_huff._lane_offsets(meta_d[:, mp3_huff.M_SPAN])\
+                .to(torch.int32)
+        q_d, e_d = out or (torch.empty((Ld, 576), dtype=torch.int32,
+                                       device=dev),
+                           torch.empty(Ld, dtype=torch.bool, device=dev))
+        _kernels.check_launch("old huff", old_huff(
+            pool_d.data_ptr(), offs.data_ptr(), meta_d.data_ptr(),
+            blob.data_ptr(), blob.shape[0], Ld, Wd, q_d.data_ptr(),
+            e_d.data_ptr(), stream()))
+        return q_d, e_d
+
+    def lpc_old(residual, coeffs, order, shift, exact, out=None):
+        out = torch.empty_like(residual) if out is None else out
+        _kernels.check_launch("old lpc", old_lpc(
+            residual.data_ptr(), coeffs.data_ptr(), order.data_ptr(),
+            shift.data_ptr(), exact.data_ptr(), out.data_ptr(),
+            *residual.shape, stream()))
+        return out
+
+    # K3 at one window of the MP3 slice
+    mp3_streams = mp3_corpus(mp3_masters)[0]
+    pool, meta16, W = mp3_window(mp3_streams)
+    p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
+    L = meta16.shape[0]
+    blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
+    q_old, e_old = huff_old(p_d, m_d, W)
+    q_new, e_new = mp3_huff.huff_decode(p_d, m_d, W)
+    torch.cuda.synchronize()
+    if not (torch.equal(q_old, q_new) and torch.equal(e_old, e_new)):
+        raise AssertionError("K3: parent and change differ")
+    offs32 = mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN]).to(torch.int32)
+    perm = mp3_huff.huff_lane_perm(m_d)
+    turns(f"mp3_huff wrapper L={L} W={W}", lambda: huff_old(p_d, m_d, W),
+          lambda: mp3_huff.huff_decode(p_d, m_d, W))
+    turns(f"mp3_huff kernel alone L={L} W={W}",
+          lambda: huff_old(p_d, m_d, W, offs32, (q_old, e_old)),
+          lambda: mp3_huff.huff_launch(p_d, m_d, W, offs32, perm, q_new,
+                                       e_new))
+    del q_old, q_new
+
+    # K1 at the FLAC slice's first window and at the random lanes
+    streams, pcms = build_corpus()
+    captured = flac_slice(streams, pcms)[3]
+    rng = np.random.default_rng(2024)
+    rand = [torch.from_numpy(a).to(dev)
+            for a in kernel_lanes(rng, L_KERNEL, B_KERNEL, 256)[0]]
+    for label, targs in (("FLAC slice window", captured),
+                         ("random-lane window", rand)):
+        Lk, B = targs[0].shape
+        got_old = lpc_old(*targs)
+        got_new = lpc.flac_lpc(*targs)
+        torch.cuda.synchronize()
+        if not torch.equal(got_old, got_new):
+            raise AssertionError(f"K1 at the {label}: parent and change "
+                                 "differ")
+        perm = lpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B)
+        turns(f"flac_lpc wrapper, {label} L={Lk} B={B}",
+              lambda: lpc_old(*targs), lambda: lpc.flac_lpc(*targs))
+        turns(f"flac_lpc kernel alone, {label} L={Lk} B={B}",
+              lambda: lpc_old(*targs, out=got_old),
+              lambda: lpc.flac_lpc_launch(*targs, perm, got_new))
+
+    # the slices, each with the parent's kernel swapped in, in turns
+    from audio_formats_torch import BatchDecoder
+
+    def realtime(streams):
+        dec = BatchDecoder(streams, device="cuda")
+        t0 = time.perf_counter()
+        dec.decode_all(output="device").sync()
+        return dec.stats["decoded_seconds"] / (time.perf_counter() - t0)
+
+    def with_kernel(module, name, fn, streams):
+        keep = getattr(module, name)
+        if fn is not None:
+            setattr(module, name, fn)
+        try:
+            return realtime(streams)
+        finally:
+            setattr(module, name, keep)
+
+    for label, module, name, fn, sl in (
+            ("MP3 slice", mp3_huff, "huff_decode", huff_old, mp3_streams),
+            ("FLAC slice", lpc, "flac_lpc", lpc_old, streams)):
+        with_kernel(module, name, None, sl)   # warm
+        r = [with_kernel(module, name, f, sl) for f in (fn, None, None, fn)]
+        print(f"# ab {label} realtime factor: parent {r[0]:.1f}x, change "
+              f"{r[1]:.1f}x, change {r[2]:.1f}x, parent {r[3]:.1f}x [{card}]")
+    print(card)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--divergence"]:
+        divergence()
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        ab_compare(sys.argv[2])
+    else:
+        main()

@@ -41,6 +41,37 @@ def _lanes(rng, L, B):
     return residual, coeffs, order, shift, exact
 
 
+def bucket_lanes(rng, L, B, kinds=range(11)):
+    """Lanes of the kernel's kinds (ops/lpc.py lpc_lane_key): pass-through
+    lanes (order >= B, or no nonzero coefficient), FIXED 1-4, and LPC lanes
+    whose last nonzero coefficient falls in each tap bucket, wrap and exact
+    interleaved, in a random order.  Returns the arguments and each lane's
+    intended kind."""
+    kind = rng.choice(list(kinds), L)
+    order = np.zeros(L, np.int32)
+    coeffs = np.zeros((L, 32), np.int32)
+    exact = np.zeros(L, bool)
+    hi = {1: 4, 2: 8, 3: 12, 4: 16, 5: 32}
+    for l, k in enumerate(kind):
+        if k == 0:
+            order[l] = B + int(rng.integers(0, 3)) if l % 2 else 0
+            if order[l] >= B:
+                coeffs[l, :8] = rng.integers(-99, 99, 8)
+            continue
+        b, exact[l] = (k + 1) // 2, (k + 1) % 2 == 1
+        taps = int(rng.integers(hi.get(b - 1, 0) + 1, hi[b] + 1))
+        if b == 1 and l % 3 == 0:
+            coeffs[l] = tlpc.FIXED_COEFFS[taps]
+        else:
+            lim = 1 << (14 if exact[l] else 9)
+            coeffs[l, :taps] = rng.integers(-lim, lim, taps)
+            coeffs[l, taps - 1] = coeffs[l, taps - 1] or 1
+        order[l] = min(taps + int(rng.integers(0, 3)), B - 1)
+    shift = rng.integers(0, 32, L).astype(np.int32)
+    residual = rng.integers(-(1 << 15), 1 << 15, (L, B)).astype(np.int32)
+    return (residual, coeffs, order, shift, exact), kind
+
+
 @pytest.mark.parametrize("L,B", [(13, 777), (64, 1024), (1000, 96),
                                  (33, 31)])
 def test_lpc_kernel_matches_twin(cuda, L, B):
@@ -53,6 +84,42 @@ def test_lpc_kernel_matches_twin(cuda, L, B):
     assert got.device.type == "cuda" and got.dtype == torch.int32
     want = tlpc.flac_lpc_torch(*args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L,B,kinds", [
+    (333, 777, range(11)),       # every kind, wrap and exact interleaved
+    (77, 4096, range(11)),       # the slice's block size
+    (1001, 65, (0, 3, 4)),       # some kinds empty: pass-through, LPC-8
+    (9, 31, (1, 2)),             # FIXED and short LPC only, B < one tile
+])
+def test_lpc_kernel_every_kind_matches_twin(cuda, L, B, kinds):
+    """Every instance the kernel compiles: pass-through lanes, FIXED 1-4,
+    LPC in each tap bucket, wrap, exact and mixed warps; L not a multiple
+    of the 8 lanes a warp, B not a multiple of the 32-step tile.  The
+    wrapper's grouping (the twin's permutation), the window's own order
+    and a random order all give the twin's output, and so does a residual
+    whose rows are not 16-byte aligned."""
+    rng = np.random.default_rng(L + B)
+    args, kind = bucket_lanes(rng, L, B, kinds)
+    targs = [torch.from_numpy(a).to(cuda) for a in args]
+    want = tlpc.flac_lpc_torch(*targs)
+    key = tlpc.lpc_lane_key(targs[1], targs[2], targs[4], B)
+    assert key.cpu().numpy().tolist() == kind.tolist()
+    # the card's grouping is the twin's permutation
+    assert torch.equal(tlpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B),
+                       tlpc.lpc_lane_perm(targs[1], targs[2], targs[4], B))
+    before = tlpc.KERNEL_LAUNCHES
+    assert torch.equal(tlpc.flac_lpc(*targs), want)
+    assert tlpc.KERNEL_LAUNCHES == before + 1
+    for perm in (torch.arange(L, dtype=torch.int32),
+                 torch.from_numpy(rng.permutation(L).astype(np.int32))):
+        out = torch.full_like(targs[0], -7)
+        tlpc.flac_lpc_launch(*targs, perm.to(cuda), out)
+        assert torch.equal(out, want)
+    # rows 4 bytes off 16-byte alignment take the 4-byte copies
+    odd = torch.empty(L * B + 1, dtype=torch.int32, device=cuda)[1:]
+    odd = odd.view(L, B).copy_(targs[0])
+    assert torch.equal(tlpc.flac_lpc(odd, *targs[1:]), want)
 
 
 def test_lpc_kernel_rejects_bad_arguments(cuda):
@@ -302,6 +369,52 @@ def test_mp3_huff_kernel_matches_twin(cuda, L, W):
     assert torch.equal(q, qt) and torch.equal(err, errt)
 
 
+@pytest.mark.parametrize("L,W,case", [
+    (300, 20, "past_clamp"),   # bit_start past (W - 3) * 32: the window
+    (513, 136, "past_clamp"),  # of words reloads backwards
+    (600, 4, "random"),        # the narrowest row
+    (700, 136, "random"),      # the widest row (LANE_WORDS + 4)
+    (1000, 52, "no_pairs"),    # every lane bv = 0: count1 and zeros only
+    (257, 52, "mixed_pairs"),  # pair counts of every size in one warp
+    (400, 52, "wide_linbits"),  # linbits past the tables' 13
+])
+def test_mp3_huff_kernel_edges_match_twin(cuda, L, W, case):
+    """The backward clamp, both ends of the row width, windows without big
+    values, linbits wider than any table's, L not a multiple of the
+    256-lane block; the plan's offsets and lane order equal their twins'; the
+    wrapper's lane
+    order, the window's own order and a random order all give the twin's
+    q and err."""
+    from audio_formats_torch.ops import mp3_huff
+
+    rng = np.random.default_rng(L + W)
+    pool, meta = mp3_random_lanes(rng, L, W)
+    if case == "past_clamp":
+        meta[::2, 0] = rng.integers((W - 3) * 32, W * 32 + 300, (L + 1) // 2)
+    elif case == "no_pairs":
+        meta[:, 2] = 0
+    elif case == "mixed_pairs":
+        meta[:, 2] = rng.permutation(np.arange(L) % 290)
+    elif case == "wide_linbits":
+        meta[:, 8:11] = rng.integers(0, 20, (L, 3))
+    pool, meta = (torch.from_numpy(a).to(cuda) for a in (pool, meta))
+    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W)
+    torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
+    q, err = mp3_huff.huff_decode(pool, meta, W)
+    assert torch.equal(q, qt) and torch.equal(err, errt)
+    offs = mp3_huff._lane_offsets(meta[:, mp3_huff.M_SPAN]).to(torch.int32)
+    # the card's plan is the twins' offsets and lane order
+    offs_c, perm_c = mp3_huff.huff_plan_cuda(meta)
+    assert torch.equal(offs_c, offs)
+    assert torch.equal(perm_c, mp3_huff.huff_lane_perm(meta))
+    for perm in (torch.arange(L, dtype=torch.int32),
+                 torch.from_numpy(rng.permutation(L).astype(np.int32))):
+        q2 = torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
+        e2 = torch.ones(L, dtype=torch.bool, device=cuda)
+        mp3_huff.huff_launch(pool, meta, W, offs, perm.to(cuda), q2, e2)
+        assert torch.equal(q2, qt) and torch.equal(e2, errt)
+
+
 def test_mp3_huff_kernel_rejects_bad_arguments(cuda):
     from audio_formats_torch.ops import mp3_huff
 
@@ -397,6 +510,7 @@ def test_mp3_kernel_launch_failure_raises(cuda, monkeypatch):
     from audio_formats_torch.ops import _kernels
 
     monkeypatch.setitem(_kernels._libs, "mp3_huff", types.SimpleNamespace(
+        af_mp3_huff_plan_scratch=lambda L: 1, af_mp3_huff_plan=lambda *args: 0,
         af_mp3_huff=lambda *args: 700))
     dec = BatchDecoder(_mp3_streams()[:2], device=cuda)
     with pytest.raises(_kernels.KernelError, match="CUDA error 700"):

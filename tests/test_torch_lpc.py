@@ -15,6 +15,8 @@ from audio_formats_tpu.parallel.batch import _FLAC_W_BUCKETS
 from audio_formats_torch.host import native as tnative
 from audio_formats_torch.ops import lpc as tlpc
 
+from test_torch_cuda import bucket_lanes
+
 
 def _residual_for(sig, coeffs, order, shift, exact):
     """Residuals whose LPC synthesis gives back `sig` exactly: the encoder
@@ -208,3 +210,66 @@ def test_post_stereo_batch_and_s16_match_jax(C, bps):
     assert got16.dtype == torch.int16
     np.testing.assert_array_equal(got16.numpy(), ref16)
 
+
+
+# ---------------------------------------------------- lane grouping (K1)
+def _twin_through_groups(args, perm, key):
+    """The twin run group by group (one group a kind, in the order of the
+    permutation), each group's rows scattered back to their lanes."""
+    targs = [torch.as_tensor(a) for a in args]
+    out = torch.empty_like(targs[0])
+    p = perm.to(torch.int64)
+    for k in torch.unique(key):
+        rows = p[key[p] == k]
+        out[rows] = tlpc.flac_lpc_torch(*(a[rows] for a in targs))
+    return out
+
+
+@pytest.mark.parametrize("L,B,seed", [(90, 70, 1), (37, 33, 2), (64, 128, 3),
+                                      (13, 40, 4)])
+def test_lane_perm_groups_lanes_by_kind(L, B, seed):
+    rng = np.random.default_rng(seed)
+    args, kind = bucket_lanes(rng, L, B)
+    targs = [torch.from_numpy(a) for a in args]
+    key = tlpc.lpc_lane_key(targs[1], targs[2], targs[4], B)
+    np.testing.assert_array_equal(key.numpy(), kind)
+    perm = tlpc.lpc_lane_perm(targs[1], targs[2], targs[4], B)
+    assert perm.dtype == torch.int32
+    assert sorted(perm.tolist()) == list(range(L))
+    ks = key[perm.to(torch.int64)]
+    assert bool((ks[1:] >= ks[:-1]).all())   # one run per kind
+    want = tlpc.flac_lpc_torch(*targs)
+    got = _twin_through_groups(args, perm, key)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("L,B,seed", [(13, 777, 11), (40, 256, 5),
+                                      (70, 96, 9)])
+def test_lane_perm_groups_keep_the_jax_fixture_output(L, B, seed):
+    """The JAX-checked fixture lanes of test_lpc_twin_matches_jax_scan_and_
+    pallas, run kind by kind through the permutation: the JAX scan's
+    output on every lane."""
+    rng = np.random.default_rng(seed)
+    args, _, _ = lpc_lanes(rng, L, B)
+    targs = [torch.from_numpy(a) for a in args]
+    key = tlpc.lpc_lane_key(targs[1], targs[2], targs[4], B)
+    perm = tlpc.lpc_lane_perm(targs[1], targs[2], targs[4], B)
+    assert sorted(perm.tolist()) == list(range(L))
+    got = _twin_through_groups(args, perm, key)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jlpc.flac_lpc_scan(*args)))
+
+
+def test_lane_perm_with_empty_kinds():
+    """Only wrap LPC-8 lanes and pass-through lanes, as in the FLAC slice's
+    mid channels: the other kinds are empty, the permutation still one."""
+    rng = np.random.default_rng(8)
+    args, kind = bucket_lanes(rng, 50, 64, kinds=(0, 3))
+    targs = [torch.from_numpy(a) for a in args]
+    key = tlpc.lpc_lane_key(targs[1], targs[2], targs[4], 64)
+    assert set(key.tolist()) <= {0, 3}
+    perm = tlpc.lpc_lane_perm(targs[1], targs[2], targs[4], 64)
+    assert sorted(perm.tolist()) == list(range(50))
+    np.testing.assert_array_equal(
+        _twin_through_groups(args, perm, key).numpy(),
+        tlpc.flac_lpc_torch(*targs).numpy())

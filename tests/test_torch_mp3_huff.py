@@ -363,3 +363,82 @@ def test_device_stage_matches_jax():
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert (np.asarray(want[1]) != 31).any()
+
+
+# ---------------------------------------------------- lane order (K3)
+def _twin_through_groups(pool, meta16, W, perm):
+    """The twin run group by group (one group a big-values pair count, in
+    the order of the permutation), each group's lanes cut out of the pool
+    with their own words and their q and err scattered back."""
+    m = torch.from_numpy(meta16)
+    span = meta16[:, mp3_huff.M_SPAN].astype(np.int64)
+    offs = np.cumsum(span) - span
+    key = m[:, mp3_huff.M_BV].clamp(0, 288)
+    q = torch.full((len(meta16), 576), -7, dtype=torch.int32)
+    err = torch.ones(len(meta16), dtype=torch.bool)
+    p = perm.to(torch.int64)
+    for k in torch.unique(key):
+        rows = p[key[p] == k]
+        words = [pool[offs[r]: offs[r] + span[r]] for r in rows.tolist()]
+        gq, gerr = mp3_huff.huff_decode_torch(
+            torch.from_numpy(np.concatenate(words + [pool[:0]])),
+            m[rows], W)
+        q[rows], err[rows] = gq, gerr
+    return q.numpy(), err.numpy()
+
+
+def _check_perm(meta16):
+    perm = mp3_huff.huff_lane_perm(torch.from_numpy(meta16))
+    assert perm.dtype == torch.int32
+    assert sorted(perm.tolist()) == list(range(len(meta16)))
+    key = np.clip(meta16[:, mp3_huff.M_BV], 0, 288)[perm.numpy()]
+    assert (np.diff(key) >= 0).all()   # one run per pair count
+    return perm
+
+
+@pytest.mark.parametrize("W", [20, 52])
+def test_lane_perm_groups_keep_the_twin_output(W):
+    """Random-bit lanes: the twin run pair count by pair count through the
+    permutation gives the twin's q and err on all lanes."""
+    rng = np.random.default_rng(100 + W)
+    pool, meta16 = mp3_random_lanes(rng, 300, W)
+    meta16[::7, mp3_huff.M_BV] = 0
+    perm = _check_perm(meta16)
+    q, err = _twin_through_groups(pool, meta16, W, perm)
+    qt, errt = port_huff(pool, meta16, W)
+    np.testing.assert_array_equal(q, qt)
+    np.testing.assert_array_equal(err, errt)
+
+
+def test_lane_perm_groups_keep_the_jax_output_on_parsed_lanes():
+    """Lanes the C stage parses from golden streams (the JAX-checked
+    fixture of test_twin_matches_jax_and_c_stage_on_parsed_lanes): pair
+    count by pair count through the permutation, JAX's q on every lane."""
+    parts = [parsed_lanes(d) for d in (mp3_stream(2, channels=2),
+                                       mp3_stream_mpeg2(5, channels=2,
+                                                        mode_ext=1))]
+    pool = np.concatenate([p[0] for p in parts])
+    meta16 = np.concatenate([p[1] for p in parts])
+    W = mp3_huff.row_width(int(meta16[:, mp3_huff.M_SPAN].max()))
+    perm = _check_perm(meta16)
+    q, err = _twin_through_groups(pool, meta16, W, perm)
+    qj, errj = jax_huff(pool, meta16, W)
+    np.testing.assert_array_equal(q, qj)
+    np.testing.assert_array_equal(err, errj)
+
+
+def test_step_counts_follow_the_fsm():
+    """huff_decode_steps: the twin's q and err, and each lane's steps are
+    its big-values pairs plus at least one count1 step while 2 bv <= 572."""
+    rng = np.random.default_rng(3)
+    pool, meta16 = mp3_random_lanes(rng, 200, 28)
+    meta16[:40, mp3_huff.M_BV] = 0
+    q, err, steps = mp3_huff.huff_decode_steps(
+        torch.from_numpy(pool), torch.from_numpy(meta16), 28)
+    qt, errt = port_huff(pool, meta16, 28)
+    np.testing.assert_array_equal(q.numpy(), qt)
+    np.testing.assert_array_equal(err.numpy(), errt)
+    bv = meta16[:, mp3_huff.M_BV].astype(np.int64)
+    c1 = steps.numpy() - np.clip(bv, 0, 288)
+    assert ((c1 >= 1) == (2 * bv <= 572)).all()
+    assert (c1 <= 144).all() and c1.max() > 1
