@@ -34,7 +34,8 @@ _ENTRIES = {
                  ("af_flac_lpc_plan", [_V, _V, _V, _V, _V, _I, _I, _V]),
                  ("af_flac_lpc_plan_scratch", [_I])),
     "qoa_lms": (("af_qoa_decode", [_V, _V, _V, _V, _V, _V, _I, _I, _V]),
-                ("af_qoa_encode", [_V, _I, _V, _V, _V, _V, _V, _V, _I, _V])),
+                ("af_qoa_encode", [_V, _I, _V, _V, _V, _V, _V, _V, _I, _V]),
+                ("af_qoa_quant_mismatches", [_V, _V])),
     "mp3_huff": (("af_mp3_huff", [_V, _V, _V, _V, _V, _I, _I, _I, _V, _V, _V]),
                  ("af_mp3_huff_plan", [_V, _I, _V, _V, _V, _V]),
                  ("af_mp3_huff_plan_scratch", [_I])),

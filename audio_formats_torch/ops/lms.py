@@ -390,3 +390,22 @@ def qoa_encode_cuda(samples, history, weights, frame_len):
     with _launch_lock:
         ENCODE_LAUNCHES += 1
     return words, h_out, w_out
+
+
+def qoa_quant_mismatches(device) -> torch.Tensor:
+    """Run the encode kernel's quantizer against its direct form (the clamp
+    to ±8, QUANT_TAB's m and sign, the DEQUANT_TAB magnitude by selects) on
+    every int32 residual for each of the 16 scalefactors, on the CUDA
+    `device`.  Returns the mismatch counts [16] int64 (all 0 when the two
+    agree).  A check of the kernel's arithmetic, not part of the encoder."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise _kernels.KernelArgError(
+            f"qoa_quant_mismatches: no kernel for device {dev}")
+    counts = torch.zeros(16, dtype=torch.int64, device=dev)
+    lib = _kernels.load("qoa_lms")
+    with torch.cuda.device(dev):
+        rc = lib.af_qoa_quant_mismatches(
+            counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_launch("qoa_quant_mismatches", rc)
+    return counts

@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    slice's own first window (phase 4 keeps that call's arguments); the QOA
    decode kernel at 8,192 x 5,120 in both input forms (int32 residuals,
    int8 scalefactors and codes); the QOA encode search at 2,048 x 5,120
-   with frame lengths around slice edges and full-scale square waves; the
+   with frame lengths around slice edges and full-scale square waves, and
+   its quantizer against its direct form on all 2^32 int32 residuals; the
    MP3 Huffman kernel at one full window of the MP3 slice (98,304
    granule-channel lanes parsed by the C stage from the MP3 corpus) and on
    random-bit lanes at two row widths.  The LPC and Huffman kernels are
@@ -30,7 +31,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. QOA encode — ``encode_qoa_batch`` over 64 distinct stereo 44.1 kHz
    masters of 4 s (the JAX bench's encode shape: 4,480 frame lanes), one
    search launch per chunk; frames equal to the golden encoder's; the
-   sequential layout on 4 masters equal to the streaming QoaEncoder;
+   sequential layout on 4 masters equal to the streaming QoaEncoder; the
+   search again at the slice's own first (full) and last (tail) chunks
+   (their arguments kept by wrapping ``ops.lms.qoa_encode_frame_words``
+   during the slice), bit-equal to the twin and timed;
 6. QOA decode — ``decode_all(output="device")`` over 512 QOA lanes cut as
    frame prefixes (10-35 frames) of the 64 encoded masters: every lane
    equals an independent numpy decode, two equal the golden decoder, each
@@ -55,16 +59,19 @@ the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of the JAX package, and checks so
 before the result.
 
-    python3 chip_smoke.py --ab DIR     # on the card
-    python3 chip_smoke.py --divergence # on the CPU
+    python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode]  # card
+    python3 chip_smoke.py --divergence                            # CPU
+    python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
 
-``--ab`` times the Huffman and LPC kernels of this tree against those built
-from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
-``git archive``), parent / change / change / parent in one process, and
-the MP3 and FLAC slices with either side's kernel; it prints no result
-line.  ``--divergence`` counts each lane's Huffman FSM steps on one MP3
+``--ab`` times the Huffman, LPC and QOA encode kernels of this tree (or
+those named) against those built from DIR/audio_formats_torch/csrc (an
+earlier commit's sources, e.g. from ``git archive``), parent / change /
+change / parent in one process, and the MP3, FLAC and QOA encode slices
+with either side's kernel; it prints no result line.  ``--divergence`` counts each lane's Huffman FSM steps on one MP3
 window with the twin and prints the warp ratio in the window's order and
-in the order the Huffman wrapper gives the kernel.
+in the order the Huffman wrapper gives the kernel.  ``--sass`` counts the
+SASS instructions of one step of K5's full-slice body, by pipe, in this
+tree's qoa_lms.cu and in each DIR's.
 """
 
 import json
@@ -565,24 +572,93 @@ def phase_flac_kernel(card, targs):
             "library_ms": None, "share": b["bound_ms"] / ms}
 
 
-def phase_qoa_kernels(card):
-    """The QOA decode kernel (both forms) at one full window and the encode
-    search at one full chunk, each against its twin, bit for bit."""
-    import torch
+def qoa_encode_work(samples, flen):
+    """(bytes, int32 operations) of K5 on these lanes: the samples, the
+    states in, the slice words and the states out; 16 candidates run each
+    sample of a frame."""
+    L = samples.shape[0]
+    return (samples.numel() * samples.element_size() + L * 32
+            + L * 256 * 8 + L * 32,
+            int(flen.clamp(0, QOA_FRAME).sum()) * 16 * QOA_ENC_OPS)
+
+
+def qoa_kernel_inputs():
+    """The QOA kernels' random inputs, numpy, from one seed.  Decode, one
+    full window: history, weights (some lanes int32-range), int8
+    scalefactors and codes.  Encode, one full chunk: full-scale squares
+    (qoa_div's int32 product overflows), noise and tones; frame lengths
+    around slice edges; carried and int32-range starting states."""
     from audio_formats_torch.ops import lms
 
     rng = np.random.default_rng(2025)
-    dev = torch.device("cuda")
-    # decode: random int8 payloads; some lanes with int32-range weights
     L, S = L_QOA_DECODE, QOA_FRAME // 20
     history = rng.integers(-32768, 32768, (L, 4)).astype(np.int32)
     weights = rng.integers(-(1 << 15), 1 << 15, (L, 4)).astype(np.int32)
     wild = rng.random(L) < 0.05
     weights[wild] = rng.integers(-(1 << 31), 1 << 31, (int(wild.sum()), 4))
-    h, w = (torch.from_numpy(a).to(dev) for a in (history, weights))
-    sf = torch.from_numpy(rng.integers(0, 16, (L, S)).astype(np.int8)).to(dev)
-    codes = torch.from_numpy(
-        rng.integers(0, 8, (L, S, 20)).astype(np.int8)).to(dev)
+    sf = rng.integers(0, 16, (L, S)).astype(np.int8)
+    codes = rng.integers(0, 8, (L, S, 20)).astype(np.int8)
+    decode = (history, weights, sf, codes)
+
+    L = L_QOA_ENCODE
+    t = np.arange(QOA_FRAME)
+    kind = (np.arange(L) % 4)[:, None]
+    square = np.where((t // rng.integers(2, 400, (L, 1))) % 2, 32767, -32768)
+    noise = rng.integers(-32768, 32768, (L, QOA_FRAME))
+    tone = (rng.uniform(1000, 30000, (L, 1))
+            * np.sin(2 * np.pi * rng.uniform(20, 2000, (L, 1)) * t / SR)
+            + rng.normal(0, 200, (L, QOA_FRAME)))
+    x = np.clip(np.round(np.select([kind == 0, kind == 1], [square, noise],
+                                   tone)), -32768, 32767)
+    flen = np.full(L, QOA_FRAME, np.int32)
+    flen[:7] = [0, 1, 19, 20, 21, 5119, 5120]
+    short = rng.random(L) < 0.1
+    short[:7] = False
+    flen[short] = rng.integers(0, QOA_FRAME + 1, int(short.sum()))
+    x = (x * (t[None, :] < flen[:, None])).astype(np.int16)
+    history = np.zeros((L, 4), np.int32)
+    weights = np.tile(lms.INITIAL_WEIGHTS, (L, 1))
+    carried = rng.random(L) < 0.25
+    history[carried] = rng.integers(-32768, 32768, (int(carried.sum()), 4))
+    weights[carried] = rng.integers(-32768, 32768, (int(carried.sum()), 4))
+    wild = rng.random(L) < 0.02
+    weights[wild] = rng.integers(-(1 << 31), 1 << 31, (int(wild.sum()), 4))
+    return decode, (x, history, weights, flen)
+
+
+def check_time_qoa_encode(args, label):
+    """K5 on these arguments (samples, history, weights, frame_len on the
+    card) against its twin, bit for bit: scalefactors, codes and the
+    carried state through qoa_encode_frame_scan, and the word plane of the
+    launch alone; then the launch alone timed.  Returns (ms, twin ms)."""
+    import torch
+    from audio_formats_torch.ops import lms
+
+    got = lms.qoa_encode_frame_scan(*args)
+    words = lms.qoa_encode_cuda(*args)[0]
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(
+        lambda: want.append(lms.qoa_encode_frame_torch(*args)), 1)
+    if not all(torch.equal(g, v) for g, v in zip(got, want[0])) or \
+            not torch.equal(words, lms.pack_words(*want[0][:2])):
+        raise AssertionError(f"QOA encode kernel != twin at the {label}")
+    for _ in range(3):
+        lms.qoa_encode_cuda(*args)
+    return time_cuda(lambda: lms.qoa_encode_cuda(*args), 20), plain_ms
+
+
+def phase_qoa_kernels(card):
+    """The QOA decode kernel (both forms) at one full window and the encode
+    search at one full chunk, each against its twin, bit for bit; the
+    encode kernel's quantizer on every int32 residual."""
+    import torch
+    from audio_formats_torch.ops import lms
+
+    dev = torch.device("cuda")
+    dec_in, enc_in = qoa_kernel_inputs()
+    L = L_QOA_DECODE
+    h, w, sf, codes = (torch.from_numpy(a).to(dev) for a in dec_in)
     tab = torch.from_numpy(lms.DEQUANT_TAB).to(dev)
     deq = tab[sf.long()[..., None], codes.long()].reshape(L, -1).contiguous()
     fused = lms.decode_slices(h, w, sf, codes)
@@ -609,63 +685,31 @@ def phase_qoa_kernels(card):
           f"{dec_deq_ms:.4f} ms, twin {dec_plain_ms:.1f} ms; bound_ms "
           f"{dec_b['bound_ms']:.4f} ({dec_b['bound_by']}), share "
           f"{dec_b['bound_ms'] / dec_ms:.3f} [{card}]")
+    del deq, fused, plain, want
 
-    # encode: full-scale squares (qoa_div's int32 product overflows),
-    # noise and tones; frame lengths around slice edges; carried and
-    # int32-range starting states
     L = L_QOA_ENCODE
-    t = np.arange(QOA_FRAME)
-    kind = (np.arange(L) % 4)[:, None]
-    square = np.where((t // rng.integers(2, 400, (L, 1))) % 2, 32767, -32768)
-    noise = rng.integers(-32768, 32768, (L, QOA_FRAME))
-    tone = (rng.uniform(1000, 30000, (L, 1))
-            * np.sin(2 * np.pi * rng.uniform(20, 2000, (L, 1)) * t / SR)
-            + rng.normal(0, 200, (L, QOA_FRAME)))
-    x = np.clip(np.round(np.select([kind == 0, kind == 1], [square, noise],
-                                   tone)), -32768, 32767)
-    flen = np.full(L, QOA_FRAME, np.int32)
-    flen[:7] = [0, 1, 19, 20, 21, 5119, 5120]
-    short = rng.random(L) < 0.1
-    short[:7] = False
-    flen[short] = rng.integers(0, QOA_FRAME + 1, int(short.sum()))
-    x = (x * (t[None, :] < flen[:, None])).astype(np.int16)
-    history = np.zeros((L, 4), np.int32)
-    weights = np.tile(lms.INITIAL_WEIGHTS, (L, 1))
-    carried = rng.random(L) < 0.25
-    history[carried] = rng.integers(-32768, 32768, (int(carried.sum()), 4))
-    weights[carried] = rng.integers(-32768, 32768, (int(carried.sum()), 4))
-    wild = rng.random(L) < 0.02
-    weights[wild] = rng.integers(-(1 << 31), 1 << 31, (int(wild.sum()), 4))
-    args = [torch.from_numpy(a).to(dev) for a in (x, history, weights, flen)]
-    got = lms.qoa_encode_frame_scan(*args)
-    words = lms.qoa_encode_cuda(*args)[0]
-    torch.cuda.synchronize()
-    want = []
-    enc_plain_ms = time_cuda(
-        lambda: want.append(lms.qoa_encode_frame_torch(*args)), 1)
-    want = want[0]
-    enc_err = max(int((g.long() - v.long()).abs().max())
-                  for g, v in zip(got, want))
-    if not all(torch.equal(g, v) for g, v in zip(got, want)) or \
-            not torch.equal(words, lms.pack_words(want[0], want[1])):
-        raise AssertionError(f"QOA encode kernel != twin: max abs err "
-                             f"{enc_err}")
-    for _ in range(3):
-        lms.qoa_encode_cuda(*args)
-    enc_ms = time_cuda(lambda: lms.qoa_encode_cuda(*args), 20)
-    # 16 candidates run each sample of a frame; int16 samples and the
-    # states in, slice words and the states out
-    enc_b = bound(x.size * 2 + L * 32 + L * 256 * 8 + L * 32,
-                  int(flen.sum()) * 16 * QOA_ENC_OPS)
+    args = [torch.from_numpy(a).to(dev) for a in enc_in]
+    enc_ms, enc_plain_ms = check_time_qoa_encode(args, "random chunk")
+    enc_b = bound(*qoa_encode_work(args[0], args[3]))
     print(f"# kernel qoa_encode L={L} T={QOA_FRAME}: words, scalefactors, "
           f"codes, history' and weights' equal to the twin; kernel "
           f"{enc_ms:.4f} ms, twin {enc_plain_ms:.1f} ms; bound_ms "
           f"{enc_b['bound_ms']:.4f} ({enc_b['bound_by']}), share "
           f"{enc_b['bound_ms'] / enc_ms:.3f} [{card}]")
+    # the quantizer on every int32 residual, each scalefactor
+    t0 = time.perf_counter()
+    bad = lms.qoa_quant_mismatches(dev).tolist()
+    sweep_s = time.perf_counter() - t0
+    if any(bad):
+        raise AssertionError(f"QOA encode quantizer != its direct form: "
+                             f"mismatches by scalefactor {bad}")
+    print(f"# qoa_encode quantizer: equal to its direct form on all 2^32 "
+          f"int32 residuals for each of the 16 scalefactors (mismatches "
+          f"{bad}), sweep {sweep_s:.2f} s [{card}]")
     return ({"max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
              **dec_b, "library_ms": None,
              "share": dec_b["bound_ms"] / dec_ms},
-            {"max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
+            {"max_abs_err": 0, "ms": enc_ms, "plain_ms": enc_plain_ms,
              **enc_b, "library_ms": None,
              "share": enc_b["bound_ms"] / enc_ms})
 
@@ -732,7 +776,10 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0):
 def phase_qoa_encode(card, masters):
     """encode_qoa_batch over the masters on the card (the frame-parallel
     main path), checked against the golden encoder frame by frame, and the
-    sequential layout against the streaming encoder."""
+    sequential layout against the streaming encoder.  The arguments of
+    each chunk's qoa_encode_frame_words call are kept (wrapping it here
+    costs the run nothing).  Returns (streams, launches, the chunks'
+    (samples, frame_len))."""
     from golden import qoa_ref
 
     from audio_formats_torch import encode_qoa_batch
@@ -742,11 +789,22 @@ def phase_qoa_encode(card, masters):
     from audio_formats_torch.ops import lms
 
     st = {}
-    lms.ENCODE_LAUNCHES = 0
-    t0 = time.perf_counter()
-    streams = encode_qoa_batch(masters, SR, device="cuda", stats=st)
-    wall = time.perf_counter() - t0
-    launches = lms.ENCODE_LAUNCHES
+    captured = []
+    words_fn = lms.qoa_encode_frame_words
+
+    def keep_args(samples, frame_len):
+        captured.append((samples, frame_len))
+        return words_fn(samples, frame_len)
+
+    lms.qoa_encode_frame_words = keep_args
+    try:
+        lms.ENCODE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        streams = encode_qoa_batch(masters, SR, device="cuda", stats=st)
+        wall = time.perf_counter() - t0
+        launches = lms.ENCODE_LAUNCHES
+    finally:
+        lms.qoa_encode_frame_words = words_fn
     if launches != st["windows"]:
         raise AssertionError(f"QOA encode launches {launches} != windows "
                              f"{st['windows']}")
@@ -782,7 +840,45 @@ def phase_qoa_encode(card, masters):
           f"{st['h2d_bytes']}, d2h_bytes {st['d2h_bytes']}; 4 frames equal "
           f"to the golden encoder, sequential layout on 4 masters equal to "
           f"QoaEncoder [{card}]")
-    return streams, launches
+    return streams, launches, captured
+
+
+def qoa_chunk_args(samples, flen):
+    """K5's arguments at one chunk of the encode slice: the chunk's samples
+    and frame lengths, and the encoder's initial state."""
+    import torch
+    from audio_formats_torch.ops import lms
+
+    L = samples.shape[0]
+    h0 = torch.zeros((L, 4), dtype=torch.int32, device=samples.device)
+    w0 = torch.from_numpy(np.tile(lms.INITIAL_WEIGHTS, (L, 1))).to(
+        samples.device)
+    return samples, h0, w0, flen
+
+
+def phase_qoa_encode_kernel(card, captured):
+    """K5 at the QOA encode slice's first (full) chunk and at its last
+    (tail) chunk: bit-equal to the twin, timed alone, beside its bound."""
+    import torch
+    from audio_formats_torch.ops import lms
+
+    out = {}
+    for label, (samples, flen) in (("slice_full", captured[0]),
+                                   ("slice_tail", captured[-1])):
+        L = samples.shape[0]
+        ms, plain_ms = check_time_qoa_encode(qoa_chunk_args(samples, flen),
+                                             f"encode slice's {label} chunk")
+        b = bound(*qoa_encode_work(samples, flen))
+        print(f"# kernel qoa_encode, the QOA encode slice's {label} chunk "
+              f"L={L} ({int(flen.sum())} samples): equal to the twin; kernel "
+              f"{ms:.4f} ms, twin {plain_ms:.1f} ms; bound_ms "
+              f"{b['bound_ms']:.4f} ({b['bound_by']}), share "
+              f"{b['bound_ms'] / ms:.3f} [{card}]")
+        out.update({f"{label}_L": L, f"{label}_ms": ms,
+                    f"{label}_plain_ms": plain_ms,
+                    f"{label}_bound_ms": b["bound_ms"],
+                    f"{label}_share": b["bound_ms"] / ms})
+    return out
 
 
 def qoa_lanes(streams):
@@ -1289,7 +1385,9 @@ def run_phases(card, mp3_masters):
 
     # 5. QOA encode, 6. QOA decode
     masters = qoa_masters()
-    qoa_streams, enc_launches = phase_qoa_encode(card, masters)
+    qoa_streams, enc_launches, enc_chunks = phase_qoa_encode(card, masters)
+    eres.update(phase_qoa_encode_kernel(card, enc_chunks))
+    del enc_chunks
     q_lanes, q_info, q_ref, dec_launches = phase_qoa_decode(
         card, masters, qoa_streams)
 
@@ -1357,33 +1455,106 @@ def run_phases(card, mp3_masters):
         "count": torch.cuda.device_count()}}))
 
 
-def ab_compare(parent):
-    """--ab PARENT: K3 and K1 of this tree against the kernels built from
-    PARENT/audio_formats_torch/csrc (an earlier commit's sources, called
-    through the C entries and wrappers they had then), in one process on
-    one card, in turns parent / change / change / parent: K3's wrapper and
-    launch alone at one 98,304-lane window of the MP3 slice, K1's at the
-    FLAC slice's first window and at the random-lane window of
-    phase_kernel.  Each pair is first held equal, bit for bit.  Prints one
-    line a measurement and the card; no result line."""
+def sass_counts(tree):
+    """K5's instructions a step, by pipe: the SASS (cuobjdump) of
+    tree/audio_formats_torch/csrc/qoa_lms.cu built with the kernels' nvcc
+    flags, int16 samples, from the full-slice body's first shared load
+    (the first after the tile's last barrier where the body has no 16-byte
+    loads) to the arg-min's first shuffle (20 steps).
+    Needs nvcc and cuobjdump, not a card.  Returns ({pipe: count a step},
+    the body's opcodes counted)."""
+    import collections
+    import re
+    import tempfile
+
+    from audio_formats_torch.ops import _kernels
+
+    nvcc = _kernels._nvcc()
+    src = os.path.join(tree, "audio_formats_torch", "csrc", "qoa_lms.cu")
+    flags = [f for f in _kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "qoa_lms.cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src],
+                       check=True, capture_output=True, timeout=600)
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+             cubin], check=True, capture_output=True, text=True,
+            timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                if "qoa_encode_kernelIs" in f.split("\n")[0])
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", i.strip()).split()[0]
+           for i in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
+    # the full-slice body opens with its 16-byte loads where it has them
+    # (the partial slice's loop is laid out before it)
+    bar = max(k for k, o in enumerate(ops) if o.startswith("BAR"))
+    a = next((k for k, o in enumerate(ops) if o == "LDS.128"),
+             next(k for k in range(bar, len(ops)) if ops[k].startswith("LDS")))
+    b = next(k for k in range(a, len(ops)) if ops[k].startswith("SHFL"))
+    pipes = {"fma": ("IMAD", "IMUL"),
+             "shared/shuffle": ("LDS", "STS", "SHFL"),
+             "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "BAR")}
+    by_pipe = collections.Counter()
+    for o in ops[a:b]:
+        head = o.split(".")[0]
+        by_pipe[next((p for p, heads in pipes.items() if head in heads),
+                     "alu")] += 1
+    return ({p: n / 20 for p, n in sorted(by_pipe.items())},
+            collections.Counter(ops[a:b]))
+
+
+def print_sass(trees):
+    """--sass [DIR ...]: sass_counts of this tree and of each DIR."""
+    for tree in (ROOT, *trees):
+        per_step, ops = sass_counts(tree)
+        print(f"# K5 SASS, {tree}: {sum(per_step.values()):.2f} instructions "
+              f"a candidate-step, by pipe {per_step}; "
+              f"{dict(ops.most_common())}")
+
+
+AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode")
+
+
+def ab_compare(parent, names=AB_KERNELS):
+    """--ab PARENT [NAME ...]: K3, K1 and K5 of this tree (or those NAMEd)
+    against the kernels built from PARENT/audio_formats_torch/csrc (an
+    earlier commit's sources, called through the C entries and wrappers
+    they had then), in one process on one card, in turns parent / change /
+    change / parent: K3's wrapper and launch alone at one 98,304-lane
+    window of the MP3 slice, K1's at the FLAC slice's first window and at
+    the random-lane window of phase_kernel, K5 at the random chunk of
+    phase_qoa_kernels and at the QOA encode slice's first (full) and last
+    (tail) chunks.  Each pair is first held equal, bit for bit.  Then the
+    MP3, FLAC and QOA encode slices with either side's kernel, in turns.
+    Prints one line a measurement and the card; no result line."""
     import ctypes
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
-    from audio_formats_torch.ops import _kernels, lpc, mp3_huff
+    from audio_formats_torch.ops import _kernels, lms, lpc, mp3_huff
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA GPU: the comparison runs on the card")
+    unknown = set(names) - set(AB_KERNELS)
+    if unknown:
+        raise ValueError(f"--ab: no kernel {sorted(unknown)}; "
+                         f"choose from {AB_KERNELS}")
     card = card_line()
     print(card)
     V, I = ctypes.c_void_p, ctypes.c_int
     old_entries = {"flac_lpc": ("af_flac_lpc", [V] * 6 + [I, I, V]),
-                   "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V])}
+                   "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V]),
+                   "qoa_encode": ("af_qoa_encode",
+                                  [V, I, V, V, V, V, V, V, I, V])}
+    sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
+               "qoa_encode": "qoa_lms"}
 
     def build_parent(name):
-        src = os.path.join(parent, "audio_formats_torch", "csrc", name + ".cu")
-        out = os.path.join(os.path.abspath(parent), "build", name + ".so")
+        src = os.path.join(parent, "audio_formats_torch", "csrc",
+                           sources[name] + ".cu")
+        out = os.path.join(os.path.abspath(parent), "build",
+                           sources[name] + ".so")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", out,
                         src], check=True, capture_output=True, timeout=600)
@@ -1391,14 +1562,16 @@ def ab_compare(parent):
         fn.argtypes, fn.restype = old_entries[name][1], ctypes.c_int
         return fn
 
+    names = [n for n in AB_KERNELS if n in names]
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=8, mp_context=ctx) as pool:
-        mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
-        with ThreadPoolExecutor(max_workers=4) as ex:
-            olds = list(ex.map(build_parent, ("flac_lpc", "mp3_huff")))
-            list(ex.map(_kernels.build, ("flac_lpc", "mp3_huff")))
-        mp3_masters = list(mp3_masters)
-    old_lpc, old_huff = olds
+        if "mp3_huff" in names:
+            mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
+        with ThreadPoolExecutor(max_workers=2 * len(names)) as ex:
+            olds = dict(zip(names, ex.map(build_parent, names)))
+            list(ex.map(_kernels.build, {sources[n] for n in names}))
+        if "mp3_huff" in names:
+            mp3_masters = list(mp3_masters)
     dev = torch.device("cuda")
 
     def stream():
@@ -1414,7 +1587,8 @@ def ab_compare(parent):
               f"change {t[2]:.4f} ms, parent {t[3]:.4f} ms [{card}]")
 
     # the parent's wrappers: int64 offsets cast to int32, q and err (or
-    # out) from torch.empty; `out` given: the launch alone
+    # out, or the word plane and states) from torch.empty; `out` given:
+    # the launch alone
     def huff_old(pool_d, meta_d, Wd, offs=None, out=None):
         Ld = meta_d.shape[0]
         if offs is None:
@@ -1423,7 +1597,7 @@ def ab_compare(parent):
         q_d, e_d = out or (torch.empty((Ld, 576), dtype=torch.int32,
                                        device=dev),
                            torch.empty(Ld, dtype=torch.bool, device=dev))
-        _kernels.check_launch("old huff", old_huff(
+        _kernels.check_launch("old huff", olds["mp3_huff"](
             pool_d.data_ptr(), offs.data_ptr(), meta_d.data_ptr(),
             blob.data_ptr(), blob.shape[0], Ld, Wd, q_d.data_ptr(),
             e_d.data_ptr(), stream()))
@@ -1431,87 +1605,139 @@ def ab_compare(parent):
 
     def lpc_old(residual, coeffs, order, shift, exact, out=None):
         out = torch.empty_like(residual) if out is None else out
-        _kernels.check_launch("old lpc", old_lpc(
+        _kernels.check_launch("old lpc", olds["flac_lpc"](
             residual.data_ptr(), coeffs.data_ptr(), order.data_ptr(),
             shift.data_ptr(), exact.data_ptr(), out.data_ptr(),
             *residual.shape, stream()))
         return out
 
-    # K3 at one window of the MP3 slice
-    mp3_streams = mp3_corpus(mp3_masters)[0]
-    pool, meta16, W = mp3_window(mp3_streams)
-    p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
-    L = meta16.shape[0]
-    blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
-    q_old, e_old = huff_old(p_d, m_d, W)
-    q_new, e_new = mp3_huff.huff_decode(p_d, m_d, W)
-    torch.cuda.synchronize()
-    if not (torch.equal(q_old, q_new) and torch.equal(e_old, e_new)):
-        raise AssertionError("K3: parent and change differ")
-    offs32 = mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN]).to(torch.int32)
-    perm = mp3_huff.huff_lane_perm(m_d)
-    turns(f"mp3_huff wrapper L={L} W={W}", lambda: huff_old(p_d, m_d, W),
-          lambda: mp3_huff.huff_decode(p_d, m_d, W))
-    turns(f"mp3_huff kernel alone L={L} W={W}",
-          lambda: huff_old(p_d, m_d, W, offs32, (q_old, e_old)),
-          lambda: mp3_huff.huff_launch(p_d, m_d, W, offs32, perm, q_new,
-                                       e_new))
-    del q_old, q_new
+    def encode_old(samples, history, weights, frame_len):
+        Ld = samples.shape[0]
+        words = torch.empty((Ld, 256), dtype=torch.int64, device=dev)
+        h_out, w_out = torch.empty_like(history), torch.empty_like(weights)
+        _kernels.check_launch("old qoa_encode", olds["qoa_encode"](
+            samples.data_ptr(), samples.element_size(), history.data_ptr(),
+            weights.data_ptr(), frame_len.data_ptr(), words.data_ptr(),
+            h_out.data_ptr(), w_out.data_ptr(), Ld, stream()))
+        return words, h_out, w_out
 
-    # K1 at the FLAC slice's first window and at the random lanes
-    streams, pcms = build_corpus()
-    captured = flac_slice(streams, pcms)[3]
-    rng = np.random.default_rng(2024)
-    rand = [torch.from_numpy(a).to(dev)
-            for a in kernel_lanes(rng, L_KERNEL, B_KERNEL, 256)[0]]
-    for label, targs in (("FLAC slice window", captured),
-                         ("random-lane window", rand)):
-        Lk, B = targs[0].shape
-        got_old = lpc_old(*targs)
-        got_new = lpc.flac_lpc(*targs)
+    slices = []   # (label, module, attribute, the parent's function, run)
+    if "mp3_huff" in names:
+        # K3 at one window of the MP3 slice
+        mp3_streams = mp3_corpus(mp3_masters)[0]
+        pool, meta16, W = mp3_window(mp3_streams)
+        p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
+        L = meta16.shape[0]
+        blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
+        q_old, e_old = huff_old(p_d, m_d, W)
+        q_new, e_new = mp3_huff.huff_decode(p_d, m_d, W)
         torch.cuda.synchronize()
-        if not torch.equal(got_old, got_new):
-            raise AssertionError(f"K1 at the {label}: parent and change "
-                                 "differ")
-        perm = lpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B)
-        turns(f"flac_lpc wrapper, {label} L={Lk} B={B}",
-              lambda: lpc_old(*targs), lambda: lpc.flac_lpc(*targs))
-        turns(f"flac_lpc kernel alone, {label} L={Lk} B={B}",
-              lambda: lpc_old(*targs, out=got_old),
-              lambda: lpc.flac_lpc_launch(*targs, perm, got_new))
+        if not (torch.equal(q_old, q_new) and torch.equal(e_old, e_new)):
+            raise AssertionError("K3: parent and change differ")
+        offs32 = mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN])\
+            .to(torch.int32)
+        perm = mp3_huff.huff_lane_perm(m_d)
+        turns(f"mp3_huff wrapper L={L} W={W}", lambda: huff_old(p_d, m_d, W),
+              lambda: mp3_huff.huff_decode(p_d, m_d, W))
+        turns(f"mp3_huff kernel alone L={L} W={W}",
+              lambda: huff_old(p_d, m_d, W, offs32, (q_old, e_old)),
+              lambda: mp3_huff.huff_launch(p_d, m_d, W, offs32, perm, q_new,
+                                           e_new))
+        del q_old, q_new
+        slices.append(("MP3 slice", mp3_huff, "huff_decode", huff_old,
+                       lambda: decode_realtime(mp3_streams)))
+
+    if "flac_lpc" in names:
+        # K1 at the FLAC slice's first window and at the random lanes
+        streams, pcms = build_corpus()
+        captured = flac_slice(streams, pcms)[3]
+        rng = np.random.default_rng(2024)
+        rand = [torch.from_numpy(a).to(dev)
+                for a in kernel_lanes(rng, L_KERNEL, B_KERNEL, 256)[0]]
+        for label, targs in (("FLAC slice window", captured),
+                             ("random-lane window", rand)):
+            Lk, B = targs[0].shape
+            got_old = lpc_old(*targs)
+            got_new = lpc.flac_lpc(*targs)
+            torch.cuda.synchronize()
+            if not torch.equal(got_old, got_new):
+                raise AssertionError(f"K1 at the {label}: parent and change "
+                                     "differ")
+            perm = lpc.lpc_plan_cuda(targs[1], targs[2], targs[4], B)
+            turns(f"flac_lpc wrapper, {label} L={Lk} B={B}",
+                  lambda: lpc_old(*targs), lambda: lpc.flac_lpc(*targs))
+            turns(f"flac_lpc kernel alone, {label} L={Lk} B={B}",
+                  lambda: lpc_old(*targs, out=got_old),
+                  lambda: lpc.flac_lpc_launch(*targs, perm, got_new))
+        slices.append(("FLAC slice", lpc, "flac_lpc", lpc_old,
+                       lambda: decode_realtime(streams)))
+
+    if "qoa_encode" in names:
+        # K5 at the random chunk and at the encode slice's full and tail
+        # chunks (their arguments kept from one run of the slice)
+        from audio_formats_torch import encode_qoa_batch
+
+        masters = qoa_masters()
+        _, _, chunks = phase_qoa_encode(card, masters)
+        for label, args in (
+                ("random chunk", [torch.from_numpy(a).to(dev)
+                                  for a in qoa_kernel_inputs()[1]]),
+                ("encode slice's full chunk", qoa_chunk_args(*chunks[0])),
+                ("encode slice's tail chunk", qoa_chunk_args(*chunks[-1]))):
+            got_old = encode_old(*args)
+            got_new = lms.qoa_encode_cuda(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got_old, got_new)):
+                raise AssertionError(f"K5 at the {label}: parent and change "
+                                     "differ")
+            turns(f"qoa_encode {label} L={args[0].shape[0]}",
+                  lambda: encode_old(*args), lambda: lms.qoa_encode_cuda(*args))
+        del chunks
+
+        def encode_realtime():
+            t0 = time.perf_counter()
+            encode_qoa_batch(masters, SR, device="cuda")
+            return (sum(m.shape[0] for m in masters) / SR
+                    / (time.perf_counter() - t0))
+
+        slices.append(("QOA encode slice", lms, "qoa_encode_cuda", encode_old,
+                       encode_realtime))
 
     # the slices, each with the parent's kernel swapped in, in turns
-    from audio_formats_torch import BatchDecoder
-
-    def realtime(streams):
-        dec = BatchDecoder(streams, device="cuda")
-        t0 = time.perf_counter()
-        dec.decode_all(output="device").sync()
-        return dec.stats["decoded_seconds"] / (time.perf_counter() - t0)
-
-    def with_kernel(module, name, fn, streams):
+    def with_kernel(module, name, fn, run):
         keep = getattr(module, name)
         if fn is not None:
             setattr(module, name, fn)
         try:
-            return realtime(streams)
+            return run()
         finally:
             setattr(module, name, keep)
 
-    for label, module, name, fn, sl in (
-            ("MP3 slice", mp3_huff, "huff_decode", huff_old, mp3_streams),
-            ("FLAC slice", lpc, "flac_lpc", lpc_old, streams)):
-        with_kernel(module, name, None, sl)   # warm
-        r = [with_kernel(module, name, f, sl) for f in (fn, None, None, fn)]
+    for label, module, name, fn, run in slices:
+        with_kernel(module, name, None, run)   # warm
+        r = [with_kernel(module, name, f, run) for f in (fn, None, None, fn)]
         print(f"# ab {label} realtime factor: parent {r[0]:.1f}x, change "
               f"{r[1]:.1f}x, change {r[2]:.1f}x, parent {r[3]:.1f}x [{card}]")
     print(card)
 
 
+def decode_realtime(streams):
+    """Audio seconds over wall seconds of one decode_all(output="device")
+    of the streams on the card, synced."""
+    from audio_formats_torch import BatchDecoder
+
+    dec = BatchDecoder(streams, device="cuda")
+    t0 = time.perf_counter()
+    dec.decode_all(output="device").sync()
+    return dec.stats["decoded_seconds"] / (time.perf_counter() - t0)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--divergence"]:
         divergence()
-    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
-        ab_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--sass"]:
+        print_sass(sys.argv[2:])
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:
+        ab_compare(sys.argv[2], sys.argv[3:] or AB_KERNELS)
     else:
         main()

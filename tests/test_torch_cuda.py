@@ -16,6 +16,8 @@ from audio_formats_torch import BatchDecoder, encode_qoa_batch
 from audio_formats_torch.ops import lms as tlms
 from audio_formats_torch.ops import lpc as tlpc
 
+import torch_qoa_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -251,6 +253,50 @@ def test_qoa_encode_kernel_matches_twin(cuda, L, dtype):
     w0 = torch.from_numpy(np.tile(tlms.INITIAL_WEIGHTS, (L, 1))).to(cuda)
     sf, codes, _, _ = tlms.qoa_encode_frame_torch(args[0], h0, w0, args[3])
     assert torch.equal(words, tlms.pack_words(sf, codes))
+
+
+def _check_encode(cuda, s, history, weights, flen):
+    """The encode kernel through both entries, one launch each, against
+    the twin: scalefactors, codes and the carried state, and the word
+    plane from the encoder's initial state."""
+    L = s.shape[0]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (s, history, weights, flen)]
+    before = tlms.ENCODE_LAUNCHES
+    got = tlms.qoa_encode_frame_scan(*args)
+    words = tlms.qoa_encode_frame_words(args[0], args[3])
+    torch.cuda.synchronize()
+    assert tlms.ENCODE_LAUNCHES == before + 2
+    for g, w in zip(got, tlms.qoa_encode_frame_torch(*args)):
+        assert torch.equal(g, w)
+    h0 = torch.zeros_like(args[1])
+    w0 = torch.from_numpy(np.tile(tlms.INITIAL_WEIGHTS, (L, 1))).to(cuda)
+    sf, codes, _, _ = tlms.qoa_encode_frame_torch(args[0], h0, w0, args[3])
+    assert torch.equal(words, tlms.pack_words(sf, codes))
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_qoa_encode_kernel_slice_edges_match_twin(cuda, dtype):
+    """Frame lengths at every slice edge side by side in one block (a
+    lane's full slices take the unguarded body, its last partial slice the
+    guarded one, and slices past the frame write word 0), L = 30."""
+    _check_encode(cuda, *torch_qoa_cases.slice_edge_lanes(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_qoa_encode_kernel_ties_match_twin(cuda, dtype):
+    """All-zero and constant lanes, where several candidates give the same
+    error and the first minimum must win; L = 13."""
+    _check_encode(cuda, *torch_qoa_cases.tie_lanes(dtype))
+
+
+def test_qoa_quantizer_matches_direct_form_on_every_residual(cuda):
+    """The encode kernel's quantizer (clamp to ±7, the code as 2m + sign,
+    the magnitude by a byte permute) against its direct form on all 2^32
+    int32 residuals, for each of the 16 scalefactors."""
+    counts = tlms.qoa_quant_mismatches(cuda)
+    torch.cuda.synchronize()
+    assert counts.tolist() == [0] * 16
 
 
 def test_qoa_kernels_reject_bad_arguments(cuda):

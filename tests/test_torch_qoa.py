@@ -31,6 +31,8 @@ from audio_formats_torch.ops import lms as tlms
 
 from golden import qoa_ref
 
+import torch_qoa_cases
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "audio_formats_torch", "csrc", "qoa_lms.cu")
 
@@ -79,6 +81,35 @@ def test_kernel_source_tables_and_identities():
     np.testing.assert_array_equal(2 * m + (v < 0), tlms.QUANT_TAB)
     np.testing.assert_array_equal(tlms.DEQUANT_TAB[:, 1::2],
                                   -tlms.DEQUANT_TAB[:, 0::2])
+
+
+def test_kernel_quantizer_form_matches_tables():
+    """The encode kernel's quantizer form (csrc/qoa_lms.cu quantize: n +
+    (x < 0) - (x >= 2^16) + sgn(r) with -(x >= 2^16) read off nx = 2^15 - 1
+    - r*recip, |v| capped at 7, the code 2m + sign, the magnitude of row
+    2m) against qoa_div, the clamp and the spec tables, in numpy, on the
+    residuals around every wrap of r*recip and 2^20 random ones; the card
+    runs all 2^32."""
+    rng = np.random.default_rng(8)
+    edges = np.concatenate([np.arange(-70000, 70000)] + [
+        k * (1 << 16) // d + np.arange(-3, 4)
+        for d in tlms.RECIPROCAL_TAB for k in range(-40, 41)])
+    r = np.concatenate([edges, rng.integers(-(1 << 31), 1 << 31, 1 << 20),
+                        [-(1 << 31), (1 << 31) - 1]])
+    r = ((r + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int64)
+    for c in range(16):
+        rq = r * int(tlms.RECIPROCAL_TAB[c])
+        x = ((rq + (1 << 15) + (1 << 31)) % (1 << 32)) - (1 << 31)
+        nx = (((1 << 15) - 1 - rq + (1 << 31)) % (1 << 32)) - (1 << 31)
+        n = x >> 16
+        ref_q = tlms.QUANT_TAB[np.clip(n + np.sign(r) - np.sign(n), -8, 8) + 8]
+        v = n + (x < 0) + (nx >> 31) + np.clip(r, -1, 1)
+        m2 = np.minimum(np.abs(v), 7) & 6
+        q = m2 + (v < 0)
+        np.testing.assert_array_equal(q, ref_q, err_msg=f"sf {c}")
+        np.testing.assert_array_equal(
+            np.where(v < 0, -1, 1) * tlms.DEQUANT_TAB[c][m2],
+            tlms.DEQUANT_TAB[c][ref_q], err_msg=f"sf {c}")
 
 
 # ------------------------------------------------------------------ decode
@@ -168,6 +199,21 @@ def test_qoa_encode_frame_matches_jax_scan():
     got = tlms.qoa_encode_frame_torch(s, history, weights, _FRAME_LENS)
     for g, w, name in zip(got, want, ("sf", "codes", "history", "weights")):
         assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("build", [torch_qoa_cases.slice_edge_lanes,
+                                   torch_qoa_cases.tie_lanes],
+                         ids=["slice_edges", "ties"])
+def test_qoa_encode_frame_edges_and_ties_match_jax_scan(build):
+    """The inputs of the card tests (frame lengths at every slice edge,
+    all-zero and constant lanes where scalefactors tie): the twin, their
+    oracle, equals JAX's scan on them."""
+    s, history, weights, flen = build(np.int32)
+    want = [np.asarray(a) for a in jlms.qoa_encode_frame_scan(
+        s, history, weights, flen)]
+    got = tlms.qoa_encode_frame_torch(s, history, weights, flen)
+    for g, w, name in zip(got, want, ("sf", "codes", "history", "weights")):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
 
 
