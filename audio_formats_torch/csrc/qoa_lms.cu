@@ -23,20 +23,12 @@
 //
 // What bounds them: each lane is a serial chain of 5120 steps, and there
 // are few lanes for the card (8192 decode lanes, 2048 encode lanes x 16
-// candidates: ~2 warps for each of the card's 528 schedulers), so both
-// kernels are bound by the chain's dependent latency and by the integer
-// instructions of a step, which two warps a scheduler barely cover.  Memory
-// traffic is small: the decoder moves ~5 bytes a sample (an int8 code in,
-// an int32 sample out), the encoder 2 bytes in and 0.4 out.  The design
-// keeps the chain short and the schedulers busy:
-//   * the 4-tap history and weights live in registers, and the step loops
-//     unroll, so the history shift is register renaming;
-//   * a decode warp runs only 8 lanes, so 8192 lanes make 1024 warps, ~2
-//     for each of the card's 528 schedulers, to cover each other's stalls;
-//   * the [L, T] layout is kept at the boundary; tiles of 160 steps (8
-//     slices) stage through shared memory, so global loads and stores stay
-//     coalesced while each thread walks its own lane, and the next tile's
-//     loads are in flight while the current tile runs.
+// candidates), so both kernels are bound by the chain's dependent latency
+// and by the integer instructions of a step, not by memory: the decoder
+// moves ~5 bytes a sample (an int8 code in, an int32 sample out), the
+// encoder 2 bytes in and 0.4 out.  In both the 4-tap history and weights
+// live in registers and the step loops unroll, so the history shift is
+// register renaming; the decoder's own design is in its section below.
 // The encoder's step is cut to few instructions and a short serial chain,
 // its instructions split about evenly between the IMAD pipe and the INT32
 // ALU pipe, which run side by side (each takes 16 lanes a cycle on a
@@ -69,8 +61,7 @@ namespace {
 constexpr int kSliceLen = 20;
 constexpr int kSlices = 256;
 constexpr int kFrameLen = kSliceLen * kSlices;  // 5120
-constexpr int kTileSteps = 160;                 // 8 slices a staged tile
-constexpr int kWarp = 32;
+constexpr int kTileSteps = 160;                 // 8 slices an encoder tile
 
 // DEQUANT_TAB[sf][q] (qoa.d:197-215); rows are (+a, -a, +b, -b, ...)
 __constant__ int32_t kDequant[16][8] = {
@@ -112,165 +103,434 @@ __device__ __forceinline__ int32_t clamp_s16(int32_t v) {
   return min(max(v, -32768), 32767);
 }
 
-// (sum_i h[i]*w[i]) >> 13 with int32 wraparound (qoa.d:231-238)
-__device__ __forceinline__ int32_t lms_predict(const int32_t h[4],
-                                               const int32_t w[4]) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc += static_cast<uint32_t>(h[i]) * static_cast<uint32_t>(w[i]);
-  return static_cast<int32_t>(acc) >> 13;
-}
-
-// sign-sign update (qoa.d:241-254), then recon shifts into the history
-__device__ __forceinline__ void lms_update(int32_t h[4], int32_t w[4],
-                                           int32_t recon, int32_t residual) {
-  const int32_t delta = residual >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = wrap_add(w[i], h[i] < 0 ? -delta : delta);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) h[i] = h[i + 1];
-  h[3] = recon;
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
 }
 
 // ------------------------------------------------------------------ decode
-// A one-warp block decodes kDecLanes lanes: with 8,192 lanes a call that is
-// 1,024 warps, ~2 per scheduler, so one warp's stalls on its chain are
-// another's issue slots (a full warp of lanes would leave half the
-// schedulers without a warp).  All 32 threads stage the tiles.
-constexpr int kDecLanes = 8;
-constexpr int kTileSlices = kTileSteps / kSliceLen;   // 8
-constexpr int kCodeWords = kTileSteps / 4;            // a lane's code words
-constexpr int kWordLoads = kDecLanes * kCodeWords / kWarp;   // a thread's
-constexpr int kSfLoads = kDecLanes * kTileSlices / kWarp;    // a thread's
+// Every thread runs one lane's chain, kDecLanes = 32 lanes a one-warp
+// block: 8,192 lanes are 256 warps, fewer than the card's 528 schedulers,
+// so the kernel's time is one warp's time a step, 5,120 times.  A warp
+// issues in order, so that time is the longer of its instructions a step
+// and its stalls; the step's arithmetic alone runs at ~21 cycles.  The
+// design keeps the chain short, the step's instructions few, and every
+// stall off the warp's path; the staging runs on the chain's own thread:
+//   * one multiply-add follows recon on the chain: the other three terms
+//     of the next sum and the weight updates need only older samples and
+//     r, which is known ahead;
+//   * each weight update is one multiply-add by its history sample's sign
+//     (+-1, made once as the sample enters);
+//   * a tile of 80 steps (4 slices) is unrolled, so the history rotates by
+//     register renaming;
+//   * the chain reads its residuals from, and writes its samples to, the
+//     lane's staged row in shared memory, 4 at a time: loads and stores of
+//     one base address, which ptxas can tell apart, so each load runs ahead
+//     of the stores before it (a load from another array cannot pass them,
+//     and its latency lands on the chain);
+//   * the fused form's codes come in as 16-byte loads of the thread's own
+//     row a tile ahead (4-byte loads where a row is not 16-byte aligned),
+//     and become the row's residuals before the tile's chain: a code's r is
+//     one byte permute, which builds the address of its DEQUANT_TAB entry,
+//     and one conflict-free shared load from the thread's own copy of the
+//     table; the int32 form's residuals come in by cp.async, a tile ahead;
+//   * the warp writes the staged samples out while the next ones run, in
+//     coalesced 16-byte stores, each loaded from shared memory a code word
+//     before it is stored, so the load's latency passes beside the chain;
+//   * the fused form writes each row 1,280 bytes (320 steps) at a time:
+//     the card's memory took 320-byte pieces of 20 KB-apart rows at 0.94
+//     TB/s, and 1,280-byte ones at 2.86 TB/s.  (One bulk async copy a lane
+//     and tile, by the TMA unit, kept the warp waiting.)
+constexpr int kDecLanes = 32;                 // lanes (threads) a block
+constexpr int kDecTile = 4 * kSliceLen;       // 80 steps a tile
+constexpr int kTileWords = kDecTile / 4;      // a tile's code words: 20
+// a staged row's stride in words: rows stay 16-byte aligned, and the 8
+// threads of each phase of a 16-byte shared access hit distinct banks
+constexpr int kRowWords = kDecTile + 4;
 
-// The fused form's loads of the tile at step t0 into registers: 4 codes a
-// 32-bit word, a lane's 160 codes are 40 words read by consecutive threads,
-// and its 8 scalefactors.  T is a multiple of 20, so a lane's row is 4-byte
-// aligned and a word lies wholly inside or past the row, and its 4 codes
-// share one slice.  All loads of a tile are independent and in flight
-// together.
-__device__ __forceinline__ void load_code_tile(
-    const int8_t* __restrict__ scalefactors, const int8_t* __restrict__ codes,
-    int lane0, int x, int L, int T, int t0, uint32_t (&c4)[kWordLoads],
-    int32_t (&sf)[kSfLoads]) {
-  const int S = T / kSliceLen;
-#pragma unroll
-  for (int j = 0; j < kWordLoads; ++j) {
-    const int k = x + kWarp * j;
-    const int li = lane0 + k / kCodeWords;
-    const int t = t0 + (k % kCodeWords) * 4;
-    c4[j] = (li < L && t < T)
-                ? *reinterpret_cast<const uint32_t*>(
-                      codes + static_cast<int64_t>(li) * T + t)
-                : 0u;
-  }
-#pragma unroll
-  for (int j = 0; j < kSfLoads; ++j) {
-    const int k = x + kWarp * j;
-    const int li = lane0 + k / kTileSlices;
-    const int s = t0 / kSliceLen + k % kTileSlices;
-    sf[j] = (li < L && s < S)
-                ? scalefactors[static_cast<int64_t>(li) * S + s] & 15
-                : 0;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of kBytes (4 or 16) from src to dst, zeros where !valid
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
   }
 }
 
-// One thread per lane, kDecLanes lanes a one-warp block.  tile[i][k] holds
-// lane lane0+i at step t0+k: first its residual, then its reconstructed
-// sample.  The fused form loads the next tile's codes while the current
-// one decodes.
-template <bool kFused>
-__global__ void __launch_bounds__(kWarp)
-qoa_decode_kernel(const int32_t* __restrict__ history,
-                  const int32_t* __restrict__ weights,
-                  const int32_t* __restrict__ dequantized,
-                  const int8_t* __restrict__ scalefactors,
-                  const int8_t* __restrict__ codes,
-                  int32_t* __restrict__ out, int L, int T) {
-  // the +1 column keeps a thread's walk along its own row free of bank
-  // conflicts
-  __shared__ int32_t tile[kDecLanes][kTileSteps + 1];
-  __shared__ int32_t dequant[16 * 8];
-  __shared__ int32_t sf_tile[kDecLanes][kTileSlices];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but this thread's latest group of cp.async copies have landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One staged row (steps valid steps) out to global dst by the whole warp:
+// thread x stores the row's 16-byte chunk x (kVec: dst 16-byte aligned) or
+// its words x, x + 32, x + 64, so each store instruction writes one row's
+// contiguous bytes.
+template <bool kVec>
+__device__ __forceinline__ void store_row(const int32_t* row, int32_t* dst,
+                                          int steps, int x) {
+  if constexpr (kVec) {
+    if (4 * x < steps)
+      *reinterpret_cast<int4*>(dst + 4 * x) =
+          *reinterpret_cast<const int4*>(row + 4 * x);
+  } else {
+#pragma unroll
+    for (int c = x; c < kDecTile; c += kDecLanes)
+      if (c < steps) dst[c] = row[c];
+  }
+}
+
+// One lane's LMS state: the 4-tap history h, its signs sg (h < 0 ? -1 :
+// 1), the weights w, and acc = sum_i h[i] * w[i] (wrapped), the next step's
+// prediction before its >> 13.
+struct DecState {
+  int32_t h[4], sg[4], w[4];
+  uint32_t acc;
+};
+
+__device__ __forceinline__ DecState dec_state(const int32_t* history,
+                                              const int32_t* weights,
+                                              int64_t l, bool live) {
+  DecState s;
+  s.acc = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s.h[i] = live ? history[l * 4 + i] : 0;
+    s.w[i] = live ? weights[l * 4 + i] : 0;
+    s.sg[i] = (s.h[i] >> 31) | 1;
+    s.acc += static_cast<uint32_t>(s.h[i]) * static_cast<uint32_t>(s.w[i]);
+  }
+  return s;
+}
+
+// One step on the dequantized residual r (qoa.d:231-254): recon =
+// clamp_s16((acc >> 13) + r), the add wrapped; w += (r >> 4) * sg; h
+// shifts in recon.  The next sum is
+//   h1 w0' + h2 w1' + h3 w2' + recon w3',
+// whose first three terms need only older samples, so one multiply-add
+// follows recon on the chain.
+__device__ __forceinline__ int32_t dec_step(DecState& s, int32_t r) {
+  const int32_t recon =
+      clamp_s16(wrap_add(static_cast<int32_t>(s.acc) >> 13, r));
+  const uint32_t delta = static_cast<uint32_t>(r >> 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    s.w[i] = static_cast<int32_t>(static_cast<uint32_t>(s.w[i]) +
+                                  delta * static_cast<uint32_t>(s.sg[i]));
+  uint32_t a = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    a += static_cast<uint32_t>(s.h[i + 1]) * static_cast<uint32_t>(s.w[i]);
+  s.acc = static_cast<uint32_t>(recon) * static_cast<uint32_t>(s.w[3]) + a;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    s.h[i] = s.h[i + 1];
+    s.sg[i] = s.sg[i + 1];
+  }
+  s.h[3] = recon;
+  s.sg[3] = (recon >> 31) | 1;
+  return recon;
+}
+
+// The fused form's loads of the tile at step t0 of one lane into
+// registers: its 80 codes, 4 a word, and its 4 scalefactors, a byte each;
+// zeros past the row.  kVec: 16-byte loads (T a multiple of 80, so every
+// tile is whole, and the rows aligned).
+template <bool kVec>
+__device__ __forceinline__ void load_codes(const int8_t* crow,
+                                           const int8_t* srow, int t0, int T,
+                                           bool live,
+                                           uint32_t (&cw)[kTileWords],
+                                           uint32_t& sf4) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int v = 0; v < kTileWords / 4; ++v) {
+      const uint4 u =
+          live ? __ldg(reinterpret_cast<const uint4*>(crow + t0) + v)
+               : make_uint4(0, 0, 0, 0);
+      cw[4 * v] = u.x;
+      cw[4 * v + 1] = u.y;
+      cw[4 * v + 2] = u.z;
+      cw[4 * v + 3] = u.w;
+    }
+    sf4 = live ? __ldg(reinterpret_cast<const uint32_t*>(srow +
+                                                         t0 / kSliceLen))
+               : 0u;
+  } else {
+#pragma unroll
+    for (int m = 0; m < kTileWords; ++m)
+      cw[m] = live && t0 + 4 * m < T
+                  ? __ldg(reinterpret_cast<const uint32_t*>(crow + t0 + 4 * m))
+                  : 0u;
+    sf4 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (live && t0 + kSliceLen * j < T)
+        sf4 |= static_cast<uint32_t>(
+                   static_cast<uint8_t>(srow[t0 / kSliceLen + j]))
+               << (8 * j);
+    }
+  }
+}
+
+// r of the 4 steps of code word w, in a slice of scalefactor sf, for
+// thread x: dq holds DEQUANT_TAB[sf][code] for thread x at byte offset
+// code << 11 | sf << 7 | x << 2, so each thread reads its own bank.  The
+// word's bytes become code << 3 | sf >> 1 (address bits 8..15) with one
+// shift and one LOP3; the permute of byte b beside (sf & 1) << 7 | x << 2
+// (bits 0..7) is the address.
+__device__ __forceinline__ void dequant4(const int32_t* dq, uint32_t w,
+                                         uint32_t sf, uint32_t x,
+                                         int32_t (&r)[4]) {
+  const char* table = reinterpret_cast<const char*>(dq);
+  const uint32_t lo = (sf & 1) << 7 | x << 2;
+  const uint32_t q = ((w << 3) & 0x38383838u) | (sf >> 1) * 0x01010101u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    r[b] = *reinterpret_cast<const int32_t*>(
+        table + prmt(lo, q, 0x1140 + 0x10 * b));
+}
+
+// The chain over one staged tile: row holds this lane's 80 residuals,
+// replaced in place by its samples, 4 at a time (a shared load and store
+// of one base address, which ptxas keeps apart, so each word's load runs
+// ahead of the stores before it).  after(m) runs after code word m: the
+// warp's stores of earlier rows go there, beside the chain.
+template <typename After>
+__device__ __forceinline__ void chain_tile(DecState& s, int32_t* row,
+                                           After&& after) {
+#pragma unroll
+  for (int m = 0; m < kTileWords; ++m) {
+    int4 v = *reinterpret_cast<const int4*>(row + 4 * m);
+    v.x = dec_step(s, v.x);
+    v.y = dec_step(s, v.y);
+    v.z = dec_step(s, v.z);
+    v.w = dec_step(s, v.w);
+    *reinterpret_cast<int4*>(row + 4 * m) = v;
+    after(m);
+  }
+}
+
+// The fused form stages a lane's samples in segments of 4 tiles, 320 steps:
+// its rows go out 1,280 bytes at a time, which the card's memory takes at
+// ~3 times the rate of 320-byte pieces.  A segment goes out during the next
+// one as 80 pieces of 512 bytes, one a code word: piece p is the 16-byte
+// chunks 32 (p % 5) + x of rows 2 (p / 5) and 2 (p / 5) + 1, taken as one
+// run of 160 chunks.
+constexpr int kSegTiles = 4;
+constexpr int kSegSteps = kSegTiles * kDecTile;       // 320
+constexpr int kSegWords = kSegSteps + 4;              // a row's stride
+constexpr int kFusedSmem = (8 * 16 + 2 * kSegWords) * kDecLanes * 4;
+
+// The fused form: int8 scalefactors [L, S] and codes [L, S, 20], T = 20 S.
+// A tile's codes, loaded a tile ahead, become the lane's residuals in its
+// staged row (a slice at a time: 20 table loads, then 5 stores), then
+// chain_tile runs.  Dynamic shared memory: kFusedSmem bytes.
+template <bool kVec>
+__global__ void __launch_bounds__(kDecLanes)
+qoa_decode_fused(const int32_t* __restrict__ history,
+                 const int32_t* __restrict__ weights,
+                 const int8_t* __restrict__ scalefactors,
+                 const int8_t* __restrict__ codes, int32_t* __restrict__ out,
+                 int L, int T) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* dq = smem;
+  auto* seg = reinterpret_cast<int32_t (*)[kDecLanes][kSegWords]>(
+      smem + 8 * 16 * kDecLanes);
   const int x = threadIdx.x;
   const int lane0 = blockIdx.x * kDecLanes;
   const int l = lane0 + x;
-  const bool lane = x < kDecLanes;        // this thread runs a lane's chain
-  const bool live = lane && l < L;
-  uint32_t c4[kWordLoads];
-  int32_t sf[kSfLoads];
-  if constexpr (kFused) {
-    // table lookups with lane-varying indices: shared memory, not the
-    // constant cache (which serializes distinct addresses)
-    for (int k = x; k < 16 * 8; k += kWarp) dequant[k] = kDequant[k >> 3][k & 7];
-    load_code_tile(scalefactors, codes, lane0, x, L, T, 0, c4, sf);
-  }
-
-  int32_t h[4], w[4];
+  const bool live = l < L;
+  for (int k = x; k < 8 * 16 * kDecLanes; k += kDecLanes)
+    dq[k] = kDequant[(k >> 5) & 15][k >> 9];
+  DecState s = dec_state(history, weights, l, live);
+  const int8_t* crow = codes + static_cast<int64_t>(l) * T;
+  const int8_t* srow =
+      scalefactors + static_cast<int64_t>(l) * (T / kSliceLen);
+  const int rows_live = min(kDecLanes, L - lane0);
+  int32_t* dst = out + static_cast<int64_t>(lane0) * T;
+  // this thread's share of a piece of a row pair, by p % 5: its row (0 or
+  // 1), and its chunk's offset in the staged rows and in out
+  int prow[5], soff[5], goff[5];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    h[i] = live ? history[static_cast<int64_t>(l) * 4 + i] : 0;
-    w[i] = live ? weights[static_cast<int64_t>(l) * 4 + i] : 0;
+  for (int j = 0; j < 5; ++j) {
+    const int c = 32 * j + x;
+    prow[j] = c / kDecTile;
+    soff[j] = prow[j] * kSegWords + 4 * (c % kDecTile);
+    goff[j] = prow[j] * T + 4 * (c % kDecTile);
   }
-
-  for (int t0 = 0; t0 < T; t0 += kTileSteps) {
+  uint32_t next[kTileWords], next_sf;
+  load_codes<kVec>(crow, srow, 0, T, live, next, next_sf);
+  __syncwarp();
+  int t0 = 0, n = 0;
+  for (; t0 < T; t0 += kDecTile, ++n) {
+    uint32_t cw[kTileWords];
+#pragma unroll
+    for (int m = 0; m < kTileWords; ++m) cw[m] = next[m];
+    const uint32_t sf4 = next_sf;
+    if (t0 + kDecTile < T)
+      load_codes<kVec>(crow, srow, t0 + kDecTile, T, live, next, next_sf);
+    const int k = n / kSegTiles, sub = n % kSegTiles;
+    int32_t* row = seg[k & 1][x] + sub * kDecTile;
+    // a slice's table loads go before the previous slice's stores, which
+    // they could not pass
+    int32_t r[2][5][4];
+#pragma unroll
+    for (int j = 0; j <= kDecTile / kSliceLen; ++j) {
+      if (j < kDecTile / kSliceLen) {
+#pragma unroll
+        for (int w = 0; w < 5; ++w)
+          dequant4(dq, cw[5 * j + w], (sf4 >> (8 * j)) & 15, x, r[j & 1][w]);
+      }
+      if (j > 0) {
+        const int32_t (&q)[5][4] = r[(j - 1) & 1];
+#pragma unroll
+        for (int w = 0; w < 5; ++w)
+          *reinterpret_cast<int4*>(row + 20 * (j - 1) + 4 * w) =
+              make_int4(q[w][0], q[w][1], q[w][2], q[w][3]);
+      }
+    }
+    // pieces sub * 20 .. sub * 20 + 19 of the previous segment (its rows
+    // 8 sub .. 8 sub + 7), each loaded a word before it is stored (the
+    // tile's last at once)
+    const int32_t* prev = &seg[(k + 1) & 1][8 * sub][0];
+    int32_t* pdst =
+        dst + static_cast<int64_t>(8 * sub) * T + (k - 1) * kSegSteps;
+    const int rows = k > 0 ? rows_live - 8 * sub : 0;
+    int4 o;
+    int orow = 0;
+    int32_t* odst = pdst;
+    chain_tile(s, row, [&](int m) {
+      if (m > 0 && orow < rows) __stcs(reinterpret_cast<int4*>(odst), o);
+      const int j = m % 5, pair = 2 * (m / 5);
+      orow = pair + prow[j];
+      o = *reinterpret_cast<const int4*>(prev + pair * kSegWords + soff[j]);
+      odst = pdst + (pair * T + goff[j]);
+      if (m == kTileWords - 1 && orow < rows)
+        __stcs(reinterpret_cast<int4*>(odst), o);
+    });
     __syncwarp();
-    if constexpr (kFused) {
+  }
+  // what is left: the previous segment's pieces past the last segment's
+  // tiles, then the last segment
+  const int k = (n - 1) / kSegTiles;
+  if (k > 0) {
+    const int32_t* prev = &seg[(k + 1) & 1][0][0];
+    int32_t* pdst = dst + static_cast<int64_t>(k - 1) * kSegSteps;
+    for (int p = (n - k * kSegTiles) * kTileWords; p < kSegTiles * kTileWords;
+         ++p) {
+      const int c = 32 * (p % 5) + x;
+      const int i = 2 * (p / 5) + c / kDecTile;
+      if (i < rows_live)
+        *reinterpret_cast<int4*>(pdst + static_cast<int64_t>(i) * T +
+                                 4 * (c % kDecTile)) =
+            *reinterpret_cast<const int4*>(prev + i * kSegWords +
+                                           4 * (c % kDecTile));
+    }
+  }
+  const int steps = T - k * kSegSteps;
+  for (int i = 0; i < rows_live; ++i)
+    for (int c = 4 * x; c < steps; c += 4 * kDecLanes)
+      *reinterpret_cast<int4*>(dst + static_cast<int64_t>(i) * T +
+                               k * kSegSteps + c) =
+          *reinterpret_cast<const int4*>(&seg[k & 1][i][c]);
+}
+
+// The int32 form: residuals [L, T] of any int32 (p + r wraps), any T.  A
+// lane's tile comes in by cp.async a tile ahead into one of three staged
+// rows (16-byte copies where kVec: T a multiple of 4 and the residuals
+// 16-byte aligned; 4-byte copies else); then chain_tile runs, while the
+// warp writes out the previous tile's rows, two a code word, each row
+// loaded a word before it is stored (threads 20..31 repeat chunk 19: the
+// same bytes to the same place).  Not kVec: the rows go out in words after
+// the chain.
+template <bool kVec>
+__global__ void __launch_bounds__(kDecLanes)
+qoa_decode_int32(const int32_t* __restrict__ history,
+                 const int32_t* __restrict__ weights,
+                 const int32_t* __restrict__ dequantized,
+                 int32_t* __restrict__ out, int L, int T) {
+  __shared__ __align__(16) int32_t tile[3][kDecLanes][kRowWords];
+  const int x = threadIdx.x;
+  const int lane0 = blockIdx.x * kDecLanes;
+  const int l = lane0 + x;
+  const bool live = l < L;
+  DecState s = dec_state(history, weights, l, live);
+  const int32_t* rrow = dequantized + static_cast<int64_t>(l) * T;
+  const auto stage = [&](int32_t* into, int t0) {
+    constexpr int kStep = kVec ? 4 : 1;
 #pragma unroll
-      for (int j = 0; j < kSfLoads; ++j) {
-        const int k = x + kWarp * j;
-        sf_tile[k / kTileSlices][k % kTileSlices] = sf[j];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kWordLoads; ++j) {
-        const int k = x + kWarp * j;
-        const int i = k / kCodeWords;
-        const int kk = (k % kCodeWords) * 4;
-        const int32_t* row = dequant + sf_tile[i][kk / kSliceLen] * 8;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) tile[i][kk + b] = row[(c4[j] >> (8 * b)) & 7];
-      }
-      if (t0 + kTileSteps < T)
-        load_code_tile(scalefactors, codes, lane0, x, L, T, t0 + kTileSteps,
-                       c4, sf);
+    for (int k = 0; k < kDecTile; k += kStep) {
+      const bool valid = live && t0 + k < T;
+      cp_async<4 * kStep>(into + k, valid ? rrow + t0 + k : dequantized,
+                          valid);
+    }
+    cp_async_commit();
+  };
+  const int rows_live = min(kDecLanes, L - lane0);
+  const int c = 4 * min(x, kDecTile / 4 - 1);
+  int32_t* dst = out + static_cast<int64_t>(lane0) * T;
+  stage(tile[0][x], 0);
+  int t0 = 0;
+  for (int n = 0; t0 < T; t0 += kDecTile, ++n) {
+    // the next tile's row was last read by the warp's stores a tile ago,
+    // before the last __syncwarp
+    if (t0 + kDecTile < T) {
+      stage(tile[(n + 1) % 3][x], t0 + kDecTile);
     } else {
-      // coalesced: the warp reads 32 consecutive steps of row i at once
+      cp_async_commit();   // an empty group, so the wait below is the same
+    }
+    cp_async_wait_prior();
+    const int32_t (*prev)[kRowWords] = tile[(n + 2) % 3];
+    int32_t* pdst = dst + t0 - kDecTile;
+    const int rows = n > 0 ? rows_live : 0;
+    int4 o[2];
+    chain_tile(s, tile[n % 3][x], [&](int m) {
+      if constexpr (kVec) {
+        if (m >= 1 && m <= kDecLanes / 2) {
 #pragma unroll
-      for (int i = 0; i < kDecLanes; ++i) {
-        const int li = lane0 + i;
+          for (int b = 0; b < 2; ++b) {
+            const int i = 2 * m - 2 + b;
+            if (i < rows)
+              *reinterpret_cast<int4*>(pdst + static_cast<int64_t>(i) * T +
+                                       c) = o[b];
+          }
+        }
+        if (m < kDecLanes / 2) {
 #pragma unroll
-        for (int k = x; k < kTileSteps; k += kWarp) {
-          const int t = t0 + k;
-          tile[i][k] = (li < L && t < T)
-                           ? dequantized[static_cast<int64_t>(li) * T + t]
-                           : 0;
+          for (int b = 0; b < 2; ++b)
+            o[b] = *reinterpret_cast<const int4*>(prev[2 * m + b] + c);
         }
       }
+    });
+    if constexpr (!kVec) {
+      for (int i = 0; i < rows; ++i)
+        store_row<false>(prev[i], pdst + static_cast<int64_t>(i) * T,
+                         kDecTile, x);
     }
     __syncwarp();
-    if (lane) {
-      const int steps = min(kTileSteps, T - t0);
-#pragma unroll 4
-      for (int k = 0; k < steps; ++k) {
-        const int32_t r = tile[x][k];
-        const int32_t recon = clamp_s16(wrap_add(lms_predict(h, w), r));
-        lms_update(h, w, recon, r);
-        tile[x][k] = recon;
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < kDecLanes; ++i) {
-      const int li = lane0 + i;
-#pragma unroll
-      for (int k = x; k < kTileSteps; k += kWarp) {
-        const int t = t0 + k;
-        if (li < L && t < T) out[static_cast<int64_t>(li) * T + t] = tile[i][k];
-      }
-    }
   }
+  t0 -= kDecTile;
+  dst += t0;
+  for (int i = 0; i < rows_live; ++i, dst += T)
+    store_row<kVec>(tile[((T - 1) / kDecTile) % 3][i], dst, T - t0, x);
 }
 
 // ------------------------------------------------------------------ encode
@@ -280,12 +540,6 @@ constexpr int kEncThreads = kLanesPerBlock * kCand;
 // a staged row's stride: 16-byte aligned rows for the slices' vector
 // loads; the two lanes of a warp read banks 4 apart
 constexpr int kRowStride = kTileSteps + 4;
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
-  return d;
-}
 
 __device__ __forceinline__ int32_t sgn(int32_t x) { return (x > 0) - (x < 0); }
 
@@ -599,26 +853,46 @@ quant_mismatches(unsigned long long* __restrict__ counts) {
 // cudaGetLastError() (0 on success).
 
 // dequantized != nullptr: the [L, T] int32 form.  Otherwise the fused form
-// with int8 scalefactors [L, T/20] and codes [L, T/20, 20].
+// with int8 scalefactors [L, T/20] and codes [L, T/20, 20] (4-byte
+// aligned).  out 16-byte aligned.
 extern "C" int af_qoa_decode(const void* history, const void* weights,
                              const void* dequantized, const void* scalefactors,
                              const void* codes, void* out, int L, int T,
                              void* stream) {
   if (L <= 0 || T <= 0) return 0;
+  const auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (!aligned(out, 16)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + kDecLanes - 1) / kDecLanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const int32_t*>(history);
   const auto* w = static_cast<const int32_t*>(weights);
   auto* o = static_cast<int32_t*>(out);
   if (dequantized != nullptr) {
-    qoa_decode_kernel<false><<<grid, kWarp, 0, s>>>(
-        h, w, static_cast<const int32_t*>(dequantized), nullptr, nullptr, o,
-        L, T);
+    const auto* r = static_cast<const int32_t*>(dequantized);
+    if (T % 4 == 0 && aligned(r, 16)) {
+      qoa_decode_int32<true><<<grid, kDecLanes, 0, s>>>(h, w, r, o, L, T);
+    } else {
+      qoa_decode_int32<false><<<grid, kDecLanes, 0, s>>>(h, w, r, o, L, T);
+    }
   } else {
-    if (T % kSliceLen != 0) return static_cast<int>(cudaErrorInvalidValue);
-    qoa_decode_kernel<true><<<grid, kWarp, 0, s>>>(
-        h, w, nullptr, static_cast<const int8_t*>(scalefactors),
-        static_cast<const int8_t*>(codes), o, L, T);
+    if (T % kSliceLen != 0 || !aligned(codes, 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto* sf = static_cast<const int8_t*>(scalefactors);
+    const auto* c = static_cast<const int8_t*>(codes);
+    const auto launch = [&](auto kernel) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFusedSmem);
+      if (e == cudaSuccess)
+        kernel<<<grid, kDecLanes, kFusedSmem, s>>>(h, w, sf, c, o, L, T);
+      return e;
+    };
+    const cudaError_t e =
+        T % kDecTile == 0 && aligned(c, 16) && aligned(sf, 4)
+            ? launch(qoa_decode_fused<true>)
+            : launch(qoa_decode_fused<false>);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

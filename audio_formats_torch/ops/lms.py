@@ -144,7 +144,31 @@ def qoa_decode_cuda(history, weights, dequantized=None, scalefactors=None,
     or int8 `scalefactors` [L, S] and `codes` [L, S, 20] (T = 20·S; the
     kernel looks DEQUANT_TAB up itself).  Every tensor must already lie on
     one CUDA device, contiguous, with these dtypes."""
-    global DECODE_LAUNCHES
+    L, T, dev = _decode_args(history, weights, dequantized, scalefactors,
+                             codes)
+    out = torch.empty((L, T), dtype=torch.int32, device=dev)
+    _decode_launch(history, weights, dequantized, scalefactors, codes, out)
+    return out
+
+
+def qoa_decode_launch(history, weights, out, dequantized=None,
+                      scalefactors=None, codes=None):
+    """The decode kernel's launch alone, into `out` ([L, T] int32 on the
+    same card, contiguous, 16-byte aligned): qoa_decode_cuda without its
+    allocation.  Returns out."""
+    L, T, dev = _decode_args(history, weights, dequantized, scalefactors,
+                             codes)
+    _kernels.check_args("qoa_decode", dev, (
+        ("out", out, (torch.int32,), (L, T)),))
+    if out.data_ptr() % 16:
+        raise _kernels.KernelArgError(
+            "qoa_decode: out must start 16-byte aligned")
+    _decode_launch(history, weights, dequantized, scalefactors, codes, out)
+    return out
+
+
+def _decode_args(history, weights, dequantized, scalefactors, codes):
+    """Check qoa_decode_cuda's tensors; returns (L, T, device)."""
     L = history.shape[0] if history.dim() == 2 else -1
     if dequantized is not None:
         dev = dequantized.device
@@ -163,10 +187,16 @@ def qoa_decode_cuda(history, weights, dequantized=None, scalefactors=None,
     if dequantized is None and codes.data_ptr() % 4:
         raise _kernels.KernelArgError(
             "qoa_decode: codes must start 4-byte aligned")
-    out = torch.empty((L, T), dtype=torch.int32, device=dev)
+    return L, T, dev
+
+
+def _decode_launch(history, weights, dequantized, scalefactors, codes, out):
+    global DECODE_LAUNCHES
+    L, T = out.shape
     if L == 0 or T == 0:
-        return out
+        return
     lib = _kernels.load("qoa_lms")
+    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.af_qoa_decode(
@@ -178,7 +208,6 @@ def qoa_decode_cuda(history, weights, dequantized=None, scalefactors=None,
     _kernels.check_launch("qoa_decode", rc)
     with _launch_lock:
         DECODE_LAUNCHES += 1
-    return out
 
 
 def decode_slices(history, weights, scalefactors, codes):

@@ -15,13 +15,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    exact int64 host oracle on a subset of lanes), and again at the FLAC
    slice's own first window (phase 4 keeps that call's arguments); the QOA
    decode kernel at 8,192 x 5,120 in both input forms (int32 residuals,
-   int8 scalefactors and codes); the QOA encode search at 2,048 x 5,120
+   int8 scalefactors and codes), and again at the QOA decode slice's own
+   first and last (6,584-lane) windows (phase 6 keeps their arguments);
+   the QOA encode search at 2,048 x 5,120
    with frame lengths around slice edges and full-scale square waves, and
    its quantizer against its direct form on all 2^32 int32 residuals; the
    MP3 Huffman kernel at one full window of the MP3 slice (98,304
    granule-channel lanes parsed by the C stage from the MP3 corpus) and on
-   random-bit lanes at two row widths.  The LPC and Huffman kernels are
-   timed through their wrappers, alone, and by their lane grouping;
+   random-bit lanes at two row widths.  The LPC, Huffman and QOA decode
+   kernels are timed through their wrappers, alone (a launch into a
+   pre-made output) and by their host enqueue, the first two also by
+   their lane grouping;
 4. FLAC   — ``BatchDecoder(streams, device="cuda").decode_all(output="device")``
    over 512 FLAC lanes cut from 16 synthetic masters (16-bit stereo 44.1 kHz
    mid/side LPC-8, block 4096, 6-10 s), then ``.sync()``; the PCM stays on
@@ -59,19 +63,23 @@ the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of the JAX package, and checks so
 before the result.
 
-    python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode]  # card
+    python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
 
-``--ab`` times the Huffman, LPC and QOA encode kernels of this tree (or
-those named) against those built from DIR/audio_formats_torch/csrc (an
-earlier commit's sources, e.g. from ``git archive``), parent / change /
-change / parent in one process, and the MP3, FLAC and QOA encode slices
-with either side's kernel; it prints no result line.  ``--divergence`` counts each lane's Huffman FSM steps on one MP3
-window with the twin and prints the warp ratio in the window's order and
-in the order the Huffman wrapper gives the kernel.  ``--sass`` counts the
-SASS instructions of one step of K5's full-slice body, by pipe, in this
-tree's qoa_lms.cu and in each DIR's.
+``--ab`` (on the card) times the Huffman, LPC, QOA encode and QOA decode
+kernels of this tree (or those named) against those built from
+DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from ``git
+archive``), parent / change / change / parent in one process, and the MP3,
+FLAC, QOA encode and QOA decode slices with either side's kernel; it
+prints no result line.  ``--divergence`` counts each lane's Huffman FSM
+steps on one MP3 window with the twin and prints the warp ratio in the
+window's order and in the order the Huffman wrapper gives the kernel.
+``--sass`` (nvcc and
+cuobjdump) counts, in this tree's qoa_lms.cu and in each DIR's, the SASS
+instructions of one step of K5's full-slice body by pipe, and of one step
+of K2's chain loop by pipe with its dependent chain from one sample to the
+next and the tile loop's instructions outside it.
 """
 
 import json
@@ -648,6 +656,77 @@ def check_time_qoa_encode(args, label):
     return time_cuda(lambda: lms.qoa_encode_cuda(*args), 20), plain_ms
 
 
+def qoa_decode_bound(sf, codes):
+    """bound() of K2's fused form on these lanes: scalefactors and codes
+    in, history and weights in, samples out; LMS_STEP_OPS a step."""
+    L, S = sf.shape
+    T = S * 20
+    return bound(sf.numel() + codes.numel() + 2 * L * 16 + L * T * 4,
+                 L * T * LMS_STEP_OPS)
+
+
+def check_time_qoa_decode(args, label):
+    """K2's fused form on these arguments (history, weights, int8
+    scalefactors and codes on the card) against its twin, bit for bit;
+    then timed through its wrapper (decode_slices), alone (a launch into a
+    pre-made output) and by its host enqueue.  Returns (the kernel's
+    output, the dequantized residuals, the twin's output, {times, bound,
+    share})."""
+    import torch
+    from audio_formats_torch.ops import lms
+
+    h, w, sf, codes = args
+    L = sf.shape[0]
+    tab = torch.from_numpy(lms.DEQUANT_TAB).to(sf.device)
+    deq = tab[sf.long()[..., None], codes.long()].reshape(L, -1).contiguous()
+    got = lms.decode_slices(*args)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(lms.qoa_decode_torch(h, w, deq)),
+                         1)
+    if not torch.equal(got, want[0]):
+        err = int((got.long() - want[0].long()).abs().max())
+        raise AssertionError(f"QOA decode kernel != twin at the {label}: "
+                             f"max abs err {err}")
+    # ~15 ms of launches first: after the twin's small kernels the card's
+    # clock takes that long to come back up
+    for _ in range(100):
+        lms.decode_slices(*args)
+    ms = time_cuda(lambda: lms.decode_slices(*args), 20)
+    out = torch.empty_like(got)
+    kernel_ms = time_cuda(
+        lambda: lms.qoa_decode_launch(h, w, out, scalefactors=sf, codes=codes),
+        20)
+    host_ms = time_host(lambda: lms.decode_slices(*args))
+    b = qoa_decode_bound(sf, codes)
+    return got, deq, want[0], {
+        "ms": ms, "kernel_ms": kernel_ms, "host_ms": host_ms,
+        "plain_ms": plain_ms, **b, "share": b["bound_ms"] / ms}
+
+
+def phase_qoa_decode_kernel(card, captured):
+    """K2 at the QOA decode slice's first window and at its last (tail)
+    window: bit-equal to the twin, timed, beside its bound."""
+    out = {}
+    for label, args in (("slice_first", captured[0]),
+                        ("slice_tail", captured[-1])):
+        L = args[0].shape[0]
+        r = check_time_qoa_decode(args, f"QOA decode slice's {label} "
+                                  "window")[3]
+        print(f"# kernel qoa_decode, the QOA decode slice's {label} window "
+              f"L={L}: bit-equal to the twin; wrapper {r['ms']:.4f} ms (its "
+              f"host enqueue {r['host_ms']:.4f} ms), kernel alone "
+              f"{r['kernel_ms']:.4f} ms, twin {r['plain_ms']:.1f} ms; "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share "
+              f"{r['share']:.3f} [{card}]")
+        out.update({f"{label}_L": L, f"{label}_ms": r["ms"],
+                    f"{label}_kernel_ms": r["kernel_ms"],
+                    f"{label}_plain_ms": r["plain_ms"],
+                    f"{label}_bound_ms": r["bound_ms"],
+                    f"{label}_share": r["share"]})
+    return out
+
+
 def phase_qoa_kernels(card):
     """The QOA decode kernel (both forms) at one full window and the encode
     search at one full chunk, each against its twin, bit for bit; the
@@ -658,34 +737,27 @@ def phase_qoa_kernels(card):
     dev = torch.device("cuda")
     dec_in, enc_in = qoa_kernel_inputs()
     L = L_QOA_DECODE
-    h, w, sf, codes = (torch.from_numpy(a).to(dev) for a in dec_in)
-    tab = torch.from_numpy(lms.DEQUANT_TAB).to(dev)
-    deq = tab[sf.long()[..., None], codes.long()].reshape(L, -1).contiguous()
-    fused = lms.decode_slices(h, w, sf, codes)
+    args = [torch.from_numpy(a).to(dev) for a in dec_in]
+    h, w, _, _ = args
+    fused, deq, want, dres = check_time_qoa_decode(args, "random window")
     plain = lms.qoa_decode(h, w, deq)
     torch.cuda.synchronize()
-    want = []
-    dec_plain_ms = time_cuda(
-        lambda: want.append(lms.qoa_decode_torch(h, w, deq)), 1)
-    dec_err = max(int((g.long() - want[0].long()).abs().max())
-                  for g in (fused, plain))
-    if not (torch.equal(fused, want[0]) and torch.equal(plain, want[0])):
-        raise AssertionError(f"QOA decode kernel != twin: max abs err "
-                             f"{dec_err}")
+    dec_err = int((plain.long() - want.long()).abs().max())
+    if not torch.equal(plain, want):
+        raise AssertionError(f"QOA decode kernel, int32 form != twin: max "
+                             f"abs err {dec_err}")
     for _ in range(3):
-        lms.decode_slices(h, w, sf, codes)
-    dec_ms = time_cuda(lambda: lms.decode_slices(h, w, sf, codes), 20)
-    dec_deq_ms = time_cuda(lambda: lms.qoa_decode(h, w, deq), 20)
-    # the int8 form: scalefactors and codes in, history and weights in,
-    # samples out
-    dec_b = bound(sf.numel() + codes.numel() + 2 * L * 16 + L * QOA_FRAME * 4,
-                  L * QOA_FRAME * LMS_STEP_OPS)
+        lms.qoa_decode(h, w, deq)
+    dres["int32_ms"] = time_cuda(lambda: lms.qoa_decode(h, w, deq), 20)
     print(f"# kernel qoa_decode L={L} T={QOA_FRAME}: both forms bit-equal to "
-          f"the twin; int8 sf/codes {dec_ms:.4f} ms, int32 residuals "
-          f"{dec_deq_ms:.4f} ms, twin {dec_plain_ms:.1f} ms; bound_ms "
-          f"{dec_b['bound_ms']:.4f} ({dec_b['bound_by']}), share "
-          f"{dec_b['bound_ms'] / dec_ms:.3f} [{card}]")
-    del deq, fused, plain, want
+          f"the twin; int8 sf/codes: wrapper {dres['ms']:.4f} ms (its host "
+          f"enqueue {dres['host_ms']:.4f} ms), kernel alone "
+          f"{dres['kernel_ms']:.4f} ms; int32 residuals "
+          f"{dres['int32_ms']:.4f} ms; twin {dres['plain_ms']:.1f} ms; "
+          f"bound_ms {dres['bound_ms']:.4f} ({dres['bound_by']}), share "
+          f"{dres['share']:.3f} (kernel alone "
+          f"{dres['bound_ms'] / dres['kernel_ms']:.3f}) [{card}]")
+    del args, fused, deq, want, plain
 
     L = L_QOA_ENCODE
     args = [torch.from_numpy(a).to(dev) for a in enc_in]
@@ -706,9 +778,7 @@ def phase_qoa_kernels(card):
     print(f"# qoa_encode quantizer: equal to its direct form on all 2^32 "
           f"int32 residuals for each of the 16 scalefactors (mismatches "
           f"{bad}), sweep {sweep_s:.2f} s [{card}]")
-    return ({"max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
-             **dec_b, "library_ms": None,
-             "share": dec_b["bound_ms"] / dec_ms},
+    return ({"max_abs_err": dec_err, **dres, "library_ms": None},
             {"max_abs_err": 0, "ms": enc_ms, "plain_ms": enc_plain_ms,
              **enc_b, "library_ms": None,
              "share": enc_b["bound_ms"] / enc_ms})
@@ -895,7 +965,12 @@ def qoa_lanes(streams):
 
 
 def phase_qoa_decode(card, masters, streams):
+    """The QOA decode slice (decode_checked) against an independent numpy
+    decode.  Returns (lanes, [(master, samples)], that decode, launches,
+    each window's decode_slices arguments)."""
     from golden import qoa_ref
+
+    from audio_formats_torch.ops import lms
 
     t0 = time.perf_counter()
     ref = numpy_qoa_decode(streams)
@@ -908,9 +983,23 @@ def phase_qoa_decode(card, masters, streams):
         if got.shape != src.shape or snr <= 25.0:
             raise AssertionError(f"QOA master {mi}: SNR {snr:.1f} dB")
     lanes, info = qoa_lanes(streams)
-    dec, wall, launches, out, _ = decode_checked(
-        lanes, lambda i: ref[info[i][0]][: info[i][1]].astype(np.float32)
-        * F32_RECIP, "cuda")
+    # keep each window's decode_slices arguments: phase_qoa_decode_kernel
+    # times K2 at the slice's own windows (holding them costs the run
+    # nothing)
+    captured = []
+    decode_slices = lms.decode_slices
+
+    def keep_args(*args):
+        captured.append(args)
+        return decode_slices(*args)
+
+    lms.decode_slices = keep_args
+    try:
+        dec, wall, launches, out, _ = decode_checked(
+            lanes, lambda i: ref[info[i][0]][: info[i][1]].astype(np.float32)
+            * F32_RECIP, "cuda")
+    finally:
+        lms.decode_slices = decode_slices
     if launches["qoa_decode"] != dec.stats["windows"]:
         raise AssertionError(f"QOA decode launches {launches}")
     short = [k for k, (mi, n) in enumerate(info) if n == 10 * QOA_FRAME][:2]
@@ -927,7 +1016,7 @@ def phase_qoa_decode(card, masters, streams):
           f"windows {st['windows']}, decode launches "
           f"{launches['qoa_decode']}, host_ms {st['host_ms']:.0f}, "
           f"enqueue_ms {st['enqueue_ms']:.0f} [{card}]")
-    return lanes, info, ref, launches["qoa_decode"]
+    return lanes, info, ref, launches["qoa_decode"], captured
 
 
 # --------------------------------------------------------------- MP3
@@ -1388,8 +1477,10 @@ def run_phases(card, mp3_masters):
     qoa_streams, enc_launches, enc_chunks = phase_qoa_encode(card, masters)
     eres.update(phase_qoa_encode_kernel(card, enc_chunks))
     del enc_chunks
-    q_lanes, q_info, q_ref, dec_launches = phase_qoa_decode(
+    q_lanes, q_info, q_ref, dec_launches, dec_windows = phase_qoa_decode(
         card, masters, qoa_streams)
+    dres.update(phase_qoa_decode_kernel(card, dec_windows))
+    del dec_windows
 
     # 7. mixed batch: FLAC edge lanes (corrupt FLAC lane last), 8 QOA lanes
     # and a corrupt QOA lane
@@ -1455,15 +1546,29 @@ def run_phases(card, mp3_masters):
         "count": torch.cuda.device_count()}}))
 
 
-def sass_counts(tree):
-    """K5's instructions a step, by pipe: the SASS (cuobjdump) of
-    tree/audio_formats_torch/csrc/qoa_lms.cu built with the kernels' nvcc
-    flags, int16 samples, from the full-slice body's first shared load
-    (the first after the tile's last barrier where the body has no 16-byte
-    loads) to the arg-min's first shuffle (20 steps).
-    Needs nvcc and cuobjdump, not a card.  Returns ({pipe: count a step},
-    the body's opcodes counted)."""
+SASS_PIPES = {"fma": ("IMAD", "IMUL"),
+              "shared/shuffle": ("LDS", "STS", "SHFL"),
+              "global/async": ("LDG", "STG", "LDGSTS", "UBLKCP", "SYNCS",
+                               "DEPBAR", "FENCE", "LDGDEPBAR"),
+              "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "BAR")}
+
+
+def by_pipe(ops, steps):
+    """{pipe: instructions a step} of the opcodes `ops` over `steps`."""
     import collections
+
+    count = collections.Counter()
+    for o in ops:
+        head = o.split(".")[0]
+        count[next((p for p, heads in SASS_PIPES.items() if head in heads),
+                   "alu")] += 1
+    return {p: n / steps for p, n in sorted(count.items())}
+
+
+def qoa_sass(tree):
+    """The SASS (cuobjdump) of tree/audio_formats_torch/csrc/qoa_lms.cu
+    built with the kernels' nvcc flags: {function name: [(address,
+    instruction)]}.  Needs nvcc and cuobjdump, not a card."""
     import re
     import tempfile
 
@@ -1481,52 +1586,153 @@ def sass_counts(tree):
             [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
              cubin], check=True, capture_output=True, text=True,
             timeout=120).stdout
-    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
-                if "qoa_encode_kernelIs" in f.split("\n")[0])
-    ops = [re.sub(r"^@!?U?P\w+\s+", "", i.strip()).split()[0]
-           for i in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
+    funcs = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        funcs[f.split("\n")[0].strip()] = [
+            (int(a, 16), i.strip()) for a, i in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", f)]
+    return funcs
+
+
+def _opcode(ins):
+    import re
+
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+
+
+def k5_sass(funcs):
+    """K5's instructions a candidate-step, by pipe: int16 samples, from the
+    full-slice body's first shared load (the first after the tile's last
+    barrier where the body has no 16-byte loads) to the arg-min's first
+    shuffle (20 steps).  Returns ({pipe: count a step}, the body's opcodes
+    counted)."""
+    import collections
+
+    body = next(v for k, v in funcs.items() if "qoa_encode_kernelIs" in k)
+    ops = [_opcode(i) for _, i in body]
     # the full-slice body opens with its 16-byte loads where it has them
     # (the partial slice's loop is laid out before it)
     bar = max(k for k, o in enumerate(ops) if o.startswith("BAR"))
     a = next((k for k, o in enumerate(ops) if o == "LDS.128"),
              next(k for k in range(bar, len(ops)) if ops[k].startswith("LDS")))
     b = next(k for k in range(a, len(ops)) if ops[k].startswith("SHFL"))
-    pipes = {"fma": ("IMAD", "IMUL"),
-             "shared/shuffle": ("LDS", "STS", "SHFL"),
-             "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "BAR")}
-    by_pipe = collections.Counter()
-    for o in ops[a:b]:
-        head = o.split(".")[0]
-        by_pipe[next((p for p, heads in pipes.items() if head in heads),
-                     "alu")] += 1
-    return ({p: n / 20 for p, n in sorted(by_pipe.items())},
-            collections.Counter(ops[a:b]))
+    return by_pipe(ops[a:b], 20), collections.Counter(ops[a:b])
+
+
+def _regs(ins):
+    """(the register an instruction writes or None, the registers it
+    reads) of one SASS instruction."""
+    import re
+
+    ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
+    op, _, rest = ins.partition(" ")
+    args = [a.strip() for a in rest.split(",")]
+    writes = not op.startswith(("ST", "BRA", "BAR", "RED", "ATOM", "UBLKCP",
+                                "SYNCS", "LDGSTS", "EXIT", "RET"))
+    dest = None
+    if writes and args and re.fullmatch(r"R\d+", args[0].split(".")[0]):
+        dest, args = args[0].split(".")[0], args[1:]
+    return dest, {r for a in args for r in re.findall(r"\bR\d+\b", a)}
+
+
+def k2_sass(funcs):
+    """K2's fused form (qoa_decode_kernel<true>, or qoa_decode_fused and its
+    16-byte instance): the innermost loop that runs the most steps (two
+    clamp instructions a step) is the chain loop.  Returns (steps in its
+    body, {pipe: instructions a step}, the dependent instructions from one
+    step's reconstructed sample to the next (the longest path, averaged
+    over the body's steps), the tile loop's instructions outside the chain
+    loop by pipe, the body's opcodes counted)."""
+    import collections
+    import re
+
+    name = next(k for k in funcs
+                if re.search(r"qoa_decode_kernelILb1E|qoa_decode_fusedILb1E",
+                             k))
+    body = funcs[name]
+    ops = [_opcode(i) for _, i in body]
+    at = {a: k for k, (a, _) in enumerate(body)}
+    loops = []   # (first, last): a branch back to an earlier address
+    for k, (a, i) in enumerate(body):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)",
+                      re.sub(r"^@!?U?P\w+\s+", "", i))
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], k))
+    clamp = ("VIMNMX", "IMNMX", "VIADDMNMX")
+
+    def n_clamps(span):
+        return sum(ops[k].split(".")[0] in clamp
+                   for k in range(span[0], span[1] + 1))
+
+    # the loop with the most steps, the innermost among equals (a tile
+    # loop may hold the steps itself, and wait loops besides)
+    chain = max(loops, key=lambda s: (n_clamps(s), s[0] - s[1]))
+    steps = n_clamps(chain) // 2
+    span = range(chain[0], chain[1] + 1)
+    recon = [k for k in span if ops[k].split(".")[0] in clamp][1::2]
+    lengths = []
+    for a, b in zip(recon, recon[1:]):
+        dist = {_regs(body[a][1])[0]: 0}
+        for k in range(a + 1, b + 1):
+            dest, srcs = _regs(body[k][1])
+            d = [dist[r] for r in srcs if r in dist]
+            if dest is not None:
+                if d:
+                    dist[dest] = max(d) + 1
+                else:
+                    dist.pop(dest, None)
+        lengths.append(dist.get(_regs(body[b][1])[0], 0))
+    outer = [s for s in loops if s != chain and s[0] <= chain[0]
+             and chain[1] <= s[1]]
+    staging = []
+    if outer:
+        tile = min(outer, key=lambda s: s[1] - s[0])
+        nested = [s for s in loops if s != tile and tile[0] <= s[0]
+                  and s[1] <= tile[1]]
+        staging = [ops[k] for k in range(tile[0], tile[1] + 1)
+                   if not any(s[0] <= k <= s[1] for s in nested)]
+    return (steps, by_pipe([ops[k] for k in span], steps),
+            sum(lengths) / max(len(lengths), 1), by_pipe(staging, 1),
+            collections.Counter(ops[k] for k in span))
 
 
 def print_sass(trees):
-    """--sass [DIR ...]: sass_counts of this tree and of each DIR."""
+    """--sass [DIR ...]: K5's and K2's SASS counts, this tree's and each
+    DIR's."""
     for tree in (ROOT, *trees):
-        per_step, ops = sass_counts(tree)
+        funcs = qoa_sass(tree)
+        per_step, ops = k5_sass(funcs)
         print(f"# K5 SASS, {tree}: {sum(per_step.values()):.2f} instructions "
               f"a candidate-step, by pipe {per_step}; "
               f"{dict(ops.most_common())}")
+        steps, per_step, chain, staging, ops = k2_sass(funcs)
+        print(f"# K2 SASS, {tree}: chain loop of {steps} steps, "
+              f"{sum(per_step.values()):.2f} instructions a step, by pipe "
+              f"{per_step}; {chain:.2f} dependent instructions from one "
+              f"reconstructed sample to the next; the tile loop's "
+              f"instructions outside the chain loop "
+              f"{sum(staging.values()):.0f}, by pipe {staging}; "
+              f"{dict(ops.most_common())}")
 
 
-AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode")
+AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode")
 
 
 def ab_compare(parent, names=AB_KERNELS):
-    """--ab PARENT [NAME ...]: K3, K1 and K5 of this tree (or those NAMEd)
-    against the kernels built from PARENT/audio_formats_torch/csrc (an
-    earlier commit's sources, called through the C entries and wrappers
-    they had then), in one process on one card, in turns parent / change /
-    change / parent: K3's wrapper and launch alone at one 98,304-lane
-    window of the MP3 slice, K1's at the FLAC slice's first window and at
-    the random-lane window of phase_kernel, K5 at the random chunk of
-    phase_qoa_kernels and at the QOA encode slice's first (full) and last
-    (tail) chunks.  Each pair is first held equal, bit for bit.  Then the
-    MP3, FLAC and QOA encode slices with either side's kernel, in turns.
-    Prints one line a measurement and the card; no result line."""
+    """--ab PARENT [NAME ...]: K3, K1, K5 and K2 of this tree (or those
+    NAMEd) against the kernels built from PARENT/audio_formats_torch/csrc
+    (an earlier commit's sources, called through the C entries and
+    wrappers they had then), in one process on one card, in turns parent /
+    change / change / parent: K3's wrapper and launch alone at one
+    98,304-lane window of the MP3 slice, K1's at the FLAC slice's first
+    window and at the random-lane window of phase_kernel, K5 at the random
+    chunk of phase_qoa_kernels and at the QOA encode slice's first (full)
+    and last (tail) chunks, K2's wrapper and launch alone at the random
+    window of phase_qoa_kernels and at the QOA decode slice's first and
+    last windows, and its int32 form at the random window.  Each pair is
+    first held equal, bit for bit.  Then the MP3, FLAC, QOA encode and QOA
+    decode slices with either side's kernel, in turns.  Prints one line a
+    measurement and the card; no result line."""
     import ctypes
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -1546,15 +1752,15 @@ def ab_compare(parent, names=AB_KERNELS):
     old_entries = {"flac_lpc": ("af_flac_lpc", [V] * 6 + [I, I, V]),
                    "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V]),
                    "qoa_encode": ("af_qoa_encode",
-                                  [V, I, V, V, V, V, V, V, I, V])}
+                                  [V, I, V, V, V, V, V, V, I, V]),
+                   "qoa_decode": ("af_qoa_decode", [V] * 6 + [I, I, V])}
     sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
-               "qoa_encode": "qoa_lms"}
+               "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms"}
 
     def build_parent(name):
         src = os.path.join(parent, "audio_formats_torch", "csrc",
                            sources[name] + ".cu")
-        out = os.path.join(os.path.abspath(parent), "build",
-                           sources[name] + ".so")
+        out = os.path.join(os.path.abspath(parent), "build", name + ".so")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", out,
                         src], check=True, capture_output=True, timeout=600)
@@ -1702,6 +1908,71 @@ def ab_compare(parent, names=AB_KERNELS):
 
         slices.append(("QOA encode slice", lms, "qoa_encode_cuda", encode_old,
                        encode_realtime))
+
+    def decode_old(history, weights, sf, codes, out=None, deq=None):
+        out = torch.empty((history.shape[0], (codes if deq is None else deq)
+                           [0].numel()), dtype=torch.int32, device=dev) \
+            if out is None else out
+        _kernels.check_launch("old qoa_decode", olds["qoa_decode"](
+            history.data_ptr(), weights.data_ptr(),
+            None if deq is None else deq.data_ptr(),
+            None if deq is not None else sf.data_ptr(),
+            None if deq is not None else codes.data_ptr(), out.data_ptr(),
+            *out.shape, stream()))
+        return out
+
+    if "qoa_decode" in names:
+        # K2 at the random window and at the QOA decode slice's first and
+        # tail windows (their arguments kept from one run of the slice);
+        # the int32 form at the random window
+        from audio_formats_torch import encode_qoa_batch
+
+        q_lanes = qoa_lanes(encode_qoa_batch(qoa_masters(), SR,
+                                             device="cuda"))[0]
+        windows = []
+        decode_slices = lms.decode_slices
+
+        def keep_args(*args):
+            windows.append(args)
+            return decode_slices(*args)
+
+        lms.decode_slices = keep_args
+        try:
+            decode_realtime(q_lanes)
+        finally:
+            lms.decode_slices = decode_slices
+        rand = [torch.from_numpy(a).to(dev) for a in qoa_kernel_inputs()[0]]
+        for label, args in (("random window", rand),
+                            ("decode slice's first window", windows[0]),
+                            ("decode slice's tail window", windows[-1])):
+            h, w, sf, codes = args
+            got_old = decode_old(*args)
+            got_new = lms.decode_slices(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got_old, got_new):
+                raise AssertionError(f"K2 at the {label}: parent and change "
+                                     "differ")
+            turns(f"qoa_decode wrapper, {label} L={h.shape[0]}",
+                  lambda: decode_old(*args), lambda: lms.decode_slices(*args))
+            turns(f"qoa_decode kernel alone, {label} L={h.shape[0]}",
+                  lambda: decode_old(*args, out=got_old),
+                  lambda: lms.qoa_decode_launch(h, w, got_new, scalefactors=sf,
+                                                codes=codes))
+        h, w, sf, codes = rand
+        tab = torch.from_numpy(lms.DEQUANT_TAB).to(dev)
+        deq = tab[sf.long()[..., None], codes.long()].reshape(
+            h.shape[0], -1).contiguous()
+        got_old = decode_old(h, w, None, None, deq=deq)
+        got_new = lms.qoa_decode(h, w, deq)
+        torch.cuda.synchronize()
+        if not torch.equal(got_old, got_new):
+            raise AssertionError("K2's int32 form: parent and change differ")
+        turns(f"qoa_decode int32 form, random window L={h.shape[0]}",
+              lambda: decode_old(h, w, None, None, deq=deq),
+              lambda: lms.qoa_decode(h, w, deq))
+        del windows, rand, deq, got_old, got_new
+        slices.append(("QOA decode slice", lms, "decode_slices", decode_old,
+                       lambda: decode_realtime(q_lanes)))
 
     # the slices, each with the parent's kernel swapped in, in turns
     def with_kernel(module, name, fn, run):

@@ -222,6 +222,98 @@ def test_qoa_decode_slices_kernel_matches_twin(cuda, L, S):
     assert torch.equal(got, want) and torch.equal(got32, want)
 
 
+# the decode kernel's lanes a block (one a thread) and steps a tile
+# (csrc/qoa_lms.cu kDecLanes, kDecTile)
+QOA_DEC_BLOCK = 32
+QOA_DEC_TILE = 80
+
+
+def _check_decode_both_forms(cuda, history, weights, sf, codes, deq):
+    """The fused form (decode_slices) and the int32 form (qoa_decode), one
+    launch each, against the twin."""
+    h, w, sf_d, codes_d, deq_d = (torch.from_numpy(a).to(cuda) for a in
+                                  (history, weights, sf, codes, deq))
+    before = tlms.DECODE_LAUNCHES
+    got = tlms.decode_slices(h, w, sf_d, codes_d)
+    got32 = tlms.qoa_decode(h, w, deq_d)
+    torch.cuda.synchronize()
+    assert tlms.DECODE_LAUNCHES == before + 2
+    want = tlms.qoa_decode_torch(h, w, deq_d)
+    assert torch.equal(got, want) and torch.equal(got32, want)
+
+
+@pytest.mark.parametrize("L", [1, QOA_DEC_BLOCK - 1, QOA_DEC_BLOCK,
+                               QOA_DEC_BLOCK + 1, 6584, 8191, 8192])
+@pytest.mark.parametrize("T", [20, QOA_DEC_TILE - 20, QOA_DEC_TILE + 20,
+                               5120])
+def test_qoa_decode_kernel_lanes_and_lengths_match_twin(cuda, L, T):
+    """Lane counts around a block and the main path's windows (full and the
+    QOA decode slice's 6,584-lane tail), T around a tile, both forms;
+    int32-range weights, and history at +-32768 on some lanes."""
+    rng = np.random.default_rng(L * 7 + T)
+    history, weights, sf, codes, deq = _qoa_decode_args(rng, L, T // 20)
+    edge = rng.random(L) < 0.1
+    history[edge] = rng.choice([-32768, 32768], (int(edge.sum()), 4))
+    _check_decode_both_forms(cuda, history, weights, sf, codes, deq)
+
+
+@pytest.mark.parametrize("T", [1, 79, 81, 160, 5120])
+def test_qoa_decode_kernel_unaligned_rows_match_twin(cuda, T):
+    """Inputs that are not 16-byte aligned take the kernels' 4-byte loads:
+    residuals and codes one word past an aligned start; T not a multiple
+    of 4 (int32 form), wrapping residuals."""
+    L = 45
+    rng = np.random.default_rng(T)
+    history, weights, _, _, _ = _qoa_decode_args(rng, L, 1)
+    deq = rng.integers(-(1 << 31), 1 << 31, (L, T)).astype(np.int32)
+    deq[rng.random((L, T)) < 0.7] %= 3000
+    h, w = (torch.from_numpy(a).to(cuda) for a in (history, weights))
+    buf = torch.empty(L * T + 1, dtype=torch.int32, device=cuda)
+    deq_d = buf[1:].view(L, T)
+    deq_d.copy_(torch.from_numpy(deq))
+    got = tlms.qoa_decode(h, w, deq_d)
+    assert torch.equal(got, tlms.qoa_decode_torch(h, w, deq_d))
+    S = max(T // 20, 4) // 4 * 4      # whole tiles: only the start differs
+    _, _, sf, codes, deq = _qoa_decode_args(rng, L, S)
+    sf_d, deq_d = (torch.from_numpy(a).to(cuda) for a in (sf, deq))
+    cbuf = torch.empty(codes.size + 4, dtype=torch.int8, device=cuda)
+    codes_d = cbuf[4:].view(L, S, 20)
+    codes_d.copy_(torch.from_numpy(codes))
+    got = tlms.decode_slices(h, w, sf_d, codes_d)
+    assert torch.equal(got, tlms.qoa_decode_torch(h, w, deq_d))
+
+
+def test_qoa_decode_kernel_on_a_side_stream(cuda):
+    """Both forms launched on a stream other than the default one."""
+    rng = np.random.default_rng(11)
+    args = _qoa_decode_args(rng, 300, 256)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        h, w, sf, codes, deq = (torch.from_numpy(a).to(cuda) for a in args)
+        got = tlms.decode_slices(h, w, sf, codes)
+        got32 = tlms.qoa_decode(h, w, deq)
+    side.synchronize()
+    want = tlms.qoa_decode_torch(h, w, deq)
+    assert torch.equal(got, want) and torch.equal(got32, want)
+
+
+def test_qoa_decode_launch_alone_matches_wrapper(cuda):
+    """qoa_decode_launch writes the wrapper's output into a given tensor,
+    and refuses one that is not 16-byte aligned."""
+    rng = np.random.default_rng(12)
+    h, w, sf, codes, deq = (torch.from_numpy(a).to(cuda) for a in
+                            _qoa_decode_args(rng, 70, 12))
+    out = torch.full((70, 240), 7, dtype=torch.int32, device=cuda)
+    tlms.qoa_decode_launch(h, w, out, scalefactors=sf, codes=codes)
+    assert torch.equal(out, tlms.decode_slices(h, w, sf, codes))
+    out.fill_(7)
+    tlms.qoa_decode_launch(h, w, out, dequantized=deq)
+    assert torch.equal(out, tlms.qoa_decode(h, w, deq))
+    bad = torch.empty(70 * 240 + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        tlms.qoa_decode_launch(h, w, bad.view(70, 240), dequantized=deq)
+
+
 @pytest.mark.parametrize("L", [13, 33, 1000])
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
 def test_qoa_encode_kernel_matches_twin(cuda, L, dtype):
