@@ -39,6 +39,8 @@ _ENTRIES = {
     "mp3_huff": (("af_mp3_huff", [_V, _V, _V, _V, _V, _I, _I, _I, _V, _V, _V]),
                  ("af_mp3_huff_plan", [_V, _I, _V, _V, _V, _V]),
                  ("af_mp3_huff_plan_scratch", [_I])),
+    "flac_rice": (("af_flac_rice", [_V, _I, _V, _V, _V, _V, _I, _I, _I, _V,
+                                    _V, _V, _V, _V, _V]),),
 }
 
 

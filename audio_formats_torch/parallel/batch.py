@@ -3,7 +3,9 @@
 N independent compressed streams decode in lockstep.  FLAC: the host
 entropy stage (the C library in host/src/af_host.cc) parses a *window* of W
 frames per stream, and ONE upload plus one chain of device work runs per
-window: packed residual unpack → LPC kernel → stereo decorrelation.  MP3
+window: packed residual unpack → LPC kernel → stereo decorrelation; or,
+with ``flac_wire="rice"``, the host only indexes the frames and the device
+decodes the raw frame bytes (frame-entropy kernel → LPC kernel → stereo).  MP3
 Layer III: the C stage parses 24 frames a stream (side info, reservoir
 splice, scalefactors) and ships every granule-channel's Huffman bits in one
 exact-size pool; one device chain a window runs the Huffman kernel,
@@ -41,6 +43,7 @@ from ..io.source import ByteSource, FileSource, MemorySource
 from ..models.flac import FlacDecoder, device_of
 from ..models.mp3 import Mp3Decoder
 from ..models.qoa import _F32_RECIP, QoaDecoder
+from ..ops import flac_rice
 from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
 from ..ops._kernels import KernelError
@@ -52,6 +55,14 @@ FLAC_WINDOW_FRAMES = 12
 MP3_WINDOW_FRAMES = 24
 #: QOA (frame, channel) lanes per device call (bounds upload and memory)
 QOA_WINDOW_LANES = 8192
+
+#: device-Rice wire: a FLAC group whose streams hold at least this many
+#: bytes uploads them once as a corpus and gathers each dispatch's frame pool
+#: on the device; a smaller group builds the pool on the host a dispatch
+RICE_GATHER_MIN_BYTES = 8 << 20
+#: device-Rice wire: pool blocks a dispatch at most (2^30 bits: the kernel's
+#: bit cursors are int32)
+RICE_DISPATCH_BLOCKS = 524288
 
 #: FLAC packed-residual width buckets
 _FLAC_W_BUCKETS = (4, 6, 8, 10, 12, 14, 17, 20, 26, 32)
@@ -82,6 +93,36 @@ def _flac_width_plan(w_l, wmax: int, Ln: int, bs: int):
                 break
     _, wb, lb = min(plans)
     return wb, lb
+
+
+def _flac_host_frame(residual, coeffs, order, shift, chan_assignment,
+                     wasted, bps: int) -> np.ndarray:
+    """One FLAC frame's channels through exact int64 LPC and the stereo
+    stage on the host: [bs, channels] int32, left-justified."""
+    samples = lpc_ops.flac_lpc_np(residual, coeffs, order, shift)\
+        .astype(np.int32)
+    out32 = lpc_ops.flac_post_stereo(
+        torch.from_numpy(samples), int(chan_assignment),
+        torch.from_numpy(np.ascontiguousarray(wasted, np.int32)),
+        32 - bps).numpy()
+    return out32.T
+
+
+def _flac_pcm(decs, outputs, nch):
+    """Each FLAC lane's frames, in order, cut to its stream length, as
+    float32 PCM."""
+    result = []
+    for bi, d in enumerate(decs):
+        if outputs[bi]:
+            s32 = np.concatenate(
+                [c[0] if isinstance(c, list) else c for c in outputs[bi]])
+        else:
+            s32 = np.zeros((0, nch), np.int32)
+        if d.length_frames:
+            s32 = s32[: d.length_frames]
+        result.append((s32.astype(np.float64) * (1.0 / 2147483647.0))
+                      .astype(np.float32))
+    return result
 
 
 class _HostCopy:
@@ -221,9 +262,22 @@ class BatchDecoder:
 
     ``device`` is where the device stages run: "cuda" (the default) raises
     when there is no GPU; "cpu" runs every stage's plain PyTorch version.
+
+    ``flac_wire`` is how FLAC crosses to the device: "packed" (the default)
+    Rice-decodes on the host and ships residual rows packed at the window's
+    width; "rice" ships the raw frame bytes (the host runs only the frame
+    sync index) and decodes subframe headers and residuals on the device.
+    "rice" needs the C host stage and raises where it did not load.
     """
 
-    def __init__(self, items: Sequence, device="cuda"):
+    def __init__(self, items: Sequence, device="cuda", flac_wire="packed"):
+        if flac_wire not in ("packed", "rice"):
+            raise ValueError(f"flac_wire {flac_wire!r}: want 'packed' or "
+                             "'rice'")
+        if flac_wire == "rice" and _native.get_lib() is None:
+            raise RuntimeError("flac_wire='rice' needs the C host stage "
+                               "(host/src/af_host.cc), which did not load")
+        self.flac_wire = flac_wire
         self.device = device_of(device)
         self.decoders: List[Optional[object]] = []
         self.errors: List[Optional[str]] = []
@@ -417,10 +471,11 @@ class BatchDecoder:
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_l12_group,
                              (nch,)))
+        flac_fn = self._decode_flac_group_rice if self.flac_wire == "rice" \
+            else self._decode_flac_group
         for nch, lanes in flac_groups.items():
             for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_flac_group,
-                             (nch,)))
+                jobs.append((lanes[c: c + GROUP], flac_fn, (nch,)))
         for nch, lanes in qoa_groups.items():
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_qoa_group,
@@ -814,14 +869,9 @@ class BatchDecoder:
                         wasted):
             # beyond the 18-bit range of the device lanes: exact int64 on
             # the host
-            samples = lpc_ops.flac_lpc_np(
-                residual, coeffs, order, shift
-            ).astype(np.int32)
-            out32 = lpc_ops.flac_post_stereo(
-                torch.from_numpy(samples), int(ca),
-                torch.from_numpy(np.ascontiguousarray(wasted, np.int32)),
-                32 - d.bits_per_sample).numpy()
-            outputs[bi].append(out32.T)
+            outputs[bi].append(_flac_host_frame(
+                residual, coeffs, order, shift, ca, wasted,
+                d.bits_per_sample))
 
         # multi-lane C surface (af_flac_parse_window_multi): one C call
         # Rice-decodes a whole lane chunk into [B, W*ch, mb_g] batch rows.
@@ -1203,22 +1253,294 @@ class BatchDecoder:
                 for slot, si, bs in slots:
                     slot[0] = arr[si, :, :bs].T
         self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        return _flac_pcm(decs, outputs, nch)
 
-        result = []
+    # -------------------------------------- batched FLAC, device-Rice wire
+    def _decode_flac_group_rice(self, decs: List[FlacDecoder], nch: int,
+                                to_device: bool = False):
+        """FLAC lockstep over the device-Rice wire: the host runs only the
+        byte-level frame sync index, one C call a window for every live
+        lane; the raw frame bytes cross to the device once, and the
+        frame-entropy kernel decodes subframe headers and residuals, which
+        the LPC kernel and the stereo stage turn into PCM.  A group of
+        RICE_GATHER_MIN_BYTES or more uploads its streams as one corpus and
+        gathers each dispatch's frame pool on the device; a smaller one
+        builds the pool on the host a dispatch.  The corpus is this call's
+        own: concurrent groups never share one.  Frames the device flags
+        (corrupt, wider than 18 bits, or an end that does not meet the next
+        frame's start) are decoded again on the host."""
+        lib = _native.get_lib()
+        B = len(decs)
+        outputs = [[] for _ in range(B)]
+        pending = []
+        for d in decs:
+            if not hasattr(d, "_rice_state"):
+                d._rice_state = np.array([-1, 0, d._cur_bit // 8], np.int64)
+        blk_b = flac_rice.BLK_W * 4
+        total = sum(len(d._view) for d in decs)
+        corpus = None
+        if total >= RICE_GATHER_MIN_BYTES and total + 3 * blk_b < (1 << 31):
+            # every stream's bytes end to end, then the zero tail the
+            # gather reads for blocks past the last frame
+            zero_off = total + (-total) % 4
+            buf = np.zeros(zero_off + 2 * blk_b, np.uint8)
+            stream_base = np.zeros(B, np.int64)
+            cur = 0
+            for bi, d in enumerate(decs):
+                nb = len(d._view)
+                buf[cur: cur + nb] = np.frombuffer(d._view, np.uint8, nb, 0)
+                stream_base[bi] = cur
+                cur += nb
+            (corpus_d,) = _upload(self.device, buf.view(np.int32))
+            corpus = (corpus_d, stream_base, zero_off)
+            self._stat_add("h2d_bytes", buf.nbytes)
+            self._stat_add("h2d_bytes_by_format", buf.nbytes, fmt="flac")
+        # one dispatch worker: window k+1's sync index and pool overlap
+        # window k's device chain
+        pool_w = ThreadPoolExecutor(max_workers=1)
+        try:
+            self._flac_rice_windows(decs, nch, to_device, lib, corpus,
+                                    outputs, pending, pool_w)
+        finally:
+            # no worker outlives a lane fault mid-window
+            pool_w.shutdown(wait=True)
+        # the frame checks, after every window was enqueued: the flags'
+        # downloads wait for their window's device chain
+        resolved = []
+        for fut, slots, base_bits, sizes in pending:
+            out, err_d, endb_d, subbps_d = fut.result()
+            err = err_d.cpu().numpy()
+            endb = endb_d.cpu().numpy().astype(np.int64) - base_bits
+            wide = subbps_d.cpu().numpy().max(axis=1) > 18
+            # the frame's end, byte-aligned, plus its CRC-16 must meet the
+            # next frame's start (sizes 0: a stream's last frame, unchecked)
+            chain = ((((endb + 7) // 8) * 8 + 16 != sizes * 8)
+                     & (sizes > 0))
+            resolved.append((out, err | wide | chain, slots))
+        pending[:] = resolved
+        group = _PendingGroup("flac", decs, pending,
+                              self._flac_finalize_rice,
+                              (decs, outputs, pending, nch))
+        return group if to_device else group.finalize()
+
+    def _flac_rice_windows(self, decs, nch, to_device, lib, corpus, outputs,
+                           pending, pool_w):
+        """The device-Rice window loop: one af_flac_sync_index_multi call a
+        window indexes up to W frames of every live lane (each lane's sync
+        state is a row of a batch array, written back to its decoder at the
+        end); the window's frames go to _flac_rice_enqueue."""
+        B = len(decs)
+        W = FLAC_WINDOW_FRAMES
+        active = np.ones(B, dtype=bool)
+        keep = []
+        ptrs = np.zeros(B, np.uint64)
+        lens = np.zeros(B, np.int64)
+        bps_in = np.zeros(B, np.int32)
+        st_all = np.zeros((B, 3), np.int64)
         for bi, d in enumerate(decs):
-            if outputs[bi]:
-                s32 = np.concatenate(
-                    [c[0] if isinstance(c, list) else c for c in outputs[bi]]
-                )
+            addr, nb, k = _native.buf_addr(d._view)
+            keep.append(k)
+            ptrs[bi] = addr
+            lens[bi] = nb
+            bps_in[bi] = d.bits_per_sample
+            st_all[bi] = d._rice_state
+        offs_w = np.zeros((B, W), np.int64)
+        dbits_w = np.zeros((B, W), np.int64)
+        bs_w = np.zeros((B, W), np.int32)
+        ca_w = np.zeros((B, W), np.int32)
+        bpsf_w = np.zeros((B, W), np.int32)
+        n_w = np.zeros(B, np.int32)
+        while active.any():
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            live = []
+            for bi in np.flatnonzero(active).tolist():
+                d = decs[bi]
+                if d._frame_pos >= d.length_frames > 0:
+                    active[bi] = False
+                else:
+                    live.append(bi)
+            if live:
+                _native.flac_sync_index_multi(
+                    lib, live, ptrs, lens, bps_in, nch, 65535, W, st_all,
+                    offs_w, dbits_w, bs_w, ca_w, bpsf_w, n_w)
+            # (bi, byte_off, size, rel_bit, bs, ca, bps, chk)
+            lanes = []
+            for bi in live:
+                n = int(n_w[bi])
+                if n == 0:
+                    active[bi] = False
+                    continue
+                o = offs_w[bi, :n]
+                end = int(st_all[bi, 2])
+                if n == W and end + 16 <= lens[bi]:
+                    # the state's resume byte is the synced next frame
+                    nxt, chk_last = end, True
+                else:
+                    # a stream's end: no next frame, ship through EOF and
+                    # skip the chain check
+                    nxt, chk_last = int(lens[bi]), False
+                sizes = (np.append(o[1:], nxt) - o).tolist()
+                rel = (dbits_w[bi, :n] - o * 8).tolist()
+                bsl = bs_w[bi, :n].tolist()
+                lanes.extend(
+                    (bi, oi, sizes[i], rel[i], bsl[i], int(ca_w[bi, i]),
+                     int(bpsf_w[bi, i]), chk_last if i == n - 1 else True)
+                    for i, oi in enumerate(o.tolist()))
+                decs[bi]._frame_pos += sum(bsl)
+                if n < W:
+                    active[bi] = False
+            self._note_stage("host_ms", "flac", t_host)
+            self._note_host_cpu("flac", ct_host)
+            if not lanes:
+                break
+            self._flac_rice_enqueue(decs, lanes, nch, outputs, pending,
+                                    pool_w, to_device, ptrs, corpus)
+        # chunked reads continue across groups from the sync state
+        for bi, d in enumerate(decs):
+            d._rice_state[:] = st_all[bi]
+
+    def _flac_rice_enqueue(self, decs, lanes, nch, outputs, pending, pool_w,
+                           to_device, lane_addrs, corpus):
+        """Split a window's frames into dispatches whose pools, with the two
+        guard blocks, stay within RICE_DISPATCH_BLOCKS."""
+        blk_b = flac_rice.BLK_W * 4
+        chunks, cur, blocks = [], [], 0
+        for p in lanes:
+            nb = -(-p[2] // blk_b)
+            if cur and blocks + nb + 2 > RICE_DISPATCH_BLOCKS:
+                chunks.append(cur)
+                cur, blocks = [], 0
+            cur.append(p)
+            blocks += nb
+        chunks.append(cur)
+        for sub in chunks:
+            self._rice_dispatch_lanes(decs, sub, nch, outputs, pending,
+                                      pool_w, to_device, lane_addrs, corpus)
+
+    def _rice_dispatch_lanes(self, decs, lanes, nch, outputs, pending,
+                             pool_w, to_device, lane_addrs, corpus):
+        """Build and submit one device-Rice dispatch: the frame pool (or
+        its gather indices), the per-frame arrays, and the worker's device
+        chain (pool → frame-entropy kernel → LPC kernel → stereo)."""
+        t_enq = time.perf_counter()
+        S = len(lanes)
+        max_bs = max(p[4] for p in lanes)
+        max_bs = next((x for x in (256, 1024, 4096) if max_bs <= x),
+                      -(-max_bs // 4096) * 4096)
+        NPOOL = flac_rice.pool_blocks_needed([p[2] for p in lanes])
+        t_pb = time.perf_counter()
+        if corpus is not None:
+            corpus_d, stream_base, zero_off = corpus
+            lane_src, cum_dst, base_bits = flac_rice.gather_pool_meta(
+                stream_base, lanes, S, zero_off)
+            pool = None
+        else:
+            pool, base_bits = flac_rice.build_frame_pool_native(
+                _native.get_lib(), lane_addrs, lanes, NPOOL)
+            lane_src = cum_dst = None
+        self._stat_add("enq_flac_poolbuild_ms",
+                       (time.perf_counter() - t_pb) * 1e3)
+        bi_c, _off_c, size_c, rel_c, bs_c, ca_c, bps_c, chk_c = zip(*lanes)
+        start_bits = (base_bits + np.asarray(rel_c, np.int64))\
+            .astype(np.int32)
+        bs_arr = np.asarray(bs_c, np.int32)
+        ca_arr = np.asarray(ca_c, np.int32)
+        bps_arr = np.asarray(bps_c, np.int32)
+        sizes = np.where(np.asarray(chk_c, bool),
+                         np.asarray(size_c, np.int64), 0)
+        lane_bps = np.fromiter((decs[bi].bits_per_sample for bi in bi_c),
+                               np.int32, S)
+        use_s16 = bool((lane_bps <= 16).all())
+        out_shifts = (32 - lane_bps).astype(np.int32)
+        device = self.device
+
+        def _dispatch(pool, lane_src, cum_dst, start_bits, bs_arr, ca_arr,
+                      bps_arr, out_shifts, NPOOL, max_bs, use_s16):
+            # every per-dispatch value arrives as an argument: the caller
+            # rebinds its locals while this runs
+            if pool is None:
+                ls_d, cum_d = _upload(device, lane_src, cum_dst)
+                blocks_d = flac_rice.gather_frame_pool(
+                    corpus_d, ls_d, cum_d, zero_off, NPOOL, S)
             else:
-                s32 = np.zeros((0, nch), np.int32)
-            if d.length_frames:
-                s32 = s32[: d.length_frames]
-            pcm = (s32.astype(np.float64) * (1.0 / 2147483647.0)).astype(
-                np.float32
-            )
-            result.append(pcm)
-        return result
+                (pool_d,) = _upload(device, pool)
+                blocks_d = flac_rice.pad_pool(pool_d, NPOOL)
+            sb_d, bs_d, bps_d, ca_d, osh_d = _upload(
+                device, start_bits, bs_arr, bps_arr, ca_arr, out_shifts)
+            ent = flac_rice.flac_frame_entropy(
+                blocks_d, sb_d, bs_d, bps_d, ca_d, L=S, NSAMP=max_bs,
+                nch=nch, NPOOL=NPOOL)
+            Ln = S * nch
+            sub_bps = ent["sub_bps"]
+            samples = lpc_ops.flac_lpc(
+                ent["residual"].reshape(Ln, max_bs),
+                ent["coeffs"].reshape(Ln, 32), ent["order"].reshape(Ln),
+                ent["shift"].reshape(Ln), (sub_bps > 16).reshape(Ln),
+            ).reshape(S, nch, max_bs)
+            post = lpc_ops.flac_post_stereo_batch_s16 if use_s16 \
+                else lpc_ops.flac_post_stereo_batch
+            out = post(samples, ca_d, ent["wasted"], osh_d)
+            return (_prefetch(out, to_device), ent["err"], ent["end_bits"],
+                    sub_bps)
+
+        fut = pool_w.submit(_dispatch, pool, lane_src, cum_dst, start_bits,
+                            bs_arr, ca_arr, bps_arr, out_shifts, NPOOL,
+                            max_bs, use_s16)
+        if pool is not None:
+            self._stat_add("h2d_bytes", pool.nbytes)
+            self._stat_add("h2d_bytes_by_format", pool.nbytes, fmt="flac")
+        self._note_stage("enqueue_ms", "flac", t_enq)
+        self._note_window("flac")
+        slots = []
+        for si, (bi, off, _size, _rel, bs, _ca, _bps, _chk) in \
+                enumerate(lanes):
+            slot = [None]
+            outputs[bi].append(slot)
+            slots.append((slot, si, bs, bi, off))
+        pending.append((fut, slots, base_bits, sizes))
+
+    def _flac_finalize_rice(self, decs, outputs, pending, nch):
+        lib = _native.get_lib()
+        t0 = time.perf_counter()
+        n_redo = 0
+        corrupt = set()      # lanes with a flagged frame the host cannot parse
+        for out, bad, slots in pending:
+            arr = _to_numpy(out)
+            self._stat_add("d2h_bytes", arr.nbytes)
+            for slot, si, bs, bi, off in slots:
+                if bad[si]:
+                    d = decs[bi]
+                    nat = _native.flac_parse_frame(
+                        lib, d._view, off * 8, d.bits_per_sample, nch, 65535)
+                    if nat is None:
+                        # the stream ends at an unparseable frame, as in the
+                        # single-stream decoder: no error, fewer samples
+                        corrupt.add(bi)
+                        slot[0] = np.zeros((0, nch), np.int32)
+                        continue
+                    slot[0] = _flac_host_frame(
+                        nat["residual"], nat["coeffs"], nat["order"],
+                        nat["shift"], nat["chan_assignment"], nat["wasted"],
+                        d.bits_per_sample)[:bs]
+                    n_redo += 1
+                elif arr.dtype == np.int16:
+                    slot[0] = arr[si, :, :bs].T.astype(np.int32) << 16
+                else:
+                    slot[0] = arr[si, :, :bs].T
+        if n_redo:
+            self._stat_add("rice_host_redo", n_redo)
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        for bi in corrupt:
+            self._stat_add("flac_truncated_lanes", 1)
+            # drop the lane's frames from the unparseable one on (slots are
+            # in frame order)
+            seen = False
+            for c in outputs[bi]:
+                seen = seen or c[0].shape[0] == 0
+                if seen:
+                    c[0] = np.zeros((0, nch), np.int32)
+        return _flac_pcm(decs, outputs, nch)
 
     # --------------------------------------------------- batched QOA frames
     def _decode_qoa_group(self, decs: List[QoaDecoder], nch: int,

@@ -31,7 +31,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    mid/side LPC-8, block 4096, 6-10 s), then ``.sync()``; the PCM stays on
    the card, every lane equals its source PCM bit for bit after
    ``.to_numpy()``, no group was demoted, and the LPC kernel launched once
-   per window;
+   per window; then the same lanes with ``flac_wire="rice"`` (the raw frame
+   bytes uploaded once as a corpus, the frame pool gathered on the card,
+   the frame-entropy kernel K4): every lane bit-exact, no frame decoded
+   again on the host, one K4 and one LPC launch per dispatch, its wall
+   beside the packed wire's; then K4 at that slice's own first dispatch
+   (6,144 frame lanes x 2 channels x 4,096 samples, its arguments kept by
+   wrapping ``ops.flac_rice.flac_frame_entropy``), bit-equal to its twin on
+   every output, timed through its wrapper and alone beside its bound, the
+   pool gather timed, and K4 again on that dispatch with its pool damaged,
+   bit-equal;
 5. QOA encode — ``encode_qoa_batch`` over 64 distinct stereo 44.1 kHz
    masters of 4 s (the JAX bench's encode shape: 4,480 frame lanes), one
    search launch per chunk; frames equal to the golden encoder's; the
@@ -46,7 +55,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. mixed  — mono lanes, 24-bit lanes (host frames), 18-bit lanes that mix
    host and device frames in one window, corpus lanes, 8 QOA lanes and a
    corrupt FLAC and a corrupt QOA lane in one batch: every other lane
-   exact;
+   exact; then the same batch over the FLAC Rice wire, where the frames
+   wider than 18 bits are decoded again on the host;
 8. MP3    — ``decode_all(output="device")`` over 1,024 stereo 44.1 kHz
    MPEG-1 Layer III lanes cut as frame slices of 24 masters of 18 s (the
    JAX bench's recipe, bench.py:41-67 and 194-212, with a global gain that
@@ -66,6 +76,14 @@ before the result.
     python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
+    python3 chip_smoke.py --wires                   # the card
+
+``--wires`` decodes the FLAC slice's 512 lanes over the packed and the Rice
+wire in turns (packed, rice, rice, packed: each wall, realtime factor,
+bytes to the card and host times), then once each under ``torch.profiler``:
+the card's busy share of that run's wall (its kernels' and copies' summed
+device time, all on one stream) and the device time by kernel.  It prints
+no result line.
 
 ``--ab`` (on the card) times the Huffman, LPC, QOA encode and QOA decode
 kernels of this tree (or those named) against those built from
@@ -464,6 +482,8 @@ HUFF_STEP_OPS = 40    # int operations of one K3 step (lookups, shifts, selects)
 LMS_STEP_OPS = 12     # K2: 4 multiply-adds, 4 weight updates, shift, clamp
 QOA_ENC_OPS = 30      # K5: one candidate's step (predict, divide, quantize,
                       # dequantize, clamp, error, update)
+RICE_STEP_OPS = 16    # K4: one Rice sample (unary count, remainder funnel
+                      # shift and mask, zigzag, cursor, window shift, count)
 
 
 def bound(nbytes, ops):
@@ -578,6 +598,112 @@ def phase_flac_kernel(card, targs):
     return {"max_abs_err": 0, "ms": ms, "kernel_ms": kernel_ms,
             "plan_ms": plan_ms, "host_ms": host_ms, "plain_ms": plain_ms, **b,
             "library_ms": None, "share": b["bound_ms"] / ms}
+
+
+RICE_KEYS = ("residual", "coeffs", "order", "shift", "wasted", "sub_bps",
+             "err", "end_bits")
+
+
+def rice_work(args, out):
+    """(bytes, int32 operations) of K4 on these lanes: the frame bits the
+    lanes consume (first subframe to end cursor) and the lane arrays in,
+    every output written once; RICE_STEP_OPS a residual sample of a
+    predicted subframe (bs - order of them; the corpus has no verbatim
+    subframes)."""
+    import torch
+
+    sb = args[1]
+    consumed = int((out["end_bits"].to(torch.int64) - sb.to(torch.int64))
+                   .clamp(min=0).sum()) // 8
+    nbytes = consumed + 4 * sb.numel() * 4 + sum(
+        out[k].numel() * out[k].element_size() for k in RICE_KEYS)
+    bs = args[2].to(torch.int64)[:, None]
+    samples = int((bs - out["order"].to(torch.int64)).clamp(min=0).sum())
+    return nbytes, samples * RICE_STEP_OPS, samples
+
+
+def check_rice(full):
+    """K4 against its twin on the card at these arguments, every output bit
+    for bit.  Returns (K4's output, the twin's time in ms)."""
+    import torch
+    from audio_formats_torch.ops import flac_rice
+
+    got = flac_rice.flac_frame_entropy(*full)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(
+        lambda: want.append(flac_rice.flac_frame_entropy_torch(*full)), 1)
+    for k in RICE_KEYS:
+        if not torch.equal(got[k], want[0][k]):
+            a, b = got[k].to(torch.int64), want[0][k].to(torch.int64)
+            raise AssertionError(f"frame entropy kernel != twin on {k}: "
+                                 f"{int((a != b).sum())} elements differ")
+    return got, plain_ms
+
+
+def phase_rice_kernel(card, kept):
+    """K4 at the Rice slice's own first dispatch (its arguments kept by
+    wrapping ops.flac_rice.flac_frame_entropy during the slice), bit-equal
+    to the twin, timed through its wrapper and alone beside its bound; the
+    torch pool gather of that dispatch timed; then K4 on the same dispatch
+    with its pool damaged (bit flips and zeroed runs), bit-equal again."""
+    import torch
+    from audio_formats_torch.ops import flac_rice
+
+    args, kw = kept["flac_frame_entropy"]
+    full = list(args) + [kw[k] for k in ("L", "NSAMP", "nch", "NPOOL")]
+    blocks, sb, bs, bps0, chass, L, NSAMP, nch, NPOOL = full
+    got, plain_ms = check_rice(full)
+    for _ in range(3):
+        flac_rice.flac_frame_entropy(*full)
+    ms = time_cuda(lambda: flac_rice.flac_frame_entropy(*full), 20)
+    out = flac_rice.rice_outputs(L, NSAMP, nch, blocks.device)
+    kernel_ms = time_cuda(lambda: flac_rice.rice_launch(
+        blocks, sb, bs, bps0, chass, NSAMP, nch, out), 20)
+    host_ms = time_host(lambda: flac_rice.flac_frame_entropy(*full))
+    # the first 32 lanes alone, one warp: the time of one lane chain with
+    # the card otherwise idle
+    few = [a[:32].contiguous() for a in (sb, bs, bps0, chass)]
+    out32 = flac_rice.rice_outputs(32, NSAMP, nch, blocks.device)
+    warp_ms = time_cuda(lambda: flac_rice.rice_launch(
+        blocks, *few, NSAMP, nch, out32), 5)
+    gargs, gkw = kept["gather_frame_pool"]
+    gather_ms = time_cuda(
+        lambda: flac_rice.gather_frame_pool(*gargs, **gkw), 20)
+    nbytes, ops, samples = rice_work(full, got)
+    b = bound(nbytes, ops)
+    print(f"# kernel flac_rice, the FLAC Rice slice's first dispatch L={L} "
+          f"nch={nch} NSAMP={NSAMP} NPOOL={NPOOL} ({samples} Rice samples, "
+          f"{nbytes / 1e6:.1f} MB): bit-equal to the twin on every output; "
+          f"wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms (its "
+          f"first 32 lanes alone, one warp: {warp_ms:.4f} ms), host "
+          f"enqueue {host_ms:.4f} ms, twin {plain_ms:.1f} ms; bound_ms "
+          f"{b['bound_ms']:.4f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f}; its pool gather (torch ops) "
+          f"{gather_ms:.4f} ms [{card}]")
+    del got, out, out32
+    # the same dispatch with a damaged pool: flipped bits in 1 word of
+    # 500 and a zeroed 64-word run in 1 block of 50
+    rng = np.random.default_rng(4)
+    bad = blocks.clone().view(-1)
+    live = (NPOOL - 2) * 64
+    idx = torch.from_numpy(rng.integers(0, live, live // 500)).to(bad.device)
+    bad[idx] ^= torch.from_numpy(rng.integers(1, 1 << 31, idx.numel(),
+                                              dtype=np.int64)
+                                 .astype(np.int32)).to(bad.device)
+    for blk in rng.integers(0, NPOOL - 2, (NPOOL - 2) // 50).tolist():
+        bad[blk * 64: blk * 64 + 64] = 0
+    cfull = [bad.view(NPOOL, 64)] + full[1:]
+    cgot, cplain_ms = check_rice(cfull)
+    n_err = int(cgot["err"].sum())
+    print(f"# kernel flac_rice, that dispatch with its pool damaged: "
+          f"bit-equal to the twin on every output, {n_err} of {L} lanes "
+          f"flagged, twin {cplain_ms:.1f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "kernel_ms": kernel_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, **b,
+            "library_ms": None, "share": b["bound_ms"] / ms,
+            "one_warp_ms": warp_ms, "gather_ms": gather_ms,
+            "corrupt_lanes_flagged": n_err}
 
 
 def qoa_encode_work(samples, flen):
@@ -784,27 +910,30 @@ def phase_qoa_kernels(card):
              "share": enc_b["bound_ms"] / enc_ms})
 
 
-def decode_checked(streams, expect, device, corrupt=(), tol=0.0):
-    """Run the main path on `streams` and hold every good lane to
-    `expect(i)`, its PCM: bit for bit, or within max abs `tol`.  The
-    kernel counts are set to 0 just before the run and read just after.
-    Returns (decoder, wall seconds, launches by kernel, output, the largest
-    error seen)."""
+def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
+                   flac_wire="packed"):
+    """Run the main path on `streams` (FLAC over `flac_wire`) and hold every
+    good lane to `expect(i)`, its PCM: bit for bit, or within max abs
+    `tol`.  The kernel counts are set to 0 just before the run and read
+    just after.  Returns (decoder, wall seconds, launches by kernel,
+    output, the largest error seen)."""
     import torch
     from audio_formats_torch import BatchDecoder
-    from audio_formats_torch.ops import lms, lpc, mp3_huff
+    from audio_formats_torch.ops import flac_rice, lms, lpc, mp3_huff
 
-    dec = BatchDecoder(streams, device=device)
+    dec = BatchDecoder(streams, device=device, flac_wire=flac_wire)
     lpc.KERNEL_LAUNCHES = 0
     lms.DECODE_LAUNCHES = 0
     mp3_huff.HUFF_LAUNCHES = 0
+    flac_rice.RICE_LAUNCHES = 0
     t0 = time.perf_counter()
     res = dec.decode_all(output="device")
     res.sync()
     wall = time.perf_counter() - t0
     launches = {"flac_lpc": lpc.KERNEL_LAUNCHES,
                 "qoa_decode": lms.DECODE_LAUNCHES,
-                "mp3_huff": mp3_huff.HUFF_LAUNCHES}
+                "mp3_huff": mp3_huff.HUFF_LAUNCHES,
+                "flac_rice": flac_rice.RICE_LAUNCHES}
     st = dec.stats
     for _, wins in res.windows():
         for w in wins:
@@ -813,11 +942,14 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0):
     if st["group_demotions"] or st.get("lanes_demoted"):
         raise AssertionError(f"demotions: {st.get('group_exceptions')}")
     # every FLAC, QOA and MP3 Layer III window launches exactly one kernel
-    # (LPC, LMS, Huffman); Layer I/II windows are synthesis only
+    # (LPC, LMS, Huffman), and a FLAC window of the Rice wire the frame
+    # entropy kernel too; Layer I/II windows are synthesis only
     wbf = st["windows_by_format"]
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
-                     "mp3_huff": wbf.get("mp3", 0)}
+                     "mp3_huff": wbf.get("mp3", 0),
+                     "flac_rice": wbf.get("flac", 0)
+                     if flac_wire == "rice" else 0}
     if launches != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
@@ -1399,7 +1531,7 @@ def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    names = ("flac_lpc", "qoa_lms", "mp3_huff")
+    names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=8,
@@ -1445,6 +1577,35 @@ def flac_slice(streams, pcms):
     return dec, wall, launches, captured
 
 
+def rice_slice(streams, pcms):
+    """The FLAC slice over the device-Rice wire (decode_checked), with the
+    arguments of its first frame-entropy and pool-gather calls kept: the
+    slice's own dispatch of K4, which phase_rice_kernel times.  Returns
+    (decoder, wall seconds, launches by kernel, the kept arguments)."""
+    from audio_formats_torch.ops import flac_rice
+
+    kept = {}
+    fns = {n: getattr(flac_rice, n)
+           for n in ("flac_frame_entropy", "gather_frame_pool")}
+
+    def keeping(name):
+        def first_call(*args, **kw):
+            kept.setdefault(name, (args, kw))
+            return fns[name](*args, **kw)
+        return first_call
+
+    for name in fns:
+        setattr(flac_rice, name, keeping(name))
+    try:
+        dec, wall, launches, _, _ = decode_checked(
+            streams, lambda i: expected_f32(pcms[i], 16), "cuda",
+            flac_wire="rice")
+    finally:
+        for name, fn in fns.items():
+            setattr(flac_rice, name, fn)
+    return dec, wall, launches, kept
+
+
 def run_phases(card, mp3_masters):
     import torch
 
@@ -1471,6 +1632,31 @@ def run_phases(card, mp3_masters):
 
     fres = phase_flac_kernel(card, captured)
     del captured
+
+    # 4b. the FLAC slice over the device-Rice wire, and K4 at its first
+    # dispatch
+    rdec, rwall, rlaunches, kept = rice_slice(streams, pcms)
+    rst = rdec.stats
+    n_disp = rst["windows_by_format"]["flac"]
+    if rlaunches["flac_rice"] != n_disp or rlaunches["flac_lpc"] != n_disp:
+        raise AssertionError(f"Rice slice launches {rlaunches}, dispatches "
+                             f"{n_disp}")
+    if rst.get("rice_host_redo", 0):
+        raise AssertionError(f"{rst['rice_host_redo']} frames of the 16-bit "
+                             "corpus were decoded again on the host")
+    print(f"# FLAC Rice slice: {len(streams)} lanes bit-exact, "
+          f"{rst['decoded_seconds']:.1f} s of audio in {rwall:.3f} s wall = "
+          f"{rst['decoded_seconds'] / rwall:.1f}x realtime; h2d_bytes "
+          f"{rst['h2d_bytes']}, dispatches {n_disp}, K4 launches "
+          f"{rlaunches['flac_rice']}, K1 launches {rlaunches['flac_lpc']}, "
+          f"host_ms {rst['host_ms']:.0f}, enqueue_ms {rst['enqueue_ms']:.0f}, "
+          f"pool build ms {rst.get('enq_flac_poolbuild_ms', 0):.1f}, host "
+          f"redo {rst.get('rice_host_redo', 0)}; packed wire, same run: "
+          f"{wall:.3f} s wall = {secs / wall:.1f}x, h2d_bytes "
+          f"{st['h2d_bytes']}, host_ms {st['host_ms']:.0f}, enqueue_ms "
+          f"{st['enqueue_ms']:.0f} [{card}]")
+    rres = phase_rice_kernel(card, kept)
+    del kept
 
     # 5. QOA encode, 6. QOA decode
     masters = qoa_masters()
@@ -1506,6 +1692,26 @@ def run_phases(card, mp3_masters):
           f"{len(m_streams) - 2} good lanes bit-exact, corrupt lane errors "
           f"{mdec.errors[bad_flac]!r} and {mdec.errors[bad_qoa]!r}, windows "
           f"{mdec.stats['windows']}, launches {m_launches}")
+    # 7b. the same batch with FLAC over the Rice wire: the 24-bit frames
+    # and the 18-bit lanes' 19-bit side frames are decoded again on the host
+    rmdec, _, rm_launches, _, _ = decode_checked(
+        m_streams, expect, "cuda", corrupt=(bad_flac, bad_qoa),
+        flac_wire="rice")
+    redo = rmdec.stats.get("rice_host_redo", 0)
+    wide = sum(-(-len(e_pcms[i]) // BLOCK) for i in range(bad_flac)
+               if e_bps[i] == 24) + sum(
+        len(e_pcms[i]) // BLOCK // 2 for i in range(bad_flac)
+        if e_bps[i] == 18)
+    if redo < wide:
+        raise AssertionError(f"Rice wire: {redo} host redos, want at least "
+                             f"the {wide} frames wider than 18 bits")
+    print(f"# mixed lanes over the Rice wire: {len(m_streams) - 2} good "
+          f"lanes bit-exact, {redo} frames decoded again on the host "
+          f"({wide} wider than 18 bits), corrupt lane errors "
+          f"{rmdec.errors[bad_flac]!r} and {rmdec.errors[bad_qoa]!r}, "
+          f"truncated lanes {rmdec.stats.get('flac_truncated_lanes', 0)}, "
+          f"dispatches {rmdec.stats['windows_by_format'].get('flac')}, "
+          f"launches {rm_launches}")
 
     # 3b. the MP3 Huffman kernel, 8. the MP3 slice, 9. mixed MP3
     mp3_streams, mp3_info = mp3_corpus(mp3_masters)
@@ -1539,6 +1745,10 @@ def run_phases(card, mp3_masters):
          "source": "audio_formats_torch/csrc/mp3_huff.cu",
          "replaces": "audio_formats_tpu/ops/mp3_huff.py:351",
          "launches": mp3_launches, **hres},
+        {"name": "flac_rice", "route": "cuda",
+         "source": "audio_formats_torch/csrc/flac_rice.cu",
+         "replaces": "audio_formats_tpu/ops/flac_rice.py:282",
+         "launches": rlaunches["flac_rice"], **rres},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2003,9 +2213,73 @@ def decode_realtime(streams):
     return dec.stats["decoded_seconds"] / (time.perf_counter() - t0)
 
 
+def wire_compare():
+    """The FLAC slice over both wires on the card: walls in turns, then one
+    profiled run of each (see the module's docstring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_formats_torch import BatchDecoder
+    from audio_formats_torch.host import native
+    from audio_formats_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: --wires runs on the card")
+    card = card_line()
+    print(card)
+    if native.get_lib() is None:
+        raise RuntimeError("the C host stage did not build or load")
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        list(ex.map(_kernels.build, ("flac_lpc", "flac_rice")))
+    streams, _ = build_corpus()
+
+    def run(wire):
+        dec = BatchDecoder(streams, device="cuda", flac_wire=wire)
+        t0 = time.perf_counter()
+        dec.decode_all(output="device").sync()
+        return dec, time.perf_counter() - t0
+
+    run("packed")
+    run("rice")
+    for wire in ("packed", "rice", "rice", "packed"):
+        dec, wall = run(wire)
+        st = dec.stats
+        print(f"# wires: {wire} {wall:.4f} s wall = "
+              f"{st['decoded_seconds'] / wall:.1f}x realtime, h2d_bytes "
+              f"{st['h2d_bytes']}, host_ms {st['host_ms']:.1f}, host_cpu_ms "
+              f"{st['host_cpu_ms']:.1f}, enqueue_ms {st['enqueue_ms']:.1f}, "
+              f"windows {st['windows']} [{card}]")
+    for wire in ("packed", "rice"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = run(wire)
+        # the device's own rows (kernels, copies, memsets): a host op's row
+        # counts the device time of the kernels it launched again
+        by_name = {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            if us > 0:
+                by_name[evt.key] = us / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"# wires, profiled: {wire} wall {wall * 1e3:.1f} ms, device "
+              f"busy {busy:.1f} ms = {busy / (wall * 1e3):.3f} of the wall; "
+              f"by kernel (ms): "
+              + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top)
+              + f" [{card}]")
+    print(card)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--divergence"]:
         divergence()
+    elif sys.argv[1:] == ["--wires"]:
+        wire_compare()
     elif sys.argv[1:2] == ["--sass"]:
         print_sass(sys.argv[2:])
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:

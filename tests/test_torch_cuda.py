@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from audio_formats_torch import BatchDecoder, encode_qoa_batch
+from audio_formats_torch.ops import flac_rice as trice
 from audio_formats_torch.ops import lms as tlms
 from audio_formats_torch.ops import lpc as tlpc
+from audio_formats_torch.parallel import batch as tbatch
 
+import torch_flac_cases
 import torch_qoa_cases
 
 pytestmark = pytest.mark.cuda
@@ -668,3 +671,152 @@ def test_mp3_dsp_refuses_tf32(cuda):
                                     nch=1)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ------------------------------------------------------------- FLAC Rice
+RICE_KEYS = ("residual", "coeffs", "order", "shift", "wasted", "sub_bps",
+             "err", "end_bits")
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                             if a.dtype == np.uint32 else
+                             np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _rice_kernel_vs_twin(cuda, args, L, NSAMP, nch, NPOOL):
+    """K4 on the card against the twin on the CPU, every output, one
+    launch.  Returns the twin's output."""
+    want = trice.flac_frame_entropy(*args, L, NSAMP, nch, NPOOL)
+    before = trice.RICE_LAUNCHES
+    got = trice.flac_frame_entropy(*_on(cuda, *args), L, NSAMP, nch, NPOOL)
+    torch.cuda.synchronize()
+    assert trice.RICE_LAUNCHES - before == 1
+    for k in RICE_KEYS:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), want[k]), k
+    return want
+
+
+@pytest.mark.parametrize("name,kw", torch_flac_cases.CASES,
+                         ids=[c[0] for c in torch_flac_cases.CASES])
+def test_rice_kernel_matches_twin_on_subframe_cases(cuda, name, kw):
+    frames = torch_flac_cases.case_frames(name, kw)
+    want = _rice_kernel_vs_twin(
+        cuda, torch_flac_cases.lanes(frames, 32, 320), 32, 1024, 2, 320)
+    assert not want["err"][:len(frames)].any()
+
+
+@pytest.mark.parametrize("how", ["flips", "zeroed", "headers", "cut"])
+def test_rice_kernel_matches_twin_on_corrupt_frames(cuda, how):
+    frames = torch_flac_cases.corrupt_frames(7, how)
+    _rice_kernel_vs_twin(cuda, torch_flac_cases.lanes(frames, 32, 320), 32,
+                         1024, 2, 320)
+
+
+def test_rice_kernel_matches_twin_on_24bit_and_cut_pools(cuda):
+    frames = torch_flac_cases.frames_24bit()
+    _rice_kernel_vs_twin(cuda, torch_flac_cases.lanes(frames, 32, 320), 32,
+                         1024, 2, 320)
+    # a pool too small for its frames: cursors clamped at its end
+    rng = np.random.default_rng(5)
+    frames = torch_flac_cases.stream_frames(torch_flac_cases.make_stream(
+        rng, bps=24, mode="verbatim", n=16 * 1024))
+    _rice_kernel_vs_twin(cuda, torch_flac_cases.lanes(frames, 32, 320), 32,
+                         1024, 2, 320)
+
+
+@pytest.mark.parametrize("seed,L,NSAMP,nch,NPOOL", [
+    (0, 32, 1024, 2, 320), (1, 70, 192, 1, 40), (2, 33, 31, 3, 12),
+    (3, 100, 100, 2, 2), (4, 5, 7, 1, 3), (5, 257, 4096, 2, 64)])
+def test_rice_kernel_matches_twin_on_random_bit_lanes(cuda, seed, L, NSAMP,
+                                                      nch, NPOOL):
+    _rice_kernel_vs_twin(
+        cuda, torch_flac_cases.random_lanes(seed, L, NPOOL, NSAMP), L, NSAMP,
+        nch, NPOOL)
+
+
+def test_rice_launch_alone_matches_wrapper(cuda):
+    args = _on(cuda, *torch_flac_cases.random_lanes(9, 64, 40, 256))
+    want = trice.flac_frame_entropy(*args, 64, 256, 2, 40)
+    out = trice.rice_outputs(64, 256, 2, cuda)
+    got = trice.rice_launch(*args, 256, 2, out)
+    for k in RICE_KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_rice_kernel_rejects_bad_arguments(cuda):
+    pool, sb, bs, bps, ca = _on(cuda, *torch_flac_cases.random_lanes(
+        1, 8, 10, 64))
+    with pytest.raises(ValueError):
+        trice.flac_frame_entropy(pool, sb.to(torch.int64), bs, bps, ca, 8,
+                                 64, 2, 10)
+    with pytest.raises(ValueError):
+        trice.flac_frame_entropy(pool[:, :32].contiguous(), sb, bs, bps, ca,
+                                 8, 64, 2, 10)
+    with pytest.raises(ValueError):
+        trice.flac_frame_entropy(pool, sb.cpu(), bs, bps, ca, 8, 64, 2, 10)
+
+
+def test_gather_pool_cuda_equals_cpu(cuda):
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(np.uint32)
+    words[-130:] = 0
+    zero_off = (5000 - 130) * 4
+    sizes = rng.integers(1, 900, 20)
+    src = rng.integers(0, zero_off - 900, 20)
+    lanes = [(0, int(o), int(n)) for o, n in zip(src, sizes)]
+    S = 23
+    lane_src, cum, _ = trice.gather_pool_meta(np.zeros(1, np.int64), lanes,
+                                              S, zero_off)
+    npool = trice.pool_blocks_needed(sizes) + 3
+    want = trice.gather_frame_pool(words, lane_src, cum, zero_off, npool, S)
+    got = trice.gather_frame_pool(*_on(cuda, words, lane_src, cum), zero_off,
+                                  npool, S)
+    assert torch.equal(got.cpu(), want)
+
+
+def _rice_streams():
+    rng = np.random.default_rng(21)
+    make = torch_flac_cases.make_stream
+    streams = [make(rng, mode="lpc8", stereo="mid_side"),
+               make(rng, n=3000), make(rng, mode="lpc8", wasted=2),
+               make(rng, mode="verbatim", n=2500),
+               make(rng, escape_bits=14, stereo="left_side"),
+               make(rng, bps=24, mode="lpc8")]
+    # a lane the host cannot parse past its middle: truncated there
+    rng = np.random.default_rng(14)
+    make(rng)
+    bad = bytearray(make(rng, n=3000))
+    bad[len(bad) // 2:] = b"\x55" * (len(bad) - len(bad) // 2)
+    return streams + [bytes(bad)]
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_batch_decoder_rice_cuda_equals_cpu(cuda, gather, monkeypatch):
+    """The Rice wire on the card, with the host pool or the gathered one:
+    PCM and lane errors equal to the CPU's Rice and packed wires; one K4
+    and one K1 launch a dispatch."""
+    streams = _rice_streams()
+    if gather:
+        monkeypatch.setattr(tbatch, "RICE_GATHER_MIN_BYTES", 0)
+    k4, k1 = trice.RICE_LAUNCHES, tlpc.KERNEL_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda, flac_wire="rice")
+    res = dec.decode_all(output="device")
+    for _, wins in res.windows():
+        assert all(w.device.type == "cuda" for w in wins)
+    got = res.sync().to_numpy()
+    n = dec.stats["windows_by_format"]["flac"]
+    assert trice.RICE_LAUNCHES - k4 == n and tlpc.KERNEL_LAUNCHES - k1 == n
+    assert dec.stats["group_demotions"] == 0
+    cpu = BatchDecoder(streams, device="cpu", flac_wire="rice")
+    want = cpu.decode_all()
+    packed = BatchDecoder(streams, device="cpu").decode_all()
+    got_np = BatchDecoder(streams, device=cuda, flac_wire="rice").decode_all()
+    for a, b, c, p in zip(got, want, got_np, packed):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(c, b)
+        np.testing.assert_array_equal(p, b)
+    assert dec.errors == cpu.errors
+    assert dec.stats["rice_host_redo"] == cpu.stats["rice_host_redo"] > 0
+    assert dec.stats["flac_truncated_lanes"] == 1
