@@ -73,10 +73,12 @@ the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of the JAX package, and checks so
 before the result.
 
-    python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode]
+    python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode
+                                    flac_rice]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
     python3 chip_smoke.py --wires                   # the card
+    python3 chip_smoke.py --ring                    # the card
 
 ``--wires`` decodes the FLAC slice's 512 lanes over the packed and the Rice
 wire in turns (packed, rice, rice, packed: each wall, realtime factor,
@@ -85,19 +87,29 @@ the card's busy share of that run's wall (its kernels' and copies' summed
 device time, all on one stream) and the device time by kernel.  It prints
 no result line.
 
-``--ab`` (on the card) times the Huffman, LPC, QOA encode and QOA decode
-kernels of this tree (or those named) against those built from
-DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from ``git
-archive``), parent / change / change / parent in one process, and the MP3,
-FLAC, QOA encode and QOA decode slices with either side's kernel; it
-prints no result line.  ``--divergence`` counts each lane's Huffman FSM
-steps on one MP3 window with the twin and prints the warp ratio in the
-window's order and in the order the Huffman wrapper gives the kernel.
-``--sass`` (nvcc and
-cuobjdump) counts, in this tree's qoa_lms.cu and in each DIR's, the SASS
-instructions of one step of K5's full-slice body by pipe, and of one step
-of K2's chain loop by pipe with its dependent chain from one sample to the
-next and the tile loop's instructions outside it.
+``--ring`` (on the card) builds K4 with each staging ring of RING_PROBES
+(word-major or lane-major, 1, 2 or 4 blocks a lane), holds each bit-equal
+to this tree's K4 at the FLAC Rice slice's first dispatch and times it
+there alone and as one warp, in turns; it prints no result line.
+
+``--ab`` (on the card) times the Huffman, LPC, QOA encode, QOA decode and
+frame-entropy kernels of this tree (or those named) against those built
+from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
+``git archive``), parent / change / change / parent in one process, and
+the MP3, FLAC, QOA encode, QOA decode and FLAC Rice slices with either
+side's kernel; it prints no result line.  ``--divergence`` (CPU) counts the
+paths a warp of the branching frame-entropy kernel (the design before the
+register window) ran a sample at the FLAC Rice slice's first dispatch
+(the twin's scan with each lane's branches recorded), then each lane's
+Huffman FSM steps on one MP3 window with the twin and the warp ratio in
+the window's order and in the order the Huffman wrapper gives the kernel.
+``--sass`` (nvcc and cuobjdump) counts,
+in this tree's kernels and in each DIR's, the SASS instructions of one
+step of K5's full-slice body by pipe, of one step of K2's chain loop by
+pipe with its dependent chain from one sample to the next and the tile
+loop's instructions outside it, and of K4's sample loop: its shortest and
+longest paths that decode, by pipe, with their dependent chains and the
+loads on them.
 """
 
 import json
@@ -1335,6 +1347,248 @@ def divergence(workers=4):
           f", in the wrapper's order {warp_step_ratio(steps, perm):.4f}")
 
 
+def rice_first_dispatch(streams):
+    """The arguments of the FLAC Rice slice's first frame-entropy call,
+    from a decode of the streams on the CPU (grouped as on the card)
+    stopped at that call."""
+    from audio_formats_torch import BatchDecoder
+    from audio_formats_torch.ops import _kernels, flac_rice
+
+    class Kept(_kernels.KernelError):
+        """raised out of decode_all, never demoted around"""
+
+    kept = []
+    fn = flac_rice.flac_frame_entropy
+
+    def keep(*args, **kw):
+        kept.append(list(args) + [kw[k] for k in ("L", "NSAMP", "nch",
+                                                  "NPOOL")])
+        raise Kept
+
+    flac_rice.flac_frame_entropy = keep
+    try:
+        # output="device": the card's grouping, every lane in one group
+        BatchDecoder(streams, device="cpu", flac_wire="rice").decode_all(
+            output="device")
+    except Kept:
+        pass
+    finally:
+        flac_rice.flac_frame_entropy = fn
+    return kept[0]
+
+
+def rice_paths(blocks, start_bits, bs, bps0, chass, L, NSAMP, nch, NPOOL):
+    """The twin's scan (ops.flac_rice.flac_frame_entropy_torch) with the
+    path the branching design of K4 (the kernel before the register
+    window) took at each lane and output sample t (one thread a
+    lane, a sample loop over t, a four-word window at the cursor): the
+    branch that leaves the sample undecoded (t past the block size, a
+    constant subframe, a warm-up, a stopped scan) or, for a decoded
+    sample, the clamp every 8 samples, the partition crossing, raw or
+    Rice, the unary count's second word, the window's move after the
+    sample (none, one or two words, a reload) and the line prefetch.
+    Returns (residual, end_bits, err, [nch x NSAMP int64 [L] path codes]),
+    the first three equal to the twin's."""
+    import torch
+    from audio_formats_torch.ops import flac_rice as R
+
+    blocks, start_bits, bs, bps0, chass = R._lanes(blocks, start_bits, bs,
+                                                   bps0, chass)
+    words = blocks.reshape(-1).to(torch.int64) & R._M32
+    nw = words.shape[0]
+    wz = torch.cat([words, torch.zeros(1, dtype=torch.int64)])
+
+    def word(i):
+        return wz[torch.where((i >= 0) & (i < nw), i, nw)]
+
+    def top32(p):
+        return R._funnel(word(p >> 5), word((p >> 5) + 1), p & 31)
+
+    i64 = torch.int64
+    pos = start_bits.to(i64)
+    bs = bs.to(i64)
+    err = torch.zeros(L, dtype=torch.bool)
+    max_pos = (NPOOL - 2) * R.BLK_BITS - 64
+    nblk = -(-NSAMP // R.K_SAMP)
+    res_all, codes = [], []
+    for ci in range(nch):
+        # the subframe header, as the twin reads it
+        sub_bps = bps0.to(i64) + ((((chass == 8) | (chass == 10)) if ci == 1
+                                   else (chass == 9) if ci == 0 else 0))
+        hdr = R._take(top32(pos), 8)
+        pos = pos + 8
+        err = err | ((hdr & 0x80) != 0)
+        t = (hdr & 0x7E) >> 1
+        uq, q64 = R._unary(top32(pos), top32(pos + 32))
+        has_w = (hdr & 1) == 1
+        wasted = torch.where(has_w, uq + 1, 0)
+        err = err | (has_w & q64) | (wasted >= sub_bps)
+        pos = pos + wasted
+        sub_bps = (sub_bps - wasted).clamp(min=1)
+        is_const, is_verb = t == 0, t == 1
+        is_lpc = (t & 0x20) != 0
+        is_fixed = ((t & 0x08) != 0) & ~is_lpc
+        err = err | ~(is_const | is_verb | is_lpc | is_fixed)
+        order = torch.where(is_lpc, (t & 0x1F) + 1,
+                            torch.where(is_fixed, t & 0x07, 0))
+        err = err | (is_fixed & (order > 4))
+        pos = pos + torch.where(is_const, sub_bps, 0)
+        has_res = is_lpc | is_fixed
+        pos = pos + torch.where(has_res, order * sub_bps, 0)
+        prec = R._take(top32(pos), 4)
+        err = err | (is_lpc & (prec == 15))
+        pos = pos + torch.where(is_lpc, 9 + order * (prec + 1), 0)
+        method = R._take(top32(pos), 2)
+        err = err | (has_res & (method > 1))
+        pbits = torch.where(has_res, torch.where(method == 0, 4, 5), 0)
+        escape = (1 << torch.where(method == 0, 4, 5)) - 1
+        po = R._take(top32(pos + 2), 4)
+        pos = pos + torch.where(has_res, 6, 0)
+        base_n = bs >> po
+        cnt = base_n - order
+        err = err | (has_res & (cnt < 0))
+        pr = R._take(top32(pos), pbits)
+        pos = pos + pbits
+        esc = has_res & (pr == escape)
+        nb = R._take(top32(pos), 5)
+        pos = pos + torch.where(esc, 5, 0)
+        raw = is_verb | esc
+        kpar = torch.where(is_verb, sub_bps, torch.where(esc, nb, pr))
+        cnt = torch.where(is_verb, bs, cnt)
+        wcount = torch.where(has_res, order, 0)
+        s_lim = torch.where(is_const | err, 0,
+                            torch.where(is_verb, bs, bs - order)).clamp(
+            max=nblk * R.K_SAMP)
+        # the residual scan in output order, with the branching design's
+        # window
+        wi = pos >> 5
+        s = torch.zeros(L, dtype=i64)
+        res = torch.zeros((L, NSAMP), dtype=i64)
+
+        def seek(p, wi, on):
+            d = (p >> 5) - wi
+            move = torch.where(d == 0, 0, torch.where(d == 1, 1, torch.where(
+                d == 2, 2, 3)))
+            nwi = torch.where(on & (d != 0), p >> 5, wi)
+            pf = on & (d != 0) & ((nwi >> 5) != (wi >> 5))
+            return nwi, torch.where(on, move, 0), pf
+
+        for tt in range(NSAMP):
+            act = (tt < bs) & ~is_const & (tt >= wcount) & ~err & (s < s_lim)
+            code = torch.where(tt >= bs, 1, torch.where(
+                is_const, 2, torch.where(tt < wcount, 3, torch.where(
+                    act, 0, 4))))
+            clamp = act & ((s & (R.K_SAMP - 1)) == 0)
+            pos = torch.where(clamp, pos.clamp(0, max_pos), pos)
+            wi, mv_c, pf_c = seek(pos, wi, clamp)
+            cross = act & (cnt == 0) & (pbits > 0)
+            pr = R._take(top32(pos), pbits)
+            esc = cross & (pr == escape)
+            nb = R._take(top32(pos + pbits), 5)
+            pos = pos + torch.where(cross, pbits + torch.where(esc, 5, 0), 0)
+            raw = torch.where(cross, esc, raw)
+            kpar = torch.where(cross, torch.where(esc, nb, pr), kpar)
+            cnt = torch.where(cross, base_n, cnt)
+            wi, mv_x, pf_x = seek(pos, wi, cross)
+            w1 = top32(pos)
+            q, q64 = R._unary(w1, top32(pos + 32))
+            err = err | (act & ~raw & q64)
+            rem = R._take(top32(pos + q + 1), kpar)
+            ui = R._wrap32(((q << (kpar & 31)) & R._M32) | rem)
+            v = torch.where(raw, R._sext(R._take(w1, kpar), kpar),
+                            (ui >> 1) ^ -(ui & 1))
+            pos = pos + torch.where(act, torch.where(raw, kpar,
+                                                     q + 1 + kpar), 0)
+            cnt = cnt - (act & (pbits > 0)).to(i64)
+            wi, mv, pf = seek(pos, wi, act)
+            res[:, tt] = torch.where(act, v, 0)
+            s = s + act.to(i64)
+            # a decoded sample's path: 5 bits of branches, the seeks
+            path = (clamp.to(i64) | cross.to(i64) << 1 | raw.to(i64) << 2
+                    | ((w1 == 0) & ~raw).to(i64) << 3
+                    | (pf | pf_c | pf_x).to(i64) << 4
+                    | mv << 5 | mv_c << 7 | mv_x << 9)
+            codes.append(torch.where(act, 16 + path, code))
+        # samples past NSAMP still move the cursor (none in the slice)
+        while bool(((s < s_lim) & ~err).any()):
+            act = (s < s_lim) & ~err
+            clamp = act & ((s & (R.K_SAMP - 1)) == 0)
+            pos = torch.where(clamp, pos.clamp(0, max_pos), pos)
+            cross = act & (cnt == 0) & (pbits > 0)
+            pr = R._take(top32(pos), pbits)
+            esc = cross & (pr == escape)
+            nb = R._take(top32(pos + pbits), 5)
+            pos = pos + torch.where(cross, pbits + torch.where(esc, 5, 0), 0)
+            raw = torch.where(cross, esc, raw)
+            kpar = torch.where(cross, torch.where(esc, nb, pr), kpar)
+            cnt = torch.where(cross, base_n, cnt)
+            q, q64 = R._unary(top32(pos), top32(pos + 32))
+            err = err | (act & ~raw & q64)
+            pos = pos + torch.where(act, torch.where(raw, kpar,
+                                                     q + 1 + kpar), 0)
+            cnt = cnt - (act & (pbits > 0)).to(i64)
+            s = s + act.to(i64)
+        pos = torch.where((s + R.K_SAMP - 1) // R.K_SAMP < nblk,
+                          pos.clamp(0, max_pos), pos)
+        res_all.append(res)
+    return torch.stack(res_all, 1), pos, err, codes
+
+
+def rice_divergence(workers=8):
+    """CPU only: the paths a warp of the branching K4 ran a sample at the FLAC
+    Rice slice's first dispatch (rice_paths over its arguments, taken from
+    a CPU decode of the slice's corpus), held to the twin on that dispatch.
+    Prints one line."""
+    import collections
+
+    import torch
+    from audio_formats_torch.ops import flac_rice
+
+    streams, _ = build_corpus(workers=workers)
+    args = rice_first_dispatch(streams)
+    L, NSAMP, nch = args[5], args[6], args[7]
+    res, end, err, codes = rice_paths(*args)
+    # residual below the warm-ups is the twin's (the warm-ups themselves
+    # and constant subframes are not the scan's)
+    want = flac_rice.flac_frame_entropy_torch(*args)
+    order = want["order"].to(torch.int64)
+    scan = torch.arange(NSAMP)[None, None, :] >= order[:, :, None]
+    if not (torch.equal(end.to(torch.int32), want["end_bits"])
+            and torch.equal(err, want["err"])
+            and torch.equal(torch.where(scan, res, 0),
+                            torch.where(scan, want["residual"].to(torch.int64),
+                                        0))):
+        raise AssertionError("rice_paths differs from the twin")
+    codes = torch.stack(codes, 1)                  # [L, nch * NSAMP]
+    pad = -L % 32
+    codes = torch.cat([codes, torch.full((pad, codes.shape[1]), 1)])
+    warps = codes.reshape(-1, 32, codes.shape[1]).permute(0, 2, 1)
+    distinct, dec_steps, share = [], 0, collections.Counter()
+    for w in warps:                                # [steps, 32]
+        dec = (w >= 16).any(1)
+        srt = w.sort(1).values
+        n = 1 + (srt[:, 1:] != srt[:, :-1]).sum(1)
+        distinct.append(n[dec])
+        dec_steps += int(dec.sum())
+        p = w[w >= 16] - 16
+        for name, bit in (("clamp", 1), ("crossing", 2), ("raw", 4),
+                          ("unary second word", 8), ("prefetch", 16)):
+            share[name] += int(((p & bit) != 0).sum())
+        for name, code in (("window move 1", 1), ("window move 2", 2),
+                           ("window reload", 3)):
+            share[name] += int((((p >> 5) & 3) == code).sum())
+        share["decoded"] += int(p.numel())
+    d = torch.cat(distinct).to(torch.float64)
+    n_dec = share.pop("decoded")
+    print(f"# K4 divergence (the branching design), the FLAC Rice slice's "
+          f"first dispatch (L={L}, nch={nch}, NSAMP={NSAMP}; paths held to "
+          f"the twin): distinct paths a warp runs at a decoding sample, mean "
+          f"{float(d.mean()):.3f}, max {int(d.max())}, histogram "
+          f"{dict(sorted(collections.Counter(d.long().tolist()).items()))}; "
+          f"{dec_steps} warp-samples; of {n_dec} decoded lane-samples: "
+          + ", ".join(f"{k} {v / n_dec:.4f}" for k, v in share.items()))
+
+
 def phase_mp3_kernel(card, streams):
     """The Huffman kernel against its twin at one full window of the MP3
     slice (timed: the wrapper, the launch alone, its plan alone, the host's
@@ -1775,27 +2029,33 @@ def by_pipe(ops, steps):
     return {p: n / steps for p, n in sorted(count.items())}
 
 
-def qoa_sass(tree):
-    """The SASS (cuobjdump) of tree/audio_formats_torch/csrc/qoa_lms.cu
+def kernel_sass(tree, name="qoa_lms"):
+    """The SASS (cuobjdump) of tree/audio_formats_torch/csrc/<name>.cu
     built with the kernels' nvcc flags: {function name: [(address,
     instruction)]}.  Needs nvcc and cuobjdump, not a card."""
-    import re
     import tempfile
 
     from audio_formats_torch.ops import _kernels
 
     nvcc = _kernels._nvcc()
-    src = os.path.join(tree, "audio_formats_torch", "csrc", "qoa_lms.cu")
+    src = os.path.join(tree, "audio_formats_torch", "csrc", name + ".cu")
     flags = [f for f in _kernels.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "qoa_lms.cubin")
+        cubin = os.path.join(tmp, name + ".cubin")
         subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src],
                        check=True, capture_output=True, timeout=600)
         sass = subprocess.run(
             [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
              cubin], check=True, capture_output=True, text=True,
             timeout=120).stdout
+    return parse_sass(sass)
+
+
+def parse_sass(sass):
+    """cuobjdump -sass text -> {function name: [(address, instruction)]}."""
+    import re
+
     funcs = {}
     for f in re.split(r"\n\s*Function : ", sass)[1:]:
         funcs[f.split("\n")[0].strip()] = [
@@ -1906,11 +2166,163 @@ def k2_sass(funcs):
             collections.Counter(ops[k] for k in span))
 
 
+def _operands(ins):
+    """(registers and predicates an instruction writes, those it reads) of
+    one SASS instruction; a 64-bit operand Rn.64 names Rn and Rn+1."""
+    import re
+
+    guard = re.match(r"^@!?(U?P\w+)\s+", ins)
+    op, _, rest = ins[guard.end() if guard else 0:].partition(" ")
+    args = [a.strip() for a in rest.split(",")] if rest else []
+
+    def regs(a):
+        out = set()
+        for r, wide in re.findall(r"\b(U?R\d+|U?P\d)\b(\.64)?", a):
+            out.add(r)
+            if wide:
+                out.add(re.sub(r"\d+$", lambda m: str(int(m.group()) + 1), r))
+        return out
+
+    writes = not op.startswith(("ST", "BRA", "BAR", "RED", "ATOM", "UBLKCP",
+                                "SYNCS", "LDGSTS", "EXIT", "RET", "BSSY",
+                                "BSYNC", "WARPSYNC", "CCTL", "NOP",
+                                "DEPBAR"))
+    dests, srcs = set(), {guard.group(1)} if guard else set()
+    for k, a in enumerate(args):
+        first = k == 0 or (k <= 2 and re.fullmatch(r"!?U?P(\d|T)", a)
+                           and op.startswith(("IADD3", "LEA", "ISETP",
+                                              "LOP3", "PLOP3", "VOTE",
+                                              "IMAD", "SHF", "ULEA",
+                                              "UIADD3")))
+        (dests if writes and first else srcs).update(regs(a))
+    return dests, srcs
+
+
+def sample_loop(body):
+    """The sample loop of K4's SASS: of the loops (a branch back to an
+    earlier address) whose own instructions, outside their nested loops,
+    both count a unary run (FLO) and write the stage tile (STS), the one
+    with the most FLOs, the shortest among equals.  Returns (first index,
+    index of the branch back)."""
+    import re
+
+    at = {a: k for k, (a, _) in enumerate(body)}
+    loops = []
+    for k, (a, i) in enumerate(body):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)",
+                      re.sub(r"^@!?U?P\w+\s+", "", i))
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], k))
+
+    def own(lp, head):
+        inner = [s for s in loops if s != lp and lp[0] <= s[0]
+                 and s[1] <= lp[1]]
+        return sum(_opcode(body[k][1]).startswith(head)
+                   for k in range(lp[0], lp[1] + 1)
+                   if not any(s[0] <= k <= s[1] for s in inner))
+
+    return max(loops, key=lambda lp: (own(lp, "FLO") > 0 < own(lp, "STS"),
+                                      own(lp, "FLO"), lp[0] - lp[1]))
+
+
+def extreme_paths(body, head, back):
+    """The shortest and the longest path, by instructions, through one
+    iteration of the loop [head, back] of a function's SASS that decode a
+    sample (pass a FLO instruction): from its first instruction to its
+    branch back, following forward branches both ways where they are
+    predicated, never a nested loop's branch back.  Returns two lists of
+    instruction indices (None where no path decodes)."""
+    import re
+
+    at = {a: k for k, (a, _) in enumerate(body)}
+
+    def succ(k):
+        ins = body[k][1]
+        bare = re.sub(r"^@!?U?P\w+\s+", "", ins)
+        if bare.startswith("EXIT") and not ins.startswith("@"):
+            return []
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)",
+                      bare)
+        if not m:
+            return [k + 1]
+        t = at.get(int(m.group(1), 16), -1)
+        nxt = [t] if t > k else []         # a branch back is not followed
+        if ins.startswith("@") or not re.match(r"BRA(\.\w+)*\s+0x", bare):
+            nxt.append(k + 1)
+        return [t for t in nxt if head <= t <= back]
+
+    # best[k][f]: (length, next index) of the shortest / longest way from k
+    # to the branch back, f: a FLO was passed before k
+    out = []
+    for pick in (min, max):
+        best = {}
+        for k in range(back, head - 1, -1):
+            flo = _opcode(body[k][1]).startswith("FLO")
+            for f in (False, True):
+                if k == back:
+                    best[k, f] = (1, None) if f or flo else None
+                    continue
+                ways = [(best[t, f or flo][0] + 1, t) for t in succ(k)
+                        if best.get((t, f or flo)) is not None]
+                best[k, f] = pick(ways) if ways else None
+        if best[head, False] is None:
+            out.append(None)
+            continue
+        path, k, f = [], head, False
+        while k is not None:
+            path.append(k)
+            f = f or _opcode(body[k][1]).startswith("FLO")
+            k = best[k, f][1] if k != back else None
+        out.append(path)
+    return out
+
+
+def path_cost(body, path):
+    """(instructions, {pipe: count}, the longest chain of
+    dependent instructions from a value carried into the iteration to one
+    it carries out (through registers and predicates), the loads on that
+    chain) of one path."""
+    ops = [_opcode(body[k][1]) for k in path]
+    dist = {}   # register -> (chain length, loads on it)
+    read_first, written = set(), set()
+    for k in path:
+        dests, srcs = _operands(body[k][1])
+        read_first |= srcs - written
+        d = max((dist.get(r, (0, 0)) for r in srcs), default=(0, 0))
+        op = _opcode(body[k][1])
+        d = (d[0] + 1, d[1] + op.startswith(("LDG", "LDS", "LD.", "LDL")))
+        for r in dests:
+            dist[r] = d
+        written |= dests
+    carried = (read_first & written) - {"PT", "RZ", "URZ", "UPT"}
+    chain = max((dist[r] for r in carried), default=(0, 0))
+    return len(path), by_pipe(ops, 1), chain[0], chain[1]
+
+
+def k4_sass(funcs):
+    """K4's sample loop: its span in the SASS, its instructions, and the
+    shortest and the longest path through one iteration that decode: for
+    each (instructions a sample, {pipe: instructions a sample}, dependent
+    chain a sample, loads on the chain, samples on the path).  A path's
+    samples are its FLO.U32 instructions, each sample's unary count."""
+    # the instance with 16-byte row stores, the main path's
+    names = [k for k in funcs if "flac_rice_kernel" in k]
+    body = funcs[next((k for k in names if "ILb1E" in k), names[0])]
+    head, back = sample_loop(body)
+    paths = []
+    for path in extreme_paths(body, head, back):
+        n, pipes, chain, loads = path_cost(body, path)
+        samples = max(sum(_opcode(body[k][1]) == "FLO.U32" for k in path), 1)
+        paths.append((n / samples, {p: v / samples for p, v in pipes.items()},
+                      chain / samples, loads, samples))
+    return (body[head][0], body[back][0]), back - head + 1, paths
+
+
 def print_sass(trees):
-    """--sass [DIR ...]: K5's and K2's SASS counts, this tree's and each
-    DIR's."""
+    """--sass [DIR ...]: K5's, K2's and K4's SASS counts, this tree's and
+    each DIR's."""
     for tree in (ROOT, *trees):
-        funcs = qoa_sass(tree)
+        funcs = kernel_sass(tree)
         per_step, ops = k5_sass(funcs)
         print(f"# K5 SASS, {tree}: {sum(per_step.values()):.2f} instructions "
               f"a candidate-step, by pipe {per_step}; "
@@ -1923,13 +2335,24 @@ def print_sass(trees):
               f"instructions outside the chain loop "
               f"{sum(staging.values()):.0f}, by pipe {staging}; "
               f"{dict(ops.most_common())}")
+        span, n, paths = k4_sass(kernel_sass(tree, "flac_rice"))
+        for label, (ins, pipes, chain, loads, samples) in zip(
+                ("shortest", "longest"), paths):
+            print(f"# K4 SASS, {tree}: sample loop {span[0]:#x}-{span[1]:#x}"
+                  f" ({n} instructions); its {label} path that decodes "
+                  f"({samples} samples): {ins:.2f} instructions a sample, by "
+                  f"pipe { {p: round(v, 2) for p, v in pipes.items()} }; "
+                  f"{chain:.2f} dependent instructions a sample from the "
+                  f"values carried in to those carried out, {loads} loads "
+                  f"on that chain")
 
 
-AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode")
+AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode",
+              "flac_rice")
 
 
 def ab_compare(parent, names=AB_KERNELS):
-    """--ab PARENT [NAME ...]: K3, K1, K5 and K2 of this tree (or those
+    """--ab PARENT [NAME ...]: K3, K1, K5, K2 and K4 of this tree (or those
     NAMEd) against the kernels built from PARENT/audio_formats_torch/csrc
     (an earlier commit's sources, called through the C entries and
     wrappers they had then), in one process on one card, in turns parent /
@@ -1939,16 +2362,18 @@ def ab_compare(parent, names=AB_KERNELS):
     chunk of phase_qoa_kernels and at the QOA encode slice's first (full)
     and last (tail) chunks, K2's wrapper and launch alone at the random
     window of phase_qoa_kernels and at the QOA decode slice's first and
-    last windows, and its int32 form at the random window.  Each pair is
-    first held equal, bit for bit.  Then the MP3, FLAC, QOA encode and QOA
-    decode slices with either side's kernel, in turns.  Prints one line a
-    measurement and the card; no result line."""
+    last windows, and its int32 form at the random window, K4's wrapper,
+    launch alone and first 32 lanes alone (one warp) at the FLAC Rice
+    slice's first dispatch.  Each pair is first held equal, bit for bit.
+    Then the MP3, FLAC, QOA encode, QOA decode and FLAC Rice slices with
+    either side's kernel, in turns.  Prints one line a measurement and the
+    card; no result line."""
     import ctypes
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
-    from audio_formats_torch.ops import _kernels, lms, lpc, mp3_huff
+    from audio_formats_torch.ops import _kernels, flac_rice, lms, lpc, mp3_huff
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA GPU: the comparison runs on the card")
@@ -1963,9 +2388,12 @@ def ab_compare(parent, names=AB_KERNELS):
                    "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V]),
                    "qoa_encode": ("af_qoa_encode",
                                   [V, I, V, V, V, V, V, V, I, V]),
-                   "qoa_decode": ("af_qoa_decode", [V] * 6 + [I, I, V])}
+                   "qoa_decode": ("af_qoa_decode", [V] * 6 + [I, I, V]),
+                   "flac_rice": ("af_flac_rice",
+                                 [V, I, V, V, V, V, I, I, I] + [V] * 6)}
     sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
-               "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms"}
+               "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms",
+               "flac_rice": "flac_rice"}
 
     def build_parent(name):
         src = os.path.join(parent, "audio_formats_torch", "csrc",
@@ -2063,9 +2491,10 @@ def ab_compare(parent, names=AB_KERNELS):
         slices.append(("MP3 slice", mp3_huff, "huff_decode", huff_old,
                        lambda: decode_realtime(mp3_streams)))
 
+    if "flac_lpc" in names or "flac_rice" in names:
+        streams, pcms = build_corpus()
     if "flac_lpc" in names:
         # K1 at the FLAC slice's first window and at the random lanes
-        streams, pcms = build_corpus()
         captured = flac_slice(streams, pcms)[3]
         rng = np.random.default_rng(2024)
         rand = [torch.from_numpy(a).to(dev)
@@ -2087,6 +2516,46 @@ def ab_compare(parent, names=AB_KERNELS):
                   lambda: lpc.flac_lpc_launch(*targs, perm, got_new))
         slices.append(("FLAC slice", lpc, "flac_lpc", lpc_old,
                        lambda: decode_realtime(streams)))
+
+    def rice_old(blocks, sb, bs, bps0, chass, L, NSAMP, nch, NPOOL,
+                 out=None):
+        out = out or flac_rice.rice_outputs(sb.shape[0], NSAMP, nch, dev)
+        _kernels.check_launch("old flac_rice", olds["flac_rice"](
+            blocks.data_ptr(), blocks.shape[0], sb.data_ptr(), bs.data_ptr(),
+            bps0.data_ptr(), chass.data_ptr(), sb.shape[0], NSAMP, nch,
+            *(out[k].data_ptr() for k in ("residual", "coeffs", "fields",
+                                          "err", "end_bits")), stream()))
+        return out
+
+    if "flac_rice" in names:
+        # K4 at the FLAC Rice slice's first dispatch: through its wrapper,
+        # alone, and its first 32 lanes alone (one warp)
+        args, kw = rice_slice(streams, pcms)[3]["flac_frame_entropy"]
+        full = list(args) + [kw[k] for k in ("L", "NSAMP", "nch", "NPOOL")]
+        blocks, sb, bs, bps0, chass, Lr, NSAMP, nch, NPOOL = full
+        got_old = rice_old(*full)
+        got_new = flac_rice.flac_frame_entropy(*full)
+        torch.cuda.synchronize()
+        if not all(torch.equal(got_old[k], got_new[k]) for k in RICE_KEYS):
+            raise AssertionError("K4: parent and change differ")
+        label = f"the Rice slice's first dispatch L={Lr} nch={nch}"
+        turns(f"flac_rice wrapper, {label}", lambda: rice_old(*full),
+              lambda: flac_rice.flac_frame_entropy(*full))
+        turns(f"flac_rice kernel alone, {label}",
+              lambda: rice_old(*full, out=got_old),
+              lambda: flac_rice.rice_launch(blocks, sb, bs, bps0, chass,
+                                            NSAMP, nch, got_new))
+        few = [a[:32].contiguous() for a in (sb, bs, bps0, chass)]
+        o32 = [flac_rice.rice_outputs(32, NSAMP, nch, dev) for _ in range(2)]
+        turns(f"flac_rice one warp (its first 32 lanes), {label}",
+              lambda: rice_old(blocks, *few, 32, NSAMP, nch, NPOOL,
+                               out=o32[0]),
+              lambda: flac_rice.rice_launch(blocks, *few, NSAMP, nch, o32[1]),
+              reps=5)
+        del got_old, got_new, o32, args, kw, full
+        slices.append(("FLAC Rice slice", flac_rice, "flac_frame_entropy",
+                       rice_old, lambda: decode_realtime(streams,
+                                                         flac_wire="rice")))
 
     if "qoa_encode" in names:
         # K5 at the random chunk and at the encode slice's full and tail
@@ -2202,12 +2671,120 @@ def ab_compare(parent, names=AB_KERNELS):
     print(card)
 
 
-def decode_realtime(streams):
+RING_PROBES = tuple((layout, depth) for layout in ("word-major", "lane-major")
+                    for depth in (1, 2, 4))
+
+
+def ring_source(layout, depth):
+    """csrc/flac_rice.cu with its staging ring kRingBlocks blocks deep and
+    laid out word-major (ring[word][lane], as the source has it) or
+    lane-major (ring[lane][word])."""
+    import re
+
+    with open(os.path.join(ROOT, "audio_formats_torch", "csrc",
+                           "flac_rice.cu")) as f:
+        src = f.read()
+    src, n = re.subn(r"constexpr int kRingBlocks = \d+;",
+                     f"constexpr int kRingBlocks = {depth};", src)
+    if layout == "lane-major":
+        src = src.replace("uint32_t ring[kRingW][kThreads];",
+                          "uint32_t ring[kThreads][kRingW];")
+        src, m = re.subn(r"sm\.ring\[([^\]]+)\]\[([^\]]+)\]",
+                         r"sm.ring[\2][\1]", src)
+        n = n and m
+    if not n:
+        raise RuntimeError("flac_rice.cu: no ring to vary")
+    return src
+
+
+def ring_probe():
+    """--ring (on the card): K4 built with each staging ring of
+    RING_PROBES, each held bit-equal to this tree's kernel at the FLAC Rice
+    slice's first dispatch, then timed there alone and as its first 32
+    lanes (one warp), the variants in turns forward and back.  Prints one
+    line a variant and the card; no result line."""
+    import ctypes
+    import tempfile
+
+    import torch
+    from audio_formats_torch.ops import _kernels, flac_rice
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: --ring runs on the card")
+    card = card_line()
+    print(card)
+    tmp = tempfile.mkdtemp(prefix="k4ring", dir=os.path.join(ROOT, "_checkout")
+                           if os.path.isdir(os.path.join(ROOT, "_checkout"))
+                           else None)
+
+    def build(v):
+        src = os.path.join(tmp, f"{v[0]}-{v[1]}.cu")
+        with open(src, "w") as f:
+            f.write(ring_source(*v))
+        out = src[:-3] + ".so"
+        res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o",
+                              out, src], check=True, capture_output=True,
+                             text=True, timeout=600)
+        fn = ctypes.CDLL(out).af_flac_rice
+        fn.argtypes = _kernels._ENTRIES["flac_rice"][0][1]
+        fn.restype = ctypes.c_int
+        regs = [ln.split(":", 1)[1].strip() for ln in
+                (res.stdout + res.stderr).splitlines() if "Used" in ln]
+        return fn, regs
+
+    with ThreadPoolExecutor(max_workers=len(RING_PROBES) + 1) as ex:
+        built = ex.map(build, RING_PROBES)
+        _kernels.build("flac_rice")
+        _kernels.build("flac_lpc")
+        built = dict(zip(RING_PROBES, built))
+    streams, pcms = build_corpus()
+    args, kw = rice_slice(streams, pcms)[3]["flac_frame_entropy"]
+    full = list(args) + [kw[k] for k in ("L", "NSAMP", "nch", "NPOOL")]
+    blocks, sb, bs, bps0, chass, L, NSAMP, nch, NPOOL = full
+    dev = blocks.device
+    want = flac_rice.flac_frame_entropy(*full)
+    few = [a[:32].contiguous() for a in (sb, bs, bps0, chass)]
+
+    def launch(fn, lanes, out):
+        _kernels.check_launch("ring probe", fn(
+            blocks.data_ptr(), blocks.shape[0],
+            *(a.data_ptr() for a in lanes), lanes[0].shape[0], NSAMP, nch,
+            *(out[k].data_ptr() for k in ("residual", "coeffs", "fields",
+                                          "err", "end_bits")),
+            torch.cuda.current_stream().cuda_stream))
+
+    outs = {}
+    for v, (fn, _) in built.items():
+        outs[v] = (flac_rice.rice_outputs(L, NSAMP, nch, dev),
+                   flac_rice.rice_outputs(32, NSAMP, nch, dev))
+        launch(fn, (sb, bs, bps0, chass), outs[v][0])
+        torch.cuda.synchronize()
+        if not all(torch.equal(outs[v][0][k], want[k]) for k in RICE_KEYS):
+            raise AssertionError(f"ring {v}: differs from this tree's K4")
+    times = {v: ([], []) for v in built}
+    for order in (RING_PROBES, RING_PROBES[::-1]):
+        for v in order:
+            fn = built[v][0]
+            times[v][0].append(time_cuda(lambda: launch(
+                fn, (sb, bs, bps0, chass), outs[v][0]), 20))
+            times[v][1].append(time_cuda(lambda: launch(
+                fn, few, outs[v][1]), 5))
+    for v, (alone, warp) in times.items():
+        print(f"# ring {v[0]}, {v[1]} blocks a lane "
+              f"({v[1] * 64 * 32 * 4} bytes a warp; ptxas: "
+              f"{'; '.join(built[v][1])}): the Rice slice's first dispatch "
+              f"L={L} nch={nch}, kernel alone "
+              + " / ".join(f"{t:.4f}" for t in alone) + " ms, one warp "
+              + " / ".join(f"{t:.4f}" for t in warp) + f" ms [{card}]")
+    print(card)
+
+
+def decode_realtime(streams, **kw):
     """Audio seconds over wall seconds of one decode_all(output="device")
-    of the streams on the card, synced."""
+    of the streams on the card, synced; kw: BatchDecoder's options."""
     from audio_formats_torch import BatchDecoder
 
-    dec = BatchDecoder(streams, device="cuda")
+    dec = BatchDecoder(streams, device="cuda", **kw)
     t0 = time.perf_counter()
     dec.decode_all(output="device").sync()
     return dec.stats["decoded_seconds"] / (time.perf_counter() - t0)
@@ -2277,7 +2854,10 @@ def wire_compare():
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--divergence"]:
+        rice_divergence()
         divergence()
+    elif sys.argv[1:] == ["--ring"]:
+        ring_probe()
     elif sys.argv[1:] == ["--wires"]:
         wire_compare()
     elif sys.argv[1:2] == ["--sass"]:

@@ -736,6 +736,15 @@ def test_rice_kernel_matches_twin_on_random_bit_lanes(cuda, seed, L, NSAMP,
         nch, NPOOL)
 
 
+@pytest.mark.parametrize("name", torch_flac_cases.EDGE_CASES)
+def test_rice_kernel_matches_twin_on_edge_lanes(cuda, name):
+    """The new design's edges, a warp each: unary runs across a ring block
+    and the ring's wrap, escape widths 0 and 31, partition orders 0 to 8,
+    ragged stops, the clamp moving a cursor back, the pool's zero blocks."""
+    _rice_kernel_vs_twin(cuda, torch_flac_cases.edge_lanes(name), 32, 1024,
+                         2, 320)
+
+
 def test_rice_launch_alone_matches_wrapper(cuda):
     args = _on(cuda, *torch_flac_cases.random_lanes(9, 64, 40, 256))
     want = trice.flac_frame_entropy(*args, 64, 256, 2, 40)

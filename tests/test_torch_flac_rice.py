@@ -110,6 +110,34 @@ def test_twin_matches_jax_on_random_bit_lanes(seed):
     assert got["err"].any() and not got["err"].all()
 
 
+@pytest.mark.parametrize("name", cases.EDGE_CASES)
+def test_twin_matches_jax_on_edge_lanes(name):
+    """The kernel's edge cases (unary runs of 60-63 zeros across a block
+    boundary and a ring's wrap, escape widths 0 and 31, partition orders 0
+    to 8, ragged block sizes, cursors clamped back at the pool's end, runs
+    into its zero blocks), each a 32-lane warp, twin against JAX."""
+    pool, sb, bs, bps, ca = cases.edge_lanes(name)
+    got = _entropy_both(pool, sb, bs, bps, ca)
+    max_pos = (NPOOL - 2) * flac_rice.BLK_BITS - 64
+    tail = got["end_bits"] == max_pos
+    if name in ("clamp_back", "zero_tail"):
+        assert tail.sum() == 2 and got["err"][tail].all()
+        assert not got["err"][~tail].any()
+    else:
+        assert not got["err"].any() and not tail.any()
+    if name.startswith("unary"):
+        # partition 1's sample 5 of channel 1 (order 2, partition order 3,
+        # 128 samples a partition) is a run of 60 + i // 3 % 4 zeros
+        for i in range(0, L, 3):
+            ui = ((60 + i // 3 % 4) << 1) | 1
+            assert got["residual"][i, 1, 128 + 5] == (ui >> 1) ^ -(ui & 1)
+    if name == "ragged_stops":
+        assert sorted(set(bs.tolist())) == [1, 2, 31, 100, 513, 777, 1000,
+                                            1024]
+        assert (got["residual"][np.arange(NSAMP) >= bs[:, None, None]
+                                .repeat(NCH, 1)] == 0).all()
+
+
 def test_twin_takes_only_cpu_tensors():
     pool, sb, bs, bps, ca = cases.lanes([], L, NPOOL)
     with pytest.raises(ValueError):
