@@ -8,7 +8,7 @@
 //    -> dense residual/coefficient tensors
 //
 // Tables are injected from Python at init (canonical spec data from
-// audio_formats_tpu/utils/tables) so no constant data is duplicated here.
+// audio_formats_torch/utils/tables) so no constant data is duplicated here.
 //
 // Build: g++ -O3 -shared -fPIC (see ../native.py).
 

@@ -25,6 +25,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: a library's flags beyond NVCC_FLAGS: K10's float steps must each round
+#: alone (its one FMA is written out as __fmaf_rn)
+EXTRA_FLAGS = {"pcm": ("-fmad=false",)}
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +44,11 @@ _ENTRIES = {
                  ("af_mp3_huff_plan_scratch", [_I])),
     "flac_rice": (("af_flac_rice", [_V, _I, _V, _V, _V, _V, _I, _I, _I, _V,
                                     _V, _V, _V, _V, _V]),),
+    "pcm": (("af_pcm_decode", [_V, _V, ctypes.c_longlong, _I, _V]),
+            ("af_pcm_quantize", [_V, _V, _V, _I, _I, _I, _I, _V])),
+    "vorbis_win": (("af_vorbis_win", [_V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                      _V, _V, _V, _V, _V, _I, _I, _I, _I,
+                                      _I, _V]),),
 }
 
 
@@ -79,8 +87,9 @@ def build(name: str) -> str:
     """Compile csrc/<name>.cu unless a build of this exact source exists;
     returns the library's path."""
     src = os.path.join(CSRC_DIR, name + ".cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
     so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
@@ -88,7 +97,7 @@ def build(name: str) -> str:
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        res = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                              capture_output=True, text=True, timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise KernelError(f"nvcc did not run on {src}: {e}") from e

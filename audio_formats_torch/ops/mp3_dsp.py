@@ -146,13 +146,14 @@ def device_const(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
-def full_fp32(dev: torch.device) -> None:
-    """Raise unless float32 matrix products on `dev` run in full float32."""
+def full_fp32(dev: torch.device, what: str = "MP3 DSP") -> None:
+    """Raise unless float32 matrix products on `dev` run in full float32
+    (`what` names the stage that needs them)."""
     if dev.type == "cuda" and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise KernelError(
-            "MP3 DSP needs full-float32 matmuls (the reference pins "
+            f"{what} needs full-float32 matmuls (the reference pins "
             "Precision.HIGHEST): set torch.backends.cuda.matmul.allow_tf32 "
             "= False and torch.set_float32_matmul_precision('highest')")
 

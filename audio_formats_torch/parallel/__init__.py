@@ -1,4 +1,4 @@
 from .batch import BatchDecoder
-from .encode import encode_qoa_batch
+from .encode import encode_qoa_batch, encode_wav_batch
 
-__all__ = ["BatchDecoder", "encode_qoa_batch"]
+__all__ = ["BatchDecoder", "encode_qoa_batch", "encode_wav_batch"]

@@ -14,11 +14,16 @@ carried overlap and slot history.  MP3 Layers I/II: the host parses
 scalefactor-applied subband slots, one synthesis call a window.  QOA:
 every frame carries its LMS state, so every (frame, channel) of a group is
 an independent lane, and one upload plus one LMS decode kernel runs per
-window of lanes.  The PCM windows stay on the device with
+window of lanes.  WAV: the lanes of one integer sample kind upload their
+raw payload bytes as one buffer and one K10 launch turns them into f32.
+Ogg Vorbis: the host runs the entropy stage of K packets a lane, and one
+upload of the window's spectra plus one device chain (both block sizes'
+IMDCT matmuls, then K11's lapped chain with the lap carried on the device)
+turns the whole group into PCM.  The PCM windows stay on the device with
 ``decode_all(output="device")``.
 
-The port decodes FLAC, Ogg-FLAC, MP3 (Layers I–III) and QOA so far; every
-other lane carries an error that names its format.
+The port decodes FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3 (Layers
+I–III) so far; every other lane carries an error that names its format.
 
 Error lattice: a corrupt stream only poisons its own lane — it stops
 producing frames and its `errors` entry is set; other lanes are unaffected.
@@ -43,9 +48,13 @@ from ..io.source import ByteSource, FileSource, MemorySource
 from ..models.flac import FlacDecoder, device_of
 from ..models.mp3 import Mp3Decoder
 from ..models.qoa import _F32_RECIP, QoaDecoder
+from ..models.vorbis import VorbisDecoder
+from ..models.wav import _LINEAR_PCM, WavDecoder
 from ..ops import flac_rice
 from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
+from ..ops import pcm as pcm_ops
+from ..ops import vorbis_win
 from ..ops._kernels import KernelError
 from ..ops import mp3_dsp, mp3_huff
 
@@ -55,6 +64,8 @@ FLAC_WINDOW_FRAMES = 12
 MP3_WINDOW_FRAMES = 24
 #: QOA (frame, channel) lanes per device call (bounds upload and memory)
 QOA_WINDOW_LANES = 8192
+#: Vorbis packets a lane per device call
+VORBIS_WINDOW_PACKETS = 8
 
 #: device-Rice wire: a FLAC group whose streams hold at least this many
 #: bytes uploads them once as a corpus and gathers each dispatch's frame pool
@@ -199,8 +210,9 @@ class _PendingGroup:
             # MP3 decoders count interleaved samples in _cur_sample
             return sum(d._cur_sample / max(1, d.channels)
                        / max(1, d.sample_rate) for d in self.decs)
-        # QOA decoders count decoded frames in _pos, FLAC in _frame_pos
-        pos = "_pos" if self.kind == "qoa" else "_frame_pos"
+        # QOA and Vorbis decoders count decoded frames in _pos, FLAC and
+        # WAV in _frame_pos
+        pos = "_pos" if self.kind in ("qoa", "vorbis") else "_frame_pos"
         return sum(getattr(d, pos) / max(1, d.sample_rate) for d in self.decs)
 
     def finalize(self):
@@ -431,6 +443,8 @@ class BatchDecoder:
         l12_groups = {}
         flac_groups = {}
         qoa_groups = {}
+        wav_groups = {}
+        vorbis_groups = {}
         for i, d in enumerate(self.decoders):
             if isinstance(d, Mp3Decoder) and d._layer == 3:
                 mp3_groups.setdefault((d.channels, d._mpeg1), []).append(i)
@@ -445,6 +459,15 @@ class BatchDecoder:
                 flac_groups.setdefault(d.channels, []).append(i)
             elif isinstance(d, QoaDecoder):
                 qoa_groups.setdefault(d.channels, []).append(i)
+            elif isinstance(d, WavDecoder) and \
+                    d._audio_format == _LINEAR_PCM:
+                # float WAV lanes take the per-stream read
+                wav_groups.setdefault(d.kind, []).append(i)
+            elif isinstance(d, VorbisDecoder):
+                # the window chain's IMDCT sizes and slopes are the block
+                # sizes'
+                vorbis_groups.setdefault(
+                    (d.channels, d._bs0, d._bs1), []).append(i)
 
         # lockstep group width: with device-resident output the whole batch
         # can ride one group (no per-window PCM download); when PCM is
@@ -479,6 +502,14 @@ class BatchDecoder:
         for nch, lanes in qoa_groups.items():
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_qoa_group,
+                             (nch,)))
+        for kind, lanes in wav_groups.items():
+            for c in range(0, len(lanes), GROUP):
+                jobs.append((lanes[c: c + GROUP], self._decode_wav_group,
+                             (kind,)))
+        for (nch, _bs0, _bs1), lanes in vorbis_groups.items():
+            for c in range(0, len(lanes), GROUP):
+                jobs.append((lanes[c: c + GROUP], self._decode_vorbis_group,
                              (nch,)))
         # groups run concurrently on multi-core hosts (lane sets are
         # disjoint; stats ride _stat_add's lock): one group's host parse
@@ -1623,3 +1654,141 @@ class BatchDecoder:
             # same float conversion as the facade (qoa.d:825-834)
             result.append(s16.astype(np.float32) * _F32_RECIP)
         return result
+
+    # --------------------------------------------------- batched WAV lanes
+    def _decode_wav_group(self, decs: List[WavDecoder], kind: str,
+                          to_device: bool = False):
+        """WAV batching: int → f32 is elementwise, so every lane of one
+        sample kind rides one device call.  Each lane's raw payload bytes
+        (frame-aligned, so lane boundaries stay sample boundaries) join one
+        buffer that goes up as it is, and K10 unpacks and converts it on
+        the device: 2 bytes a sample up for s16."""
+        t_host = time.perf_counter()
+        ct_host = time.thread_time()
+        parts = []
+        counts = []  # (frames, channels) a lane
+        for d in decs:
+            frames = d.length_frames - d._frame_pos
+            parts.append(np.frombuffer(d._raw_frames(frames), np.uint8))
+            counts.append((frames, d.channels))
+            d._frame_pos += frames
+        raw = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        self._note_stage("host_ms", "wav", t_host)
+        self._note_host_cpu("wav", ct_host)
+        t_enq = time.perf_counter()
+        out = pcm_ops.decode_bytes(torch.from_numpy(raw).to(self.device),
+                                   kind)
+        pending = [(_prefetch(out, to_device),)]
+        self._note_stage("enqueue_ms", "wav", t_enq)
+        self._stat_add("h2d_bytes", raw.nbytes)
+        self._stat_add("h2d_bytes_by_format", raw.nbytes, fmt="wav")
+        self._note_window("wav")
+        group = _PendingGroup("wav", decs, pending, self._wav_finalize,
+                              (counts, pending))
+        return group if to_device else group.finalize()
+
+    def _wav_finalize(self, counts, pending):
+        t0 = time.perf_counter()
+        flat = _to_numpy(pending[0][0])
+        self._stat_add("d2h_bytes", flat.nbytes)
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        result = []
+        off = 0
+        for frames, ch in counts:
+            n = frames * ch
+            result.append(flat[off: off + n].reshape(frames, ch))
+            off += n
+        return result
+
+    # ------------------------------------------------ batched Vorbis lanes
+    def _decode_vorbis_group(self, decs: List[VorbisDecoder], nch: int,
+                             to_device: bool = False):
+        """Vorbis lockstep: the host runs the entropy stage (codebooks,
+        floors, residues, coupling, floor dot) of K packets a lane; one
+        upload of the window's spectra X [K, L, bs1/2] and geometry, and one
+        device chain (ops/vorbis_win.vorbis_window_chain: both block sizes'
+        IMDCT matmuls, then K11's lapped chain with the lap carried on the
+        device) a window.  Each packet's output length follows from the
+        geometry on the host, so nothing downloads until finalize(), for
+        either output."""
+        B = len(decs)
+        bs0, bs1 = decs[0]._bs0, decs[0]._bs1
+        h = bs1 // 2
+        L = B * nch
+        K = VORBIS_WINDOW_PACKETS
+        dev = self.device
+        state = (torch.zeros((L, h), dtype=torch.float32, device=dev),
+                 torch.zeros(B, dtype=torch.int32, device=dev),
+                 torch.zeros(B, dtype=torch.int32, device=dev))
+        host_hp = np.zeros(B, bool)  # host mirror of had_prev
+        active = np.ones(B, bool)
+        pending = []
+        while active.any():
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            X = np.zeros((K, L, h), np.float32)
+            geom = np.zeros((4, K, B), np.int32)  # ls, rs, re, valid
+            lens = np.zeros((K, B), np.int32)     # emitted (clamped) lengths
+            for bi, d in enumerate(decs):
+                k = 0
+                while k < K and active[bi]:
+                    if d.length_frames and d._pos >= d.length_frames:
+                        active[bi] = False
+                        break
+                    pk = d._reader.next_packet()
+                    if pk is None:
+                        active[bi] = False
+                        break
+                    ent = d._packet_entropy(pk[0])
+                    if ent is None:
+                        continue
+                    spec, (n, l0, r0, r1) = ent
+                    X[k, bi * nch: (bi + 1) * nch, : n // 2] = spec
+                    geom[:, k, bi] = (l0, r0, r1, 1)
+                    ol = (r0 - l0) if host_hp[bi] else 0
+                    host_hp[bi] = True
+                    if d.length_frames:
+                        # the final granule cuts the last packets
+                        ol = min(ol, max(0, d.length_frames - d._pos))
+                    lens[k, bi] = ol
+                    d._pos += ol
+                    k += 1
+            self._note_stage("host_ms", "vorbis", t_host)
+            self._note_host_cpu("vorbis", ct_host)
+            if not geom[3].any():
+                break
+            t_enq = time.perf_counter()
+            X_d, g_d = _upload(dev, X, geom)
+            pcm, *st = vorbis_win.vorbis_window_chain(
+                X_d, g_d[0], g_d[1], g_d[2], g_d[3], *state,
+                bs0=bs0, bs1=bs1, ch=nch)
+            state = tuple(st)
+            pending.append((_prefetch(pcm, to_device), lens))
+            self._note_stage("enqueue_ms", "vorbis", t_enq)
+            self._stat_add("h2d_bytes", X.nbytes + geom.nbytes)
+            self._stat_add("h2d_bytes_by_format", X.nbytes + geom.nbytes,
+                           fmt="vorbis")
+            self._note_window("vorbis")
+        group = _PendingGroup("vorbis", decs, pending, self._vorbis_finalize,
+                              (decs, pending, nch))
+        return group if to_device else group.finalize()
+
+    def _vorbis_finalize(self, decs, pending, nch):
+        t0 = time.perf_counter()
+        outs = [[] for _ in decs]
+        for pcm, lens in pending:
+            arr = _to_numpy(pcm)  # [K, L, bs1]
+            self._stat_add("d2h_bytes", arr.nbytes)
+            for bi in range(len(decs)):
+                for k in range(arr.shape[0]):
+                    n = int(lens[k, bi])
+                    if n:
+                        outs[bi].append(
+                            arr[k, bi * nch: (bi + 1) * nch, :n].T)
+        res = [
+            np.ascontiguousarray(np.concatenate(o), dtype=np.float32)
+            if o else np.zeros((0, nch), np.float32)
+            for o in outs
+        ]
+        self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
+        return res

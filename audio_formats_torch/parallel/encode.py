@@ -1,4 +1,10 @@
-"""Batched QOA encode — N independent streams encode in lockstep on device.
+"""Batched QOA and WAV encode — N independent streams encode in lockstep on
+the device.
+
+WAV (``encode_wav_batch``): every stream's float samples become one row of
+a single device call that quantizes (exact round-half-up, or TPDF dither)
+and packs the payload bytes (K10), byte-exact against the single-stream
+WavEncoder.
 
 The reference encodes one stream at a time (QOAEncoder qoa.d:538).  Here
 QOA's brute-force 16-scalefactor LMS search (qoa.d:345-383) runs over a
@@ -17,7 +23,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..config import AudioSampleFormat, EncodingOptions
 from ..models import qoa as qoa_mod
+from ..models.wav import _FMT_INFO, wav_header
 from ..models.flac import device_of
 from ..models.qoa import (QOA_FRAME_LEN, QOA_LMS_LEN, QOA_MAGIC,
                           _frame_size as _qoa_frame_size)
@@ -219,3 +227,53 @@ def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, dev,
             parts.append(hdr.to_bytes(8, "big") + st + w.tobytes())
         outs.append(b"".join(parts))
     return outs
+
+
+def encode_wav_batch(pcms: Sequence[np.ndarray], sample_rate: int,
+                     options: EncodingOptions = None, device="cuda",
+                     stats: dict = None) -> List[bytes]:
+    """Encode N float streams [(frames, ch)] to WAV byte streams.
+
+    The quantize (TPDF dither or exact round-half-up) and the byte pack run
+    as ONE [streams, n] call on ``device``: "cuda" (the default) runs K10
+    and raises when there is no GPU; "cpu" runs its plain PyTorch twin.
+    The dither noise depends on the seed and the sample's position only,
+    and each stream's first write uses ``options.dither_seed``, so each
+    stream's bytes equal the single-stream WavEncoder's.  fp32 and fp64
+    pass through on the host.
+
+    If ``stats`` (a dict) is given, ``windows`` (device calls),
+    ``h2d_bytes`` and ``d2h_bytes`` are recorded.
+    """
+    options = options or EncodingOptions()
+    fmt = options.sample_format
+    sample_size, wformat, qkind = _FMT_INFO[fmt]
+    n = len(pcms)
+    dev = device_of(device)
+    if stats is not None:
+        stats.update(windows=0, h2d_bytes=0, d2h_bytes=0)
+    if fmt in (AudioSampleFormat.fp32, AudioSampleFormat.fp64):
+        kindstr = "<f4" if fmt == AudioSampleFormat.fp32 else "<f8"
+        bodies = [np.ascontiguousarray(p).reshape(-1).astype(kindstr)
+                  .tobytes() for p in pcms]
+    else:
+        flats = [np.ascontiguousarray(p, np.float32).reshape(-1)
+                 for p in pcms]
+        lens = [f.shape[0] for f in flats]
+        maxn = max(lens) if lens else 0
+        rows = np.zeros((n, maxn), np.float32)
+        for i, f in enumerate(flats):
+            rows[i, : lens[i]] = f
+        seeds = np.full(n, options.dither_seed & 0xFFFFFFFF, np.int64)
+        x = torch.from_numpy(rows).to(dev)
+        # quantize and pack on the device: the download is the payload
+        # bytes (3 a sample for s24), not an int32 plane
+        w = pcm_ops.quantize_pack(x, torch.from_numpy(seeds), qkind,
+                                  options.enable_dither)
+        w = _to_numpy(_prefetch(w, False))
+        bodies = [w[i, : sample_size * lens[i]].tobytes() for i in range(n)]
+        if stats is not None:
+            stats.update(windows=1, h2d_bytes=rows.nbytes + seeds.nbytes,
+                         d2h_bytes=w.nbytes)
+    return [wav_header(wformat, p.shape[1], sample_rate, sample_size,
+                       len(body)) + body for p, body in zip(pcms, bodies)]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the audio_formats_torch FLAC, QOA and MP3 slices once on one CUDA GPU.
+"""Drive the audio_formats_torch FLAC, QOA, MP3, WAV and Vorbis slices once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -66,7 +67,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    demotion, one Huffman launch per window;
 9. mixed MP3 — MS and intensity stereo, MPEG-2 mono and intensity stereo,
    Layer I and II, a corrupt MP3 lane, FLAC and QOA lanes in one batch:
-   every lane within 1e-4 of the port's own device="cpu" decode.
+   every lane within 1e-4 of the port's own device="cpu" decode;
+10. WAV    — ``decode_all(output="device")`` over 256 distinct stereo
+   44.1 kHz s16 masters of 10 s (225.8 M samples, 451.6 MB of payload up
+   as it is, one K10 launch), every lane bit-exact against the reference's
+   double math; then K10 alone: its decode at that payload (wrapper, alone,
+   the twin, and ``torch.div(int16, 32767.)``, the one PyTorch call that
+   computes the same function), every u8, s16 and s24 value against the
+   double math, and a TPDF-dithered s24 encode of [256, 2^18] rows (the JAX
+   bench's shape) against the twin; then mixed WAV lanes (u8, s24, s32,
+   extensible, float, truncated), each equal to the port's CPU decode;
+11. WAV encode — ``encode_wav_batch`` over the QOA encode slice's 64
+   masters as s24 with TPDF dither and as s16 without, every byte equal to
+   the CPU encode (the twin);
+12. Vorbis — ``decode_all(output="device")`` over 256 stereo coupled lanes
+   (block sizes 512/2048) of 16 masters of 72 packets (mostly long blocks,
+   a short pair every so often: 9 windows of 8 packets), each lane within
+   4e-6 of the peak of the port's CPU decode and within 1e-4 of the peak
+   of the golden float64 synthesis (tests/golden/vorbis_ref.py, loaded with
+   the port's Ogg page writer and inverse-dB table); then K11 at that
+   slice's first window (kept by wrapping
+   ``ops.vorbis_win.vorbis_window_chain``), against its twin within 4e-6
+   of the peak, timed beside the IMDCT matmuls of the same window.
 
 Prints a JSON line with the kernels' launches, errors, times and bounds,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -107,9 +129,9 @@ the window's order and in the order the Huffman wrapper gives the kernel.
 in this tree's kernels and in each DIR's, the SASS instructions of one
 step of K5's full-slice body by pipe, of one step of K2's chain loop by
 pipe with its dependent chain from one sample to the next and the tile
-loop's instructions outside it, and of K4's sample loop: its shortest and
+loop's instructions outside it, of K4's sample loop: its shortest and
 longest paths that decode, by pipe, with their dependent chains and the
-loads on them.
+loads on them, and of one sample of K10's dithered s24 quantize.
 """
 
 import json
@@ -144,33 +166,70 @@ MP3_LANES = 1024
 MP3_GAIN = 162        # global gain: the masters' PCM peaks near 0.5
 MP3_WINDOW = 24       # frames a window (parallel/batch.py)
 MP3_TOL = 1e-4        # max abs PCM error of a transform codec (ROADMAP)
+WAV_LANES = 256       # stereo 44.1 kHz s16 masters of 10 s
+WAV_SECONDS = 10
+ENC_ROWS = 256        # K10's encode alone: bench.py's [256, 2^18] s24 rows
+ENC_N = 1 << 18
+VORBIS_LANES = 256    # stereo coupled lanes, bs 512/2048 (bench.py:532-560)
+VORBIS_MASTERS = 16
+VORBIS_PACKETS = 72   # 9 windows of 8 packets
+VORBIS_TOL = 4e-6     # of the peak: batch against the CPU decode
+VORBIS_REF_TOL = 1e-4  # of the peak: against the golden synthesis
 F32_RECIP = np.float32(1.0) / np.float32(32767.0)  # QOA's s16 -> float
 
-_MP3_REF = []
+_GOLDEN = {}
 
 
-def golden_mp3_ref():
-    """tests/golden/mp3_ref.py, the golden MP3 coder and float64 decoder,
-    loaded with the spec tables and the synthesis FIR taken from the port's
-    byte-identical copies (audio_formats_torch/utils/tables) in place of
-    the JAX package's, so that this script imports nothing of the JAX
-    package."""
-    if not _MP3_REF:
-        path = os.path.join(ROOT, "tests", "golden", "mp3_ref.py")
+def golden(name, olds):
+    """tests/golden/<name>.py loaded with each import line of `olds` (found
+    there once) pointed from the JAX package at the port's byte-identical
+    copies, so that this script imports nothing of the JAX package."""
+    if name not in _GOLDEN:
+        path = os.path.join(ROOT, "tests", "golden", name + ".py")
         with open(path) as f:
             src = f.read()
-        for old in ("from audio_formats_tpu.utils.tables import",
-                    '"audio_formats_tpu", "utils", "tables"'):
+        for old in olds:
             if src.count(old) != 1:
                 raise AssertionError(f"{path}: {old!r} is not there once")
             src = src.replace(old, old.replace("audio_formats_tpu",
                                                "audio_formats_torch"))
-        mod = types.ModuleType("golden_mp3_ref")
+        mod = types.ModuleType("golden_" + name)
         mod.__file__ = path
         sys.modules[mod.__name__] = mod
         exec(compile(src, path, "exec"), mod.__dict__)
-        _MP3_REF.append(mod)
-    return _MP3_REF[0]
+        _GOLDEN[name] = mod
+    return _GOLDEN[name]
+
+
+def golden_mp3_ref():
+    """The golden MP3 coder and float64 decoder, with the spec tables and
+    the synthesis FIR of audio_formats_torch/utils/tables."""
+    return golden("mp3_ref", ("from audio_formats_tpu.utils.tables import",
+                              '"audio_formats_tpu", "utils", "tables"'))
+
+
+def golden_vorbis_ref():
+    """The golden Vorbis fixture builder and float64 synthesis, with the
+    port's Ogg page writer and inverse-dB table.  Its IMDCT builds the same
+    cosine matrix for every frame; here each block size's is built once."""
+    mod = golden("vorbis_ref", (
+        "from audio_formats_tpu.io import ogg",
+        "from audio_formats_tpu.utils.tables.vorbis_tables import"))
+    if not hasattr(mod, "_imdct64_per_frame"):
+        mats = {}
+
+        def imdct64(X, n):
+            if n not in mats:
+                m = n // 2
+                k = np.arange(m)[:, None]
+                t = np.arange(n)[None, :]
+                mats[n] = np.cos(np.pi / (2 * n) * (2 * t + 1 + m)
+                                 * (2 * k + 1))
+            return X @ mats[n]
+
+        mod._imdct64_per_frame = mod.imdct64
+        mod.imdct64 = imdct64
+    return mod
 
 
 # --------------------------------------------------------------- corpus
@@ -496,13 +555,31 @@ QOA_ENC_OPS = 30      # K5: one candidate's step (predict, divide, quantize,
                       # dequantize, clamp, error, update)
 RICE_STEP_OPS = 16    # K4: one Rice sample (unary count, remainder funnel
                       # shift and mask, zigzag, cursor, window shift, count)
+# float32 outside the tensor cores: 67 TFLOP/s counts a fused multiply-add
+# as two, so 33.5 T instructions/s
+F32_OPS_S = 33.5e12
+# K10's dithered quantize, a sample: the integer work the function needs,
+# what a row shares (its keys, their xor, the injections' key + i) made
+# once a row, and a three-input add counted once.  Each of the two
+# threefry2x32(k, (0, p)): x1's key add; 20 rounds of add, rotate and xor
+# (the first round's add takes in x0's key, k0, as x0 starts at 0);
+# injections 1-4 one add each to x1 (their add to x0 joins the next
+# round's add), injection 5 two; then the uniform's bits: the xor of the
+# two words, and the shift right by 9 with the exponent's or as one
+# shift-and-add (the bits do not overlap).  The index, the addresses and
+# the pack are left out, so the bound is if anything low.  8 float32 (2
+# subtracts, the FMA, 2 scales, 2 adds, the floor).  `--sass` counts the
+# kernel's own instructions a sample beside it.
+DITHER_INT_OPS = 2 * (1 + 20 * 3 + 4 + 2 + 2)
+DITHER_F32_OPS = 8
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flops=0):
     """{"bound_ms", "bound_by"} of a kernel that moves nbytes and does ops
-    int32 operations."""
+    int32 operations and flops float32 ones (the two pipes issue side by
+    side: the slower sets the time)."""
     by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = ops / INT32_OPS_S * 1e3
+    by_ops = max(ops / INT32_OPS_S, flops / F32_OPS_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -923,21 +1000,25 @@ def phase_qoa_kernels(card):
 
 
 def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
-                   flac_wire="packed"):
+                   flac_wire="packed", rel=False):
     """Run the main path on `streams` (FLAC over `flac_wire`) and hold every
     good lane to `expect(i)`, its PCM: bit for bit, or within max abs
-    `tol`.  The kernel counts are set to 0 just before the run and read
-    just after.  Returns (decoder, wall seconds, launches by kernel,
-    output, the largest error seen)."""
+    `tol` (with `rel`, `tol` times the expected PCM's peak).  The kernel
+    counts are set to 0 just before the run and read just after.  Returns
+    (decoder, wall seconds, launches by kernel, output, the largest error
+    seen, over the peak with `rel`)."""
     import torch
     from audio_formats_torch import BatchDecoder
-    from audio_formats_torch.ops import flac_rice, lms, lpc, mp3_huff
+    from audio_formats_torch.ops import (flac_rice, lms, lpc, mp3_huff, pcm,
+                                         vorbis_win)
 
     dec = BatchDecoder(streams, device=device, flac_wire=flac_wire)
     lpc.KERNEL_LAUNCHES = 0
     lms.DECODE_LAUNCHES = 0
     mp3_huff.HUFF_LAUNCHES = 0
     flac_rice.RICE_LAUNCHES = 0
+    pcm.DECODE_LAUNCHES = 0
+    vorbis_win.WIN_LAUNCHES = 0
     t0 = time.perf_counter()
     res = dec.decode_all(output="device")
     res.sync()
@@ -945,7 +1026,9 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     launches = {"flac_lpc": lpc.KERNEL_LAUNCHES,
                 "qoa_decode": lms.DECODE_LAUNCHES,
                 "mp3_huff": mp3_huff.HUFF_LAUNCHES,
-                "flac_rice": flac_rice.RICE_LAUNCHES}
+                "flac_rice": flac_rice.RICE_LAUNCHES,
+                "pcm": pcm.DECODE_LAUNCHES,
+                "vorbis_win": vorbis_win.WIN_LAUNCHES}
     st = dec.stats
     for _, wins in res.windows():
         for w in wins:
@@ -953,15 +1036,18 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 raise AssertionError(f"a PCM window lies on {w.device}")
     if st["group_demotions"] or st.get("lanes_demoted"):
         raise AssertionError(f"demotions: {st.get('group_exceptions')}")
-    # every FLAC, QOA and MP3 Layer III window launches exactly one kernel
-    # (LPC, LMS, Huffman), and a FLAC window of the Rice wire the frame
-    # entropy kernel too; Layer I/II windows are synthesis only
+    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window launches
+    # exactly one kernel (LPC, LMS, Huffman, PCM, lapped window), and a
+    # FLAC window of the Rice wire the frame entropy kernel too; Layer I/II
+    # windows are synthesis only
     wbf = st["windows_by_format"]
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
                      "mp3_huff": wbf.get("mp3", 0),
                      "flac_rice": wbf.get("flac", 0)
-                     if flac_wire == "rice" else 0}
+                     if flac_wire == "rice" else 0,
+                     "pcm": wbf.get("wav", 0),
+                     "vorbis_win": wbf.get("vorbis", 0)}
     if launches != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
@@ -980,6 +1066,8 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
             raise AssertionError(f"lane {i}: PCM {got.shape}, want "
                                  f"{want.shape}")
         err = float(np.abs(got - want).max()) if got.size else 0.0
+        if rel:
+            err /= float(np.abs(want).max()) + 1e-12
         max_err = max(max_err, err)
         if not err <= tol:
             raise AssertionError(f"lane {i} differs from its expected PCM: "
@@ -1764,6 +1852,404 @@ def phase_mp3_mixed(card, flac_lanes, qoa_lanes):
     return err
 
 
+# --------------------------------------------------------------- WAV
+def wav_corpus(n=WAV_LANES, seconds=WAV_SECONDS):
+    """n distinct stereo 44.1 kHz s16 WAV masters of `seconds`: noise at a
+    level of its own and a tone each, with both extremes in every lane.
+    Returns (streams, each lane's int samples [frames * 2] int16)."""
+    from golden import wav_ref
+
+    frames = int(seconds * SR)
+    t = np.arange(frames * 2) // 2
+    streams, ints = [], []
+    for i in range(n):
+        rng = np.random.default_rng([19, i])
+        amp = int(rng.integers(500, 30000))
+        x = rng.integers(-amp, amp, frames * 2, dtype=np.int32)
+        x += (2000 * np.sin(2 * np.pi * rng.uniform(50, 5000) / SR * t))\
+            .astype(np.int32)
+        x[:2] = (-32768, 32767)
+        x = np.clip(x, -32768, 32767).astype(np.int16)
+        streams.append(wav_ref.build_wav(x.tobytes(), fmt_tag=1, channels=2,
+                                         sample_rate=SR, bits=16))
+        ints.append(x)
+    return streams, ints
+
+
+def wav_slice(card, streams, ints):
+    """The WAV decode slice on the card (decode_checked), every lane bit
+    for bit against the reference's double math; the arguments of its
+    first K10 call (the group's payload bytes) are kept.  Returns (K10's
+    launches, the kept payload)."""
+    import torch_pcm_cases
+    from audio_formats_torch.ops import pcm
+
+    kept = []
+    decode_bytes = pcm.decode_bytes
+
+    def first_call(raw, kind):
+        if not kept:
+            kept.append((raw, kind))
+        return decode_bytes(raw, kind)
+
+    pcm.decode_bytes = first_call
+    try:
+        dec, wall, launches, _, _ = decode_checked(
+            streams, lambda i: torch_pcm_cases.int_pcm_to_float_np(
+                ints[i], "s16").reshape(-1, 2), "cuda")
+    finally:
+        pcm.decode_bytes = decode_bytes
+    st = dec.stats
+    secs = st["decoded_seconds"]
+    n = sum(x.size for x in ints)
+    print(f"# WAV slice: {len(streams)} stereo s16 lanes, {n} samples, "
+          f"bit-exact against the double-math reference; {secs:.1f} s of "
+          f"audio in {wall:.3f} s wall = {secs / wall:.1f}x realtime; "
+          f"h2d_bytes {st['h2d_bytes']}, windows {st['windows']}, K10 "
+          f"launches {launches['pcm']}, host_ms {st['host_ms']:.0f}, "
+          f"enqueue_ms {st['enqueue_ms']:.0f} [{card}]")
+    return launches["pcm"], kept[0]
+
+
+def wav_mixed_streams():
+    """u8, s24 and s32 lanes (mono and stereo), an extensible s16 lane, a
+    float lane (the per-stream read) and a truncated lane (last)."""
+    from golden import wav_ref
+
+    rng = np.random.default_rng(31)
+    streams = []
+    for bits, ch, n in ((8, 1, 44100), (8, 2, 30001), (24, 2, 44100),
+                        (24, 1, 12345), (32, 2, 44100), (32, 1, 999)):
+        lo, hi = (0, 256) if bits == 8 else \
+            (-(1 << (bits - 1)), 1 << (bits - 1))
+        x = rng.integers(lo, hi, n * ch)
+        streams.append(wav_ref.build_wav(wav_ref.pack_pcm(x, bits),
+                                         fmt_tag=1, channels=ch,
+                                         sample_rate=SR, bits=bits))
+    x = rng.integers(-32768, 32768, 2 * 20000)
+    streams.append(wav_ref.build_wav(wav_ref.pack_pcm(x, 16), fmt_tag=1,
+                                     channels=2, sample_rate=SR, bits=16,
+                                     extensible=True))
+    f = rng.uniform(-1, 1, 2 * 5000).astype("<f4")
+    streams.append(wav_ref.build_wav(f.tobytes(), fmt_tag=3, channels=2,
+                                     sample_rate=SR, bits=32))
+    streams.append(b"RIFF\x04\x00\x00\x00WAVE")
+    return streams
+
+
+def phase_wav_mixed(card):
+    """Mixed WAV lanes on the card, each lane bit-equal to the port's CPU
+    decode; the truncated lane's error equal too."""
+    from audio_formats_torch import BatchDecoder
+
+    streams = wav_mixed_streams()
+    bad = len(streams) - 1
+    cpu = BatchDecoder(streams, device="cpu")
+    want = cpu.decode_all()
+    dec, _, launches, _, _ = decode_checked(
+        streams, lambda i: want[i], "cuda", corrupt=(bad,))
+    if dec.errors != cpu.errors:
+        raise AssertionError(f"WAV lane errors {dec.errors} != CPU "
+                             f"{cpu.errors}")
+    print(f"# mixed WAV lanes (u8, s24, s32 mono and stereo, extensible "
+          f"s16, float, a truncated lane): {len(streams) - 1} lanes "
+          f"bit-equal to the CPU decode, truncated lane error "
+          f"{dec.errors[bad]!r}, windows {dec.stats['windows_by_format']}, "
+          f"K10 launches {launches['pcm']} [{card}]")
+
+
+def phase_wav_encode(card, masters):
+    """encode_wav_batch over the QOA encode slice's 64 stereo 4 s masters,
+    as s24 with TPDF dither and as s16 without, on the card: every byte
+    equal to the CPU encode (the twin).  Returns K10's launches."""
+    from audio_formats_torch import encode_wav_batch
+    from audio_formats_torch.config import AudioSampleFormat, EncodingOptions
+    from audio_formats_torch.ops import pcm
+
+    total = 0
+    secs = sum(m.shape[0] for m in masters) / SR
+    for fmt, dither in ((AudioSampleFormat.s24, True),
+                        (AudioSampleFormat.s16, False)):
+        opt = EncodingOptions(sample_format=fmt, enable_dither=dither)
+        st = {}
+        pcm.ENCODE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = encode_wav_batch(masters, SR, opt, device="cuda", stats=st)
+        wall = time.perf_counter() - t0
+        launches = pcm.ENCODE_LAUNCHES
+        if launches != st["windows"]:
+            raise AssertionError(f"WAV encode launches {launches} != "
+                                 f"windows {st['windows']}")
+        t0 = time.perf_counter()
+        want = encode_wav_batch(masters, SR, opt, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"WAV encode {fmt.value} dither={dither}: "
+                                 f"streams {bad[:5]} differ from the CPU's")
+        total += launches
+        print(f"# WAV encode {fmt.value}, dither {dither}: "
+              f"{len(masters)} stereo masters, {secs:.1f} s of audio in "
+              f"{wall:.3f} s wall = {secs / wall:.1f}x realtime, byte-equal "
+              f"to the CPU encode ({cpu_wall:.1f} s); K10 launches "
+              f"{launches}, h2d_bytes {st['h2d_bytes']}, d2h_bytes "
+              f"{st['d2h_bytes']} [{card}]")
+    return total
+
+
+def phase_pcm_kernel(card, kept):
+    """K10 alone: its decode at the WAV slice's own payload (kept) and a
+    dithered s24 encode of [256, 2^18] rows (the JAX bench's shape), each
+    through its wrapper and alone, beside its bound, the twin on the card
+    and, for decode, the one PyTorch call that computes the same function;
+    then the decode of every u8, s16 and s24 value against the reference's
+    double math."""
+    import torch
+    import torch_pcm_cases
+    from audio_formats_torch.ops import pcm
+
+    raw, kind = kept
+    n = raw.numel() // pcm.KIND_BYTES[kind]
+    got = pcm.decode_bytes(raw, kind)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(
+        lambda: want.append(pcm.decode_bytes_torch(raw, kind)), 1)
+    if not torch.equal(got.view(torch.int32), want[0].view(torch.int32)):
+        raise AssertionError("K10 decode != twin")
+    del want
+    # the one PyTorch call: int16 over a float32 tensor divides in float32
+    # (over a Python float torch would multiply by its reciprocal)
+    scale = torch.tensor(32767.0, device=raw.device)
+    lib = torch.div(raw.view(torch.int16), scale)
+    lib_equal = bool(torch.equal(lib.view(torch.int32),
+                                 got.view(torch.int32)))
+    del lib
+    for _ in range(3):
+        pcm.decode_bytes(raw, kind)
+    ms = time_cuda(lambda: pcm.decode_bytes(raw, kind), 20)
+    kernel_ms = time_cuda(lambda: pcm.decode_launch(raw, kind, got), 20)
+    library_ms = time_cuda(
+        lambda: torch.div(raw.view(torch.int16), scale), 20)
+    b = bound(raw.numel() + 4 * n, 0)
+    print(f"# kernel pcm (decode), the WAV slice's payload ({n} s16 "
+          f"samples, {raw.numel() / 1e6:.1f} MB in, {4 * n / 1e6:.1f} MB "
+          f"out): bit-equal to the twin; wrapper {ms:.4f} ms, kernel alone "
+          f"{kernel_ms:.4f} ms, twin {plain_ms:.2f} ms, torch.div(int16, "
+          f"f32 tensor) {library_ms:.4f} ms (bit-equal: {lib_equal}); "
+          f"bound_ms "
+          f"{b['bound_ms']:.4f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} [{card}]")
+    dec = {"max_abs_err": 0, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, **b, "library_ms": library_ms,
+           "share": b["bound_ms"] / ms, "library_bit_equal": lib_equal}
+
+    # every u8, s16 and s24 value
+    for k in ("u8", "s16", "s24"):
+        if k == "s24":
+            ints = np.arange(-(1 << 23), 1 << 23, dtype=np.int32)
+        else:
+            ints = torch_pcm_cases.decode_ints(k)
+        r = torch.from_numpy(torch_pcm_cases.pack_ints(ints, k)).cuda()
+        out = pcm.decode_bytes(r, k).cpu().numpy()
+        ref = torch_pcm_cases.int_pcm_to_float_np(ints, k)
+        if not np.array_equal(out.view(np.int32), ref.view(np.int32)):
+            raise AssertionError(f"K10 decode of every {k} value != the "
+                                 "double-math reference")
+    print(f"# kernel pcm (decode): every u8, s16 and s24 value (2^24 + "
+          f"2^16 + 2^8) bit-equal to the double-math reference [{card}]")
+
+    # dithered s24 encode of [256, 2^18] rows
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = (torch.rand((ENC_ROWS, ENC_N), device="cuda", generator=gen) * 2.2
+         - 1.1)
+    seeds = torch.arange(ENC_ROWS, dtype=torch.int64, device="cuda")
+    got = pcm.quantize_pack(x, seeds, "s24", True)
+    torch.cuda.synchronize()
+    want = []
+    eplain_ms = time_cuda(lambda: want.append(pcm.pack_rows_torch(
+        pcm.quantize_rows_torch(x, seeds, "s24", True), "s24")), 1)
+    if not torch.equal(got, want[0]):
+        raise AssertionError("K10 dithered s24 encode != twin")
+    del want
+    for _ in range(3):
+        pcm.quantize_pack(x, seeds, "s24", True)
+    ems = time_cuda(lambda: pcm.quantize_pack(x, seeds, "s24", True), 20)
+    s32 = seeds.to(torch.int32)
+    ekernel_ms = time_cuda(
+        lambda: pcm.quantize_launch(x, s32, "s24", True, got), 20)
+    samples = ENC_ROWS * ENC_N
+    eb = bound(samples * (4 + 3) + ENC_ROWS * 4, samples * DITHER_INT_OPS,
+               samples * DITHER_F32_OPS)
+    print(f"# kernel pcm (dithered s24 encode), [{ENC_ROWS}, {ENC_N}] rows "
+          f"({samples} samples, {DITHER_INT_OPS} int32 and "
+          f"{DITHER_F32_OPS} f32 operations a sample): bytes equal to the "
+          f"twin; wrapper {ems:.4f} ms, kernel alone {ekernel_ms:.4f} ms, "
+          f"twin {eplain_ms:.1f} ms; bound_ms {eb['bound_ms']:.4f} "
+          f"({eb['bound_by']}), share {eb['bound_ms'] / ems:.3f} [{card}]")
+    enc = {"max_abs_err": 0, "ms": ems, "kernel_ms": ekernel_ms,
+           "plain_ms": eplain_ms, **eb, "library_ms": None,
+           "share": eb["bound_ms"] / ems}
+    return dec, enc
+
+
+# --------------------------------------------------------------- Vorbis
+def vorbis_master(mi: int, packets: int = VORBIS_PACKETS):
+    """One stereo coupled Vorbis master (bs0 512, bs1 2048) by the JAX
+    bench's recipe (bench.py:532-560): random floor posts, grid residues,
+    mostly long blocks with a short pair every so often.  Returns (bytes,
+    the golden float64 synthesis [frames, 2])."""
+    ref = golden_vorbis_ref()
+    rng = np.random.default_rng([23, mi])
+    fix = ref.Fixture(channels=2, bs0=512, bs1=2048, coupling=True)
+    pattern = [1] * packets
+    for j in range(3 + mi % 5, packets - 2, 12 + mi % 7):
+        pattern[j] = pattern[j + 1] = 0
+    frames, pkts = [], []
+    for j in range(packets):
+        lb = bool(pattern[j])
+        n2 = (2048 if lb else 512) // 2
+        posts = [[int(rng.integers(40, 100)) for _ in range(4)]
+                 for _ in range(2)]
+        res = []
+        for _ in range(2):
+            r = np.zeros(n2)
+            idx = rng.choice(n2, size=n2 // 4, replace=False)
+            r[idx] = rng.integers(-5, 6, size=idx.size) * fix.vq_delta
+            res.append(r)
+        fr = {"posts": posts, "residues": res, "long": lb,
+              "prev": int(pattern[j - 1]) if j else 1,
+              "next": int(pattern[j + 1]) if j + 1 < packets else 1}
+        frames.append(fr)
+        pkts.append(fix.audio_packet(posts, res, long_block=lb,
+                                     prev_flag=fr["prev"],
+                                     next_flag=fr["next"]))
+    return fix.build(pkts), ref.expected_output(fix, frames)
+
+
+def vorbis_slice(card, masters):
+    """The Vorbis slice on the card: VORBIS_LANES lanes cycling through the
+    masters, each within VORBIS_TOL of the peak of the port's CPU decode
+    and within VORBIS_REF_TOL of the peak of the golden synthesis; the
+    arguments of its first window chain call are kept.  Returns (K11's
+    launches, the kept arguments)."""
+    from audio_formats_torch import BatchDecoder
+    from audio_formats_torch.ops import vorbis_win
+
+    streams = [masters[i % len(masters)][0] for i in range(VORBIS_LANES)]
+    t0 = time.perf_counter()
+    cpu = BatchDecoder([m[0] for m in masters], device="cpu").decode_all()
+    cpu_wall = time.perf_counter() - t0
+    kept = {}
+    chain = vorbis_win.vorbis_window_chain
+
+    def first_call(*args, **kw):
+        kept.setdefault("args", (args, kw))
+        return chain(*args, **kw)
+
+    vorbis_win.vorbis_window_chain = first_call
+    try:
+        dec, wall, launches, out, err = decode_checked(
+            streams, lambda i: cpu[i % len(masters)], "cuda",
+            tol=VORBIS_TOL, rel=True)
+    finally:
+        vorbis_win.vorbis_window_chain = chain
+    ref_err = 0.0
+    for i, got in enumerate(out):
+        want = masters[i % len(masters)][1]
+        if got.shape != want.shape:
+            raise AssertionError(f"Vorbis lane {i}: {got.shape}, golden "
+                                 f"{want.shape}")
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        ref_err = max(ref_err, e)
+        if not e <= VORBIS_REF_TOL:
+            raise AssertionError(f"Vorbis lane {i}: {e:.3g} of the peak "
+                                 "from the golden synthesis")
+    st = dec.stats
+    secs = st["decoded_seconds"]
+    print(f"# Vorbis slice: {len(streams)} stereo lanes of "
+          f"{len(masters)} masters ({VORBIS_PACKETS} packets each), "
+          f"{secs:.1f} s of audio in {wall:.3f} s wall = "
+          f"{secs / wall:.1f}x realtime; within {err:.3g} of the peak of "
+          f"the CPU decode ({cpu_wall:.1f} s for the masters) and "
+          f"{ref_err:.3g} of the golden synthesis; h2d_bytes "
+          f"{st['h2d_bytes']}, windows {st['windows']}, K11 launches "
+          f"{launches['vorbis_win']}, host_ms {st['host_ms']:.0f}, "
+          f"enqueue_ms {st['enqueue_ms']:.0f} [{card}]")
+    return launches["vorbis_win"], kept["args"]
+
+
+def vorbis_win_work(y1, y0, ls, rs, re, valid, bs0, bs1, ch):
+    """(bytes) of K11 at this window: each valid slot's IMDCT row over
+    [ls, re) read once, every PCM row written, the lap and the geometry
+    read and written."""
+    v = valid.to(bool)
+    span = int(((re - ls) * v).sum()) * ch
+    K, L, _ = y1.shape
+    return span * 4 + K * L * bs1 * 4 + 2 * L * (bs1 // 2) * 4 \
+        + 4 * ls.numel() * 4 + 4 * (L // ch) * 4
+
+
+def phase_vorbis_kernel(card, kept):
+    """K11 at the Vorbis slice's first window (its arguments kept): the
+    IMDCT matmuls beside it, K11 through its wrapper and alone, the twin
+    on the card, the chain against the twin within VORBIS_TOL of the
+    peak."""
+    import torch
+    from audio_formats_torch.ops import mdct, vorbis_win
+
+    args, kw = kept
+    X, ls, rs, re, valid, lap, lap_len, had_prev = args
+    bs0, bs1, ch = kw["bs0"], kw["bs1"], kw["ch"]
+    K, L, h = X.shape
+    h0 = bs0 // 2
+
+    def imdct():
+        y1 = mdct.imdct_batch(X.reshape(K * L, h), bs1).reshape(K, L, bs1)
+        y0 = mdct.imdct_batch(X[..., :h0].reshape(K * L, h0), bs0)\
+            .reshape(K, L, bs0)
+        return y1, y0
+
+    y1, y0 = imdct()
+    st = (lap, lap_len, had_prev)
+    geo = (ls, rs, re, valid)
+    got = vorbis_win.lap_chain(y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(vorbis_win.lap_chain_torch(
+        y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch)), 1)
+    want = want[0]
+    err = 0.0
+    for g, w in zip(got[:2], want[:2]):
+        e = float((g - w).abs().max()) / (float(w.abs().max()) + 1e-12)
+        err = max(err, e)
+    if not (err <= VORBIS_TOL and torch.equal(got[2], want[2])
+            and torch.equal(got[3], want[3])):
+        raise AssertionError(f"K11 != twin: {err:.3g} of the peak")
+    for _ in range(3):
+        vorbis_win.lap_chain(y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch)
+    ms = time_cuda(lambda: vorbis_win.lap_chain(
+        y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch), 20)
+    kernel_ms = time_cuda(lambda: vorbis_win.lap_chain_launch(
+        y1, y0, *geo, *st, got, bs0=bs0, bs1=bs1, ch=ch), 20)
+    imdct_ms = time_cuda(imdct, 20)
+    chain_ms = time_cuda(lambda: vorbis_win.vorbis_window_chain(
+        *args, **kw), 20)
+    b = bound(vorbis_win_work(y1, y0, *geo, bs0, bs1, ch), 0)
+    print(f"# kernel vorbis_win, the Vorbis slice's first window (K={K}, "
+          f"L={L} lane-channels, bs {bs0}/{bs1}, "
+          f"{int(valid.sum())} valid slots): within {err:.3g} of the peak "
+          f"of the twin; wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} "
+          f"ms, twin {plain_ms:.1f} ms; the IMDCT matmuls beside it "
+          f"{imdct_ms:.4f} ms, the whole window chain {chain_ms:.4f} ms; "
+          f"bound_ms {b['bound_ms']:.4f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} [{card}]")
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, **b, "library_ms": None,
+            "share": b["bound_ms"] / ms, "imdct_ms": imdct_ms,
+            "chain_ms": chain_ms}
+
+
 def main():
     import torch
 
@@ -1785,12 +2271,14 @@ def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice")
+    names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice", "pcm",
+             "vorbis_win")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=8,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
+        vorbis_masters = pool.map(vorbis_master, range(VORBIS_MASTERS))
         with ThreadPoolExecutor(max_workers=len(names)) as ex:
             list(ex.map(_kernels.build, names))
         for name in names:
@@ -1798,13 +2286,15 @@ def main():
         print(f"# nvcc builds of {', '.join(names)}: "
               f"{time.perf_counter() - t0:.2f} s")
         mp3_masters = list(mp3_masters)
-    print(f"# MP3 masters: {len(mp3_masters)} built "
-          f"{time.perf_counter() - t0:.1f} s after the builds started")
+        vorbis_masters = list(vorbis_masters)
+    print(f"# MP3 and Vorbis masters: {len(mp3_masters)} and "
+          f"{len(vorbis_masters)} built {time.perf_counter() - t0:.1f} s "
+          "after the builds started")
     for name, (secs, log) in _kernels.BUILD_LOG.items():
         print(f"#   {name}: nvcc {secs:.2f} s")
         for line in log.strip().splitlines():
             print(f"#   {name}: {line.strip()}")
-    run_phases(card, mp3_masters)
+    run_phases(card, mp3_masters, vorbis_masters)
 
 
 def flac_slice(streams, pcms):
@@ -1860,7 +2350,7 @@ def rice_slice(streams, pcms):
     return dec, wall, launches, kept
 
 
-def run_phases(card, mp3_masters):
+def run_phases(card, mp3_masters, vorbis_masters):
     import torch
 
     # 3. kernels vs twins
@@ -1974,6 +2464,25 @@ def run_phases(card, mp3_masters):
     hres = phase_mp3_kernel(card, mp3_streams)
     mp3_launches, _ = phase_mp3(card, mp3_streams, mp3_info, mp3_masters)
     phase_mp3_mixed(card, streams[:4], q_lanes[:4])
+    del streams, pcms, mp3_streams
+
+    # 10. WAV decode, K10 alone, mixed WAV, 11. WAV encode
+    t0 = time.perf_counter()
+    w_streams, w_ints = wav_corpus()
+    print(f"# WAV corpus: {len(w_streams)} lanes, "
+          f"{sum(len(x) for x in w_streams) / 1e6:.1f} MB, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    wav_launches, kept = wav_slice(card, w_streams, w_ints)
+    del w_streams, w_ints
+    pres, pres_enc = phase_pcm_kernel(card, kept)
+    del kept
+    phase_wav_mixed(card)
+    wenc_launches = phase_wav_encode(card, masters)
+
+    # 12. Vorbis, and K11 at its first window
+    vorbis_launches, kept = vorbis_slice(card, vorbis_masters)
+    vres = phase_vorbis_kernel(card, kept)
+    del kept
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
@@ -2003,6 +2512,18 @@ def run_phases(card, mp3_masters):
          "source": "audio_formats_torch/csrc/flac_rice.cu",
          "replaces": "audio_formats_tpu/ops/flac_rice.py:282",
          "launches": rlaunches["flac_rice"], **rres},
+        {"name": "pcm", "route": "cuda",
+         "source": "audio_formats_torch/csrc/pcm.cu",
+         "replaces": "audio_formats_tpu/ops/pcm.py:81",
+         "launches": wav_launches, **pres},
+        {"name": "pcm_encode", "route": "cuda",
+         "source": "audio_formats_torch/csrc/pcm.cu",
+         "replaces": "audio_formats_tpu/ops/pcm.py:235",
+         "launches": wenc_launches, **pres_enc},
+        {"name": "vorbis_win", "route": "cuda",
+         "source": "audio_formats_torch/csrc/vorbis_win.cu",
+         "replaces": "audio_formats_tpu/ops/vorbis_win.py:62",
+         "launches": vorbis_launches, **vres},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2039,7 +2560,7 @@ def kernel_sass(tree, name="qoa_lms"):
 
     nvcc = _kernels._nvcc()
     src = os.path.join(tree, "audio_formats_torch", "csrc", name + ".cu")
-    flags = [f for f in _kernels.NVCC_FLAGS
+    flags = [f for f in _kernels.NVCC_FLAGS + _kernels.EXTRA_FLAGS.get(name, ())
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
     with tempfile.TemporaryDirectory() as tmp:
         cubin = os.path.join(tmp, name + ".cubin")
@@ -2318,9 +2839,40 @@ def k4_sass(funcs):
     return (body[head][0], body[back][0]), back - head + 1, paths
 
 
+#: K10 opcodes that issue to the integer pipe (IMAD to the FMA pipe, at
+#: the same rate an SM)
+K10_INT_OPS = ("IADD3", "LOP3", "SHF", "LEA", "IMAD", "ISETP", "PRMT", "SEL",
+               "IMNMX", "VIMNMX", "MOV", "IABS", "IMUL")
+
+
+def k10_sass(funcs):
+    """K10's dithered s24 quantize (pcm_quantize_kernel<2, true>): the
+    instructions of one sample, from the row's last barrier to the row
+    loop's branch back.  Returns (the integer-pipe instructions, the
+    others, the opcodes counted)."""
+    import collections
+    import re
+
+    body = next(v for k, v in funcs.items()
+                if "pcm_quantize_kernelILi2ELb1E" in k)
+    ops = [_opcode(i) for _, i in body]
+    a = max(k for k, o in enumerate(ops) if o.startswith("BAR"))
+
+    def target(ins):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?"
+                      r"(0x[0-9a-f]+)", re.sub(r"^@!?U?P\w+\s+", "", ins))
+        return int(m.group(1), 16) if m else None
+
+    back = next(k for k in range(a, len(body))
+                if (target(body[k][1]) or 1 << 62) <= body[a][0])
+    span = collections.Counter(ops[a + 1:back + 1])
+    n_int = sum(v for o, v in span.items() if o.split(".")[0] in K10_INT_OPS)
+    return n_int, sum(span.values()) - n_int, span
+
+
 def print_sass(trees):
-    """--sass [DIR ...]: K5's, K2's and K4's SASS counts, this tree's and
-    each DIR's."""
+    """--sass [DIR ...]: K5's, K2's, K4's and K10's SASS counts, this
+    tree's and each DIR's."""
     for tree in (ROOT, *trees):
         funcs = kernel_sass(tree)
         per_step, ops = k5_sass(funcs)
@@ -2345,6 +2897,13 @@ def print_sass(trees):
                   f"{chain:.2f} dependent instructions a sample from the "
                   f"values carried in to those carried out, {loads} loads "
                   f"on that chain")
+        if os.path.exists(os.path.join(tree, "audio_formats_torch", "csrc",
+                                       "pcm.cu")):
+            n_int, n_other, ops = k10_sass(kernel_sass(tree, "pcm"))
+            print(f"# K10 SASS, {tree}: dithered s24 quantize, "
+                  f"{n_int} integer-pipe instructions a sample (the bound "
+                  f"counts {DITHER_INT_OPS}), {n_other} others; "
+                  f"{dict(ops.most_common())}")
 
 
 AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode",

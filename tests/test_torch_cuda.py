@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
 These tests need a CUDA GPU and nvcc, and skip elsewhere.  The port's code
-under test imports no jax; the MP3 cases build their streams with the
-golden MP3 coder, which reads the spec tables of audio_formats_tpu.  Run
+under test imports no jax; the MP3 and Vorbis cases build their streams
+with the golden coders, which read the spec tables (and the Ogg page
+writer) of audio_formats_tpu.  Run
 them without the conftest, which sets JAX up for the CPU:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -12,13 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from audio_formats_torch import BatchDecoder, encode_qoa_batch
+from audio_formats_torch import (BatchDecoder, encode_qoa_batch,
+                                 encode_wav_batch)
 from audio_formats_torch.ops import flac_rice as trice
 from audio_formats_torch.ops import lms as tlms
 from audio_formats_torch.ops import lpc as tlpc
+from audio_formats_torch.ops import mdct as tmdct
+from audio_formats_torch.ops import pcm as tpcm
+from audio_formats_torch.ops import vorbis_win as twin
 from audio_formats_torch.parallel import batch as tbatch
 
 import torch_flac_cases
+import torch_pcm_cases
 import torch_qoa_cases
 
 pytestmark = pytest.mark.cuda
@@ -829,3 +835,248 @@ def test_batch_decoder_rice_cuda_equals_cpu(cuda, gather, monkeypatch):
     assert dec.errors == cpu.errors
     assert dec.stats["rice_host_redo"] == cpu.stats["rice_host_redo"] > 0
     assert dec.stats["flac_truncated_lanes"] == 1
+
+
+# ------------------------------------------------------------ PCM (K10)
+@pytest.mark.parametrize("kind", torch_pcm_cases.KINDS)
+def test_pcm_decode_kernel_matches_twin(cuda, kind):
+    """Every u8, s16 and s24 value (all 2^24), 2^20 sampled s32 values:
+    K10's decode bit-equal to the twin and to the reference's double
+    math."""
+    if kind == "s24":
+        ints = np.arange(-(1 << 23), 1 << 23, dtype=np.int32)
+    else:
+        ints = torch_pcm_cases.decode_ints(kind, n=1 << 20)
+    raw = torch.from_numpy(torch_pcm_cases.pack_ints(ints, kind))
+    before = tpcm.DECODE_LAUNCHES
+    got = tpcm.decode_bytes(raw.to(cuda), kind).cpu().numpy()
+    assert tpcm.DECODE_LAUNCHES - before == 1
+    want = tpcm.decode_bytes(raw, kind).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(
+        got.view(np.int32),
+        torch_pcm_cases.int_pcm_to_float_np(ints, kind).view(np.int32))
+    # the twin's torch ops give the same bits on the card
+    twin = tpcm.decode_bytes_torch(raw.to(cuda), kind).cpu().numpy()
+    np.testing.assert_array_equal(twin.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize("kind", torch_pcm_cases.KINDS)
+def test_pcm_quantize_kernel_matches_twin(cuda, kind, dither, packed):
+    """Edge values (x·scale = k + 0.5 and its neighbours, ±1, out of range,
+    ±inf, NaN) and noise in rows of unequal lengths, each row's seed
+    its own (0, 7, 2^32-1, 12345): packed bytes, and the ints that
+    quantize_float_to_int reads back from them."""
+    rows, _ = torch_pcm_cases.quantize_rows(kind)
+    seeds = torch.tensor([0, 7, 0xFFFFFFFF, 12345])
+    x = torch.from_numpy(rows)
+    before = tpcm.ENCODE_LAUNCHES
+    if packed:
+        got = tpcm.quantize_pack(x.to(cuda), seeds, kind, dither).cpu()
+        assert tpcm.ENCODE_LAUNCHES - before == 1
+        assert torch.equal(got, tpcm.quantize_pack(x, seeds, kind, dither))
+    else:
+        for row, seed in zip(rows, seeds.tolist()):
+            np.testing.assert_array_equal(
+                tpcm.quantize_float_to_int(row, kind, dither=dither,
+                                           seed=seed, device=cuda),
+                tpcm.quantize_float_to_int(row, kind, dither=dither,
+                                           seed=seed, device="cpu"))
+        assert tpcm.ENCODE_LAUNCHES - before == len(rows)
+    # the twin's torch ops give the same values on the card
+    twin = tpcm.quantize_rows_torch(x.to(cuda), seeds.to(cuda), kind, dither)
+    assert torch.equal(twin.cpu(),
+                       tpcm.quantize_rows_torch(x, seeds, kind, dither))
+
+
+@pytest.mark.parametrize("L,n", [(2, 70_001), (70_000, 3), (1, 1)])
+def test_pcm_quantize_kernel_shapes_match_twin(cuda, L, n):
+    """A row past 65,536 samples, more rows than a grid's y extent, one
+    sample; dithered s24 and s16 bytes."""
+    rng = np.random.default_rng(L + n)
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (L, n)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 1 << 32, L, dtype=np.int64))
+    for kind in ("s16", "s24"):
+        got = tpcm.quantize_pack(x.to(cuda), seeds, kind, True).cpu()
+        assert torch.equal(got, tpcm.quantize_pack(x, seeds, kind, True))
+
+
+def test_pcm_kernels_reject_bad_arguments(cuda):
+    raw = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        tpcm.decode_bytes(raw[:7], "s16")
+    with pytest.raises(ValueError):
+        tpcm.decode_launch(raw, "s16", torch.empty(4, device=cuda,
+                                                   dtype=torch.float64))
+    x = torch.zeros((2, 5), device=cuda)
+    with pytest.raises(ValueError):
+        tpcm.quantize_pack(x, [0], "s16", True)
+    with pytest.raises(ValueError):
+        tpcm.quantize_pack(x.double(), [0, 1], "s16", True)
+    with pytest.raises(ValueError):
+        tpcm.quantize_pack(x.t().contiguous().t(), [0, 1], "s16", True)
+
+
+def _wav_streams():
+    from golden import wav_ref
+
+    rng = np.random.default_rng(17)
+    streams = []
+    for bits in (8, 16, 24, 32):
+        for ch, n in ((1, 3001), (2, 1500)):
+            lo, hi = (0, 256) if bits == 8 else \
+                (-(1 << (bits - 1)), 1 << (bits - 1))
+            ints = rng.integers(lo, hi, n * ch)
+            streams.append(wav_ref.build_wav(
+                wav_ref.pack_pcm(ints, bits), fmt_tag=1, channels=ch,
+                sample_rate=44100, bits=bits))
+    return streams
+
+
+def test_batch_decoder_wav_cuda_equals_cpu(cuda):
+    streams = _wav_streams()
+    before = tpcm.DECODE_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda)
+    res = dec.decode_all(output="device")
+    for kind, wins in res.windows():
+        assert kind == "wav" and all(w.device.type == "cuda" for w in wins)
+    got = res.sync().to_numpy()
+    assert tpcm.DECODE_LAUNCHES - before == dec.stats["windows"] == 4
+    want = BatchDecoder(streams, device="cpu").decode_all()
+    got_np = BatchDecoder(streams, device=cuda).decode_all()
+    for a, b, c in zip(got, want, got_np):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(c, b)
+
+
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize("fmt", ["s8", "s16", "s24"])
+def test_encode_wav_batch_cuda_equals_cpu(cuda, fmt, dither):
+    from audio_formats_torch.config import AudioSampleFormat, EncodingOptions
+
+    rng = np.random.default_rng(19)
+    pcms = [np.clip(rng.standard_normal((n, ch)) * 0.4, -1.2, 1.2)
+            .astype(np.float32) for n, ch in ((44100, 2), (1001, 1), (7, 2))]
+    opt = EncodingOptions(sample_format=getattr(AudioSampleFormat, fmt),
+                          enable_dither=dither, dither_seed=0xFFFFFFFE)
+    before = tpcm.ENCODE_LAUNCHES
+    got = encode_wav_batch(pcms, 44100, opt, device=cuda)
+    assert tpcm.ENCODE_LAUNCHES - before == 1
+    assert got == encode_wav_batch(pcms, 44100, opt, device="cpu")
+
+
+# ------------------------------------------------------- Vorbis (K11)
+VORBIS_CASES = [  # (seed, B, ch, K, bs0, bs1, lies)
+    (1, 6, 2, 8, 512, 2048, False), (2, 5, 1, 8, 256, 1024, False),
+    (3, 40, 2, 8, 512, 2048, True), (4, 3, 1, 5, 64, 8192, False),
+    (5, 4, 2, 8, 512, 512, False), (6, 256, 2, 8, 512, 2048, False)]
+
+
+def _close(got, want, tol=4e-6):
+    peak = float(want.abs().max()) + 1e-9
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) / peak < tol
+
+
+@pytest.mark.parametrize("case", VORBIS_CASES)
+def test_vorbis_lap_kernel_matches_twin(cuda, case):
+    """K11 against its twin over two windows in a row, on the same IMDCT
+    rows: PCM and lap within 4e-6 of the peak, lap_len and had_prev
+    equal."""
+    seed, B, ch, K, bs0, bs1, lies = case
+    state = None
+    for w in range(2):
+        X, geom, lap, lap_len, had_prev = torch_pcm_cases.vorbis_chain_case(
+            seed + 100 * w, B, ch, K, bs0, bs1, lies=lies)
+        if state is None:
+            state = tuple(torch.from_numpy(a).to(cuda)
+                          for a in (lap, lap_len, had_prev))
+        Xd, g = torch.from_numpy(X).to(cuda), torch.from_numpy(geom).to(cuda)
+        h0 = bs0 // 2
+        y1 = tmdct.imdct_batch(Xd.reshape(-1, bs1 // 2), bs1) \
+            .reshape(K, -1, bs1)
+        y0 = tmdct.imdct_batch(Xd[..., :h0].reshape(-1, h0), bs0) \
+            .reshape(K, -1, bs0) if bs0 != bs1 else None
+        before = twin.WIN_LAUNCHES
+        got = twin.lap_chain(y1, y0, *g, *state, bs0=bs0, bs1=bs1, ch=ch)
+        assert twin.WIN_LAUNCHES - before == 1
+        want = twin.lap_chain_torch(y1, y0, *g, *state, bs0=bs0, bs1=bs1,
+                                    ch=ch)
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        state = got[1:]
+
+
+def test_vorbis_lap_kernel_rejects_bad_arguments(cuda):
+    X, geom, lap, lap_len, had_prev = torch_pcm_cases.vorbis_chain_case(
+        1, 2, 2, 2, 512, 2048)
+    y1 = torch.zeros((2, 4, 2048), device=cuda)
+    y0 = torch.zeros((2, 4, 512), device=cuda)
+    g = torch.from_numpy(geom).to(cuda)
+    st = [torch.from_numpy(a).to(cuda) for a in (lap, lap_len, had_prev)]
+    with pytest.raises(ValueError):
+        twin.lap_chain(y1, y0, *g, *st, bs0=512, bs1=2048, ch=3)
+    with pytest.raises(ValueError):
+        twin.lap_chain(y1, y0[..., :256], *g, *st, bs0=512, bs1=2048, ch=2)
+    with pytest.raises(ValueError):
+        twin.lap_chain(y1, y0, *g, st[0].cpu(), *st[1:], bs0=512, bs1=2048,
+                       ch=2)
+
+
+def _vorbis_streams():
+    from golden import vorbis_ref
+
+    rng = np.random.default_rng(23)
+    streams = []
+    for ch, bs0, bs1, count in ((1, 512, 512, 11), (2, 512, 2048, 19),
+                                (2, 512, 2048, 6), (1, 256, 1024, 14)):
+        fix = vorbis_ref.Fixture(channels=ch, bs0=bs0, bs1=bs1,
+                                 coupling=ch == 2)
+        pattern = [1 if (j % 5) else 0 for j in range(count)]
+        frames = []
+        for j in range(count):
+            lb = bool(pattern[j]) and bs0 != bs1
+            n2 = (bs1 if lb else bs0) // 2
+            posts = [[int(rng.integers(40, 100)) for _ in range(4)]
+                     for _ in range(ch)]
+            res = []
+            for _ in range(ch):
+                r = np.zeros(n2)
+                idx = rng.choice(n2, size=n2 // 4, replace=False)
+                r[idx] = rng.integers(-5, 6, size=idx.size) * fix.vq_delta
+                res.append(r)
+            pl = bool(pattern[j - 1]) if j else True
+            nl = bool(pattern[j + 1]) if j + 1 < count else True
+            frames.append(fix.audio_packet(posts, res, long_block=lb,
+                                           prev_flag=int(pl),
+                                           next_flag=int(nl)))
+        streams.append(fix.build(frames))
+    return streams
+
+
+def test_batch_decoder_vorbis_cuda_equals_cpu(cuda):
+    streams = _vorbis_streams()
+    before = twin.WIN_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda)
+    res = dec.decode_all(output="device")
+    for kind, wins in res.windows():
+        assert kind == "vorbis" and all(w.device.type == "cuda" for w in wins)
+    got = res.sync().to_numpy()
+    assert twin.WIN_LAUNCHES - before == dec.stats["windows"] > 0
+    assert dec.stats["group_demotions"] == 0
+    want = BatchDecoder(streams, device="cpu").decode_all()
+    got_np = BatchDecoder(streams, device=cuda).decode_all()
+    for a, b, c in zip(got, want, got_np):
+        _close(torch.from_numpy(a), torch.from_numpy(b))
+        _close(torch.from_numpy(c), torch.from_numpy(b))
+
+
+def test_vorbis_imdct_refuses_tf32(cuda, monkeypatch):
+    from audio_formats_torch.ops._kernels import KernelError
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(KernelError, match="Vorbis IMDCT"):
+        tmdct.imdct_batch(torch.zeros((2, 256), device=cuda), 512)

@@ -288,13 +288,23 @@ def _unported_streams(rng):
 
 
 def test_unported_formats_get_lane_errors(rng):
+    """Formats not ported yet (Ogg Opus, MOD, XM) become lane errors that
+    name them.  WAV and Ogg Vorbis are ported: the WAV lane decodes, and
+    the Vorbis stream here, an ID header alone, is not one the cascade
+    recognizes (as in the JAX package)."""
     fx = _unported_streams(rng)
     good, pcm = _flac(rng, 2000)
     dec = BatchDecoder([good, *fx.values(), b"\x01" * 100], device="cpu")
     out = dec.decode_all()
     np.testing.assert_array_equal(out[0], _expected(pcm, 16))
     for name, err, o in zip(fx, dec.errors[1:], out[1:]):
+        if name == "WAV":
+            assert err is None and o.shape == (2048, 1)
+            continue
         assert o is None
+        if name == "Ogg Vorbis":
+            assert err == "Cannot decode stream: unrecognized encoding."
+            continue
         assert err == (f"Cannot decode stream: {name} is not decoded by "
                        "audio_formats_torch yet."), (name, err)
     assert dec.errors[-1] == "Cannot decode stream: unrecognized encoding."
