@@ -4,11 +4,15 @@
 // lax.scan loops that XLA compiled on the TPU, not a Pallas kernel).
 // Contract, as ops/mp3_huff.py:huff_decode, for L independent lanes (one
 // granule-channel each):
-//   pool  [N] u32  big-endian words, lane after lane; lane l starts at
-//                  offs[l] (the exclusive cumsum of the spans)
+//   pool  [N] u32  big-endian words, frame after frame: lpf consecutive
+//                  lanes (a frame's granule-channels) share a frame's
+//                  words, which start at offs[l] (the exclusive cumsum of
+//                  the spans of the frames before it; lpf 1: lane after
+//                  lane)
 //   meta  [L, 16] int16  bit_start, bit_limit, big_values, bnd0, bnd1,
 //                  tab0..2, lin0..2, count1 table, pattern, (stereo,
-//                  block type: unused here), span
+//                  block type: unused here), span (the frame's words);
+//                  bit positions count from the frame's first word
 //   perm  [L] int32  a permutation of the lanes: warp w runs lanes
 //                  perm[32w .. 32w + 31]; any permutation gives the same
 //                  output.  af_mp3_huff_plan makes offs and the one the
@@ -326,11 +330,12 @@ mp3_huff_kernel(const uint32_t* __restrict__ pool,
 
 // ---- the plan: each lane's first pool word and the lane order ----
 // ops/mp3_huff.py:huff_lane_perm (a stable sort of the lanes by big-values
-// pair count) and the exclusive cumsum of the spans (modulo 2^32, as the
-// int32 offsets the kernel reads), in three launches: each block's count of
-// every pair count, their prefix and its span sum; the first slot of every
-// (block, pair count), a warp a pair count, and each block's first word;
-// each lane's slot and word.
+// pair count) and ops/mp3_huff.py:_lane_offsets (the exclusive cumsum of
+// the frames' spans, each frame's counted at its first lane, modulo 2^32,
+// as the int32 offsets the kernel reads), in three launches: each block's
+// count of every pair count, their prefix and its span sum; the first slot
+// of every (block, pair count), a warp a pair count, and each block's first
+// word; each lane's slot and word.
 constexpr int kKeys = 289;  // pair counts 0..288
 constexpr int kPlanThreads = 256;
 constexpr int kPlanWarps = kPlanThreads / 32;
@@ -340,6 +345,12 @@ __device__ __forceinline__ int lane_key(const int16_t* __restrict__ meta,
                                         int l) {
   return min(max(static_cast<int>(meta[static_cast<int64_t>(l) * 16 +
                                        kMetaBv]), 0), kKeys - 1);
+}
+
+__device__ __forceinline__ uint32_t lane_span(
+    const int16_t* __restrict__ meta, int l) {
+  return static_cast<uint32_t>(
+      static_cast<int>(meta[static_cast<int64_t>(l) * 16 + kMetaSpan]));
 }
 
 // exclusive prefix over the warp, and the warp's total
@@ -358,7 +369,7 @@ __device__ __forceinline__ uint32_t warp_exclusive(uint32_t v, int x,
 // plan 1: counts[block][key]; below[block][key], the block's lanes of
 // smaller pair counts; bsum[block]
 __global__ void __launch_bounds__(kPlanThreads)
-plan_count_kernel(const int16_t* __restrict__ meta, int L,
+plan_count_kernel(const int16_t* __restrict__ meta, int L, int lpf,
                   int32_t* __restrict__ counts, int32_t* __restrict__ below,
                   uint32_t* __restrict__ bsum) {
   __shared__ int hist[kKeys];
@@ -367,11 +378,10 @@ plan_count_kernel(const int16_t* __restrict__ meta, int L,
   for (int k = tid; k < kKeys; k += kPlanThreads) hist[k] = 0;
   __syncthreads();
   const int l = blockIdx.x * kPlanThreads + tid;
-  uint32_t span = 0;
+  uint32_t span = 0;  // a frame's words, counted at its first lane
   if (l < L) {
     atomicAdd(&hist[lane_key(meta, l)], 1);
-    span = static_cast<uint32_t>(
-        static_cast<int>(meta[static_cast<int64_t>(l) * 16 + kMetaSpan]));
+    if (l % lpf == 0) span = lane_span(meta, l);
   }
   uint32_t total;
   warp_exclusive(span, x, &total);
@@ -441,9 +451,9 @@ plan_base_kernel(int32_t* __restrict__ counts,
 
 // plan 3: perm[slot] = lane, offs[lane]; a lane's slot follows the lanes of
 // its pair count in earlier blocks, earlier warps (wcnt) and earlier lanes
-// of its warp (match_any)
+// of its warp (match_any); its word is its frame's first lane's
 __global__ void __launch_bounds__(kPlanThreads)
-plan_place_kernel(const int16_t* __restrict__ meta, int L,
+plan_place_kernel(const int16_t* __restrict__ meta, int L, int lpf,
                   const int32_t* __restrict__ bases,
                   const uint32_t* __restrict__ bfirst,
                   int32_t* __restrict__ perm, int32_t* __restrict__ offs) {
@@ -456,8 +466,8 @@ plan_place_kernel(const int16_t* __restrict__ meta, int L,
   const int l = blockIdx.x * kPlanThreads + tid;
   const bool live = l < L;
   const int key = live ? lane_key(meta, l) : -1;
-  const uint32_t span = live ? static_cast<uint32_t>(static_cast<int>(
-      meta[static_cast<int64_t>(l) * 16 + kMetaSpan])) : 0u;
+  const int in_frame = live ? l % lpf : 0;
+  const uint32_t span = live && in_frame == 0 ? lane_span(meta, l) : 0u;
   const unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
   const unsigned below = peers & ((1u << x) - 1u);
   if (live && below == 0) wcnt[w][key] = __popc(peers);
@@ -472,6 +482,8 @@ plan_place_kernel(const int16_t* __restrict__ meta, int L,
     slot += wcnt[ww][key];
     word += wsum[ww];
   }
+  // past the frame's first lane, the cumsum holds its frame's span
+  if (in_frame) word -= lane_span(meta, l - in_frame);
   perm[slot] = l;
   offs[l] = static_cast<int32_t>(word);
 }
@@ -490,21 +502,25 @@ extern "C" int af_mp3_huff_plan_scratch(int L) {
   return nb * (2 * kKeys + 1);
 }
 
-// offs [L] int32, perm [L] int32 <- the plan of meta [L, 16] int16
-extern "C" int af_mp3_huff_plan(const void* meta, int L, void* scratch,
-                                void* offs, void* perm, void* stream) {
+// offs [L] int32, perm [L] int32 <- the plan of meta [L, 16] int16 whose
+// lanes make frames of lpf
+extern "C" int af_mp3_huff_plan(const void* meta, int L, int lpf,
+                                void* scratch, void* offs, void* perm,
+                                void* stream) {
   if (L <= 0) return 0;
+  if (lpf < 1 || L % lpf) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (L + kPlanThreads - 1) / kPlanThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int32_t* counts = static_cast<int32_t*>(scratch);
   int32_t* below = counts + nb * kKeys;
   uint32_t* bsum = reinterpret_cast<uint32_t*>(below + nb * kKeys);
   const int16_t* m = static_cast<const int16_t*>(meta);
-  plan_count_kernel<<<nb, kPlanThreads, 0, st>>>(m, L, counts, below, bsum);
+  plan_count_kernel<<<nb, kPlanThreads, 0, st>>>(m, L, lpf, counts, below,
+                                                 bsum);
   plan_base_kernel<<<(kKeys + kPlanWarps) / kPlanWarps, kPlanThreads, 0,
                      st>>>(counts, below, bsum, nb);
   plan_place_kernel<<<nb, kPlanThreads, 0, st>>>(
-      m, L, counts, bsum, static_cast<int32_t*>(perm),
+      m, L, lpf, counts, bsum, static_cast<int32_t*>(perm),
       static_cast<int32_t*>(offs));
   return static_cast<int>(cudaGetLastError());
 }

@@ -778,7 +778,7 @@ def mp3_parse_window(lib, view, off: int, hdr0: bytes, W: int, ngr: int,
     return n, new_off.value
 
 
-LANE_WORDS = 132  # af_host.cc AF_MP3_LANE_WORDS
+FRAME_WORDS = 1154  # af_host.cc AF_MP3_FRAME_WORDS
 
 
 def mp3_parse_window_packed(lib, view, off: int, hdr0: bytes, W: int,
@@ -786,15 +786,18 @@ def mp3_parse_window_packed(lib, view, off: int, hdr0: bytes, W: int,
                             aa, wt, flags, free_format_bytes: int = 0,
                             ist=None):
     """Packed (device-Huffman) window parse: one C call per (stream,
-    window) emits per-lane Huffman bit ROWS (big-endian uint32, stride
-    LANE_WORDS) + FSM side info + int16 quarter-exponent scalefactors.
+    window) emits each frame's reservoir-spliced main data as big-endian
+    uint32 words and then 2 zero words (a row of FRAME_WORDS a frame) + the
+    FSM side info of each granule-channel lane (bit positions from its
+    frame's first word) + int16 quarter-exponent scalefactors.
 
-    bits [W*ngr*nch, LANE_WORDS] u32, meta [W*ngr*nch, 16] i32 (zeroed by
+    bits [W, FRAME_WORDS] u32, meta [W*ngr*nch, 16] i32 (zeroed by
     the caller), scfq [W*ngr*nch, 40] i16, aa [W*ngr, nch] i32,
     wt [W*ngr, nch, 32] i32, flags u8[W], ist (optional, stereo) per-
     granule right-channel intensity positions [W*ngr, 40] i16 for the
     device pan mix (minimp3.d:963).
-    Returns (frames_consumed, new_off, max_words, has_intensity).
+    Returns (frames_consumed, new_off, max_words: the widest lane reach,
+    has_intensity).
     """
     reserv_buf, reserv_len, ist_pos = state
     ptr, nbytes, _keep = _buf_ptr(view)

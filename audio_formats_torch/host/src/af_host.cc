@@ -1516,36 +1516,42 @@ int af_mp3_parse_window(
 }
 
 // Packed variant for the DEVICE-Huffman pipeline: the host stops at the
-// scalefactor decode and emits each granule-channel's Huffman BIT REGION
-// verbatim (byte-copied out of the reservoir-spliced maindata into a fixed
-// per-lane ROW of big-endian uint32 words) plus the side info the device
-// FSM needs.  The upload then approaches the compressed size instead of
-// the dequantized-spectrum size — on a bandwidth-limited host link that is
-// the difference between ~200x and several-1000x realtime.  Streams using
-// intensity stereo (header bit 0x10) must use the classic path: their
-// stereo mix depends on the decoded right-channel spectrum.
+// scalefactor decode and emits each frame's reservoir-spliced maindata
+// verbatim (as big-endian uint32 words, once a frame) plus the side info
+// the device FSM needs for each granule-channel (a *lane*), which
+// addresses its frame's words by bit position.  The upload then approaches
+// the compressed size instead of the dequantized-spectrum size.  A lane
+// reads its frame's words to their end and zeros past them, as the
+// single-stream decoder's reader does (af_mp3_granules_scf_huff reads the
+// maindata and zero bits after it): a corrupt granule whose big-values
+// pairs run past its part2_3_length reads on into the next granule's bits.
 //
-// bits_out is laid out [W*ngr*nch lanes, LANE_WORDS=132] uint32 (big-endian
-// bit order within each word); part_23_length <= 4095 bits = 129 words,
-// plus 2 zero pad words for lookahead.  meta int32[16] per lane:
-//   0 span_words (words written incl. pad; 0 for inactive lanes)
-//   1 bit_start  (0..7: first Huffman bit within the row)
-//   2 bit_limit  (one past the region: bit_start + part23_remaining)
+// bits_out is laid out [W frames, FRAME_WORDS=1154] uint32 (big-endian bit
+// order within each word): a frame's maindata (at most 4608 bytes, zero
+// past its last byte) then 2 zero words.  meta int32[16] per lane:
+//   0 span_words (its frame's words incl. the 2 zero words; 0 for lanes of
+//                 frames that did not decode)
+//   1 bit_start  (first Huffman bit, from the frame's first word)
+//   2 bit_limit  (one past the granule's bits, from the same origin)
 //   3 big_values (pairs)
 //   4 bnd0  5 bnd1 (first sfb index of Huffman region 1 / 2)
 //   6 tab0  7 tab1  8 tab2  (big-values table ids)
 //   9 count1_table (0/1)
 //  10 pattern_id  (kind*16 + sr_idx_my; kind 0 long / 1 short / 2 mixed)
-//  11..15 reserved (0)
-// scf_out: int16 quarter-exponents [W*ngr*nch, 40]; gain = 2^(eq/4).
-#define AF_MP3_LANE_WORDS 132
+//  11 stereo bits  12 block type  13..15 reserved (0)
+// Bit positions are sums of part2_3_lengths (4 granule-channels of at most
+// 4095 bits), so they fit int16.  *max_words is the widest reach of a lane:
+// its span, or the word after its bit_start or bit_limit where those lie
+// past it.  scf_out: int16 quarter-exponents [W*ngr*nch, 40]; gain =
+// 2^(eq/4).
+#define AF_MP3_FRAME_WORDS 1154
 int af_mp3_parse_window_packed(
     const uint8_t* data, int64_t nbytes, int64_t off, const uint8_t* hdr0,
     int32_t max_frames, int32_t free_format_bytes,
     uint8_t* reserv_buf /* [511] */, int32_t* reserv_len,
     int32_t* ist_pos /* [2*40] */,
-    uint32_t* bits_out /* [W*ngr*nch, 132] BE words */,
-    int32_t* max_words /* [1] out: max span over lanes this call */,
+    uint32_t* bits_out /* [W, 1154] BE words */,
+    int32_t* max_words /* [1] out: widest lane reach this call */,
     int32_t* meta_out /* [W*ngr*nch, 16] */,
     int16_t* scf_out /* [W*ngr*nch, 40] quarter-exponents */,
     int16_t* ist_out /* [W*ngr, 40] right-ch ist positions, NULL ok */,
@@ -1596,7 +1602,23 @@ int af_mp3_parse_window_packed(
     int success = (*reserv_len >= main_data_begin);
 
     int64_t br_pos = 0;
+    int span = 0;
     if (success) {
+      // the frame's words: maindata, zero past its last byte, 2 zero words
+      uint32_t* row = bits_out + (int64_t)w * AF_MP3_FRAME_WORDS;
+      int nw = (md_len + 3) >> 2;
+      for (int k = 0; k < nw; k++) {
+        uint32_t v = 0;
+        for (int b = 0; b < 4; b++) {
+          int i = 4 * k + b;
+          v = (v << 8) | (i < md_len ? maindata[i] : 0u);
+        }
+        row[k] = v;
+      }
+      row[nw] = 0;
+      row[nw + 1] = 0;
+      span = nw + 2;
+      if (span > mw) mw = span;
       for (int g = 0; g < ngr && success; g++) {
         for (int ch = 0; ch < nch; ch++) {
           GrInfo* gr = &grs[g * nch + ch];
@@ -1606,32 +1628,13 @@ int af_mp3_parse_window_packed(
           mp3_scalefactors_q(h, ist_pos + ch * 40, &br, gr, ch,
                              scf_out + (int64_t)lane * 40);
           int32_t* m = meta_out + (int64_t)lane * 16;
-          // lane row: bytes [start_bit/8, ceil(limit/8)) as BE words + pad
+          // the lane: its Huffman bits from the frame's first word
           int64_t start_bit = br.pos;
-          if (start_bit > limit) start_bit = limit;
-          int64_t start_byte = start_bit >> 3;
-          int64_t end_byte = (limit + 7) >> 3;
-          if (end_byte > md_len) end_byte = md_len;
-          if (end_byte < start_byte) end_byte = start_byte;
-          int span = (int)(end_byte - start_byte);
-          uint32_t* row = bits_out + (int64_t)lane * AF_MP3_LANE_WORDS;
-          const uint8_t* src = maindata + start_byte;
-          int nw = (span + 3) >> 2;
-          for (int k = 0; k < nw; k++) {
-            int b0 = 4 * k;
-            uint32_t v = 0;
-            for (int b = 0; b < 4; b++) {
-              uint32_t byte = (b0 + b < span) ? src[b0 + b] : 0;
-              v = (v << 8) | byte;
-            }
-            row[k] = v;
-          }
-          row[nw] = 0;
-          row[nw + 1] = 0;
-          if (nw + 2 > mw) mw = nw + 2;
-          m[0] = nw + 2;
-          m[1] = (int32_t)(start_bit - start_byte * 8);
-          m[2] = m[1] + (int32_t)(limit - start_bit);
+          int reach = (int)((start_bit > limit ? start_bit : limit) >> 5) + 1;
+          if (reach > mw) mw = reach;
+          m[0] = span;
+          m[1] = (int32_t)start_bit;
+          m[2] = (int32_t)limit;
           m[3] = gr->big_values;
           m[4] = gr->region_count[0] + 1;
           m[5] = gr->region_count[0] + gr->region_count[1] + 2;

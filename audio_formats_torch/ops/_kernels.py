@@ -19,6 +19,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -40,7 +42,7 @@ _ENTRIES = {
                 ("af_qoa_encode", [_V, _I, _V, _V, _V, _V, _V, _V, _I, _V]),
                 ("af_qoa_quant_mismatches", [_V, _V])),
     "mp3_huff": (("af_mp3_huff", [_V, _V, _V, _V, _V, _I, _I, _I, _V, _V, _V]),
-                 ("af_mp3_huff_plan", [_V, _I, _V, _V, _V, _V]),
+                 ("af_mp3_huff_plan", [_V, _I, _I, _V, _V, _V, _V]),
                  ("af_mp3_huff_plan_scratch", [_I])),
     "flac_rice": (("af_flac_rice", [_V, _I, _V, _V, _V, _V, _I, _I, _I, _V,
                                     _V, _V, _V, _V, _V]),),
@@ -114,16 +116,22 @@ def check_args(fn: str, dev, want) -> None:
     """Raise KernelArgError (a ValueError) unless every (name, tensor,
     dtypes, shape) in `want` lies contiguous on the CUDA device `dev` with
     one of the dtypes and the shape: what a kernel's wrapper checks before
-    it passes pointers."""
+    it passes pointers.  A tensor's device is read as (is_cuda,
+    get_device()), cheaper than building its torch.device; the message is
+    made only for a tensor that fails."""
+    if dev.type != "cuda":
+        raise KernelArgError(f"{fn}: on {dev}, want a CUDA device")
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
     for name, t, dtypes, shape in want:
-        if t.device != dev or dev.type != "cuda":
-            raise KernelArgError(f"{fn}: {name} on {t.device}, want {dev} "
-                                 "(a CUDA device)")
-        if t.dtype not in dtypes or tuple(t.shape) != shape:
-            raise KernelArgError(f"{fn}: {name} is {t.dtype}"
-                                 f"{list(t.shape)}, want {dtypes[0]}"
-                                 f"{list(shape)}")
-        if not t.is_contiguous():
+        if not (t.is_cuda and t.get_device() == idx and t.dtype in dtypes
+                and t.size() == shape and t.is_contiguous()):
+            if not (t.is_cuda and t.get_device() == idx):
+                raise KernelArgError(f"{fn}: {name} on {t.device}, want "
+                                     f"{dev} (a CUDA device)")
+            if t.dtype not in dtypes or t.size() != shape:
+                raise KernelArgError(f"{fn}: {name} is {t.dtype}"
+                                     f"{list(t.shape)}, want {dtypes[0]}"
+                                     f"{list(shape)}")
             raise KernelArgError(f"{fn}: {name} must be contiguous")
 
 

@@ -1,10 +1,11 @@
 """MP3 Layer III Huffman stage and the device side of the batch window.
 
 The host (af_host.cc) walks headers, splices the bit reservoir and decodes
-scalefactors; it ships each granule-channel's Huffman bits (its *lane*) as
-big-endian u32 words, packed end to end in one exact-size pool, with ~32
-bytes of side info a lane.  On the device every lane is an independent
-bitstream, so a window's lanes decode in lockstep:
+scalefactors; it ships each frame's reservoir-spliced main data as
+big-endian u32 words, frame after frame in one exact-size pool, with ~32
+bytes of side info for each granule-channel (its *lane*), which addresses
+its frame's words by bit position.  On the device every lane is an
+independent bitstream, so a window's lanes decode in lockstep:
 
 * ``huff_decode`` — the Huffman FSM (big values with linbits escapes and
   sign bits, then count1 quads), the counterpart of the JAX package's
@@ -30,7 +31,10 @@ Semantics the kernel and the twin share with the reference, bit for bit:
 word ``w`` of a lane reads 0 at or past its span and at or past the row
 width ``W``; the big-values phase never checks ``bit_limit`` and clamps the
 position to ``(W - 3) * 32`` after each pair; a count1 step is taken only
-if its codeword ends within ``bit_limit``; ``err`` is all false.
+if its codeword ends within ``bit_limit``; ``err`` is all false.  On the
+batch wire a lane's words are its frame's (``lanes_per_frame`` lanes share
+them) and W lies past every lane's reach (``row_width``), so a lane reads
+what the single-stream decoder reads: its frame's main data, then zeros.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 
 from . import _kernels, mp3_dsp
 from .mp3_dsp import WIN_NORMAL, WIN_SHORT, WIN_START, WIN_STOP, device_const
-from ..host.native import LANE_WORDS
+from ..host.native import FRAME_WORDS
 from ..utils.tables import mp3_tables as T
 
 N_PATTERNS = 48   # kind(0..2)*16 + sr_idx_my(0..8)
@@ -265,15 +269,20 @@ HUFF_BLOB = _build_blob()
  M_LIN0, M_LIN1, M_LIN2, M_C1TAB, M_PATTERN, M_STEREO, M_BTYPE,
  M_SPAN) = range(16)
 
-#: row-width buckets (words) of a window's widest lane; the row width W the
-#: Huffman stage takes is the bucket plus 4
-ROW_BUCKETS = (16, 24, 32, 48, 64, 96, LANE_WORDS)
+#: row-width buckets (words) of a window's widest lane reach; the row width
+#: W the Huffman stage takes is the bucket plus 4
+ROW_BUCKETS = (16, 24, 32, 48, 64, 96, 132, 192, 256, 384, 512, 768,
+               FRAME_WORDS)
 
 
 def row_width(max_words: int) -> int:
-    """The row width W of a window whose widest lane has `max_words` words:
-    the smallest bucket that holds it, plus 4.  W sets the position clamp
-    (W - 3) * 32, so corrupt lanes decode alike only under the same W."""
+    """The row width W of a window whose widest lane reaches `max_words`
+    words (af_mp3_parse_window_packed's max_words: a lane's span, or the
+    word after its bit_start or bit_limit past it): the smallest bucket
+    that holds it, plus 4.  W sets the position clamp (W - 3) * 32, which
+    then lies past every word a lane can read and past its bit_limit, so
+    the clamp changes nothing the lane decodes: from there it reads zeros,
+    as it would unclamped, and its count1 phase has stopped."""
     return next(w for w in ROW_BUCKETS if max_words <= w) + 4
 
 
@@ -282,23 +291,30 @@ def meta16_from_c(meta: np.ndarray) -> np.ndarray:
     columns), from the C stage's [..., 16] int32 meta rows
     (af_mp3_parse_window_packed: span, bit_start, bit_limit, big_values,
     bnd0, bnd1, the three table ids, count1 table, pattern, stereo bits,
-    block type): each region's linbits follow the table ids, and the span,
-    clamped to LANE_WORDS, comes last."""
+    block type): each region's linbits follow the table ids, and the span
+    (the lane's frame's words), clamped to FRAME_WORDS, comes last."""
     tabs = meta[..., 6:9]
-    span = np.minimum(meta[..., 0:1], LANE_WORDS)
+    span = np.minimum(meta[..., 0:1], FRAME_WORDS)
     return np.concatenate([meta[..., 1:6], tabs, LINBITS_TAB[tabs],
                            meta[..., 9:13], span], axis=-1).astype(np.int16)
 
 
-def huff_decode(pool, meta16, W: int):
+def huff_decode(pool, meta16, W: int, lanes_per_frame: int):
     """Decode big values + count1 for L independent lanes.
 
-    pool:   [N] int32 — every lane's big-endian u32 words (as int32 bits),
-            lane after lane; lane l starts at the sum of the spans before it
-    meta16: [L, 16] int16 — per lane: bit_start, bit_limit, big_values,
-            bnd0, bnd1, the three region table ids (0..31), their linbits,
-            count1 table, sfb pattern, stereo bits, block type, span (words)
+    pool:   [N] int32 — every frame's big-endian u32 words (as int32 bits),
+            frame after frame; lanes_per_frame consecutive lanes make a
+            frame (1: each lane its own words), and frame f starts at the
+            sum of the spans of the frames before it
+    meta16: [L, 16] int16 — per lane: bit_start, bit_limit (from its
+            frame's first word), big_values, bnd0, bnd1, the three region
+            table ids (0..31), their linbits, count1 table, sfb pattern,
+            stereo bits, block type, span (its frame's words; the lanes of
+            a frame give the same)
     W:      the window's row width; words at or past it read 0
+    lanes_per_frame: lanes that share a frame's words (L is a multiple):
+            the batch wire's ngr * nch, 1 for lanes with words of their
+            own; no default, so every caller states its layout
 
     Returns (q [L, 576] int32, err [L] bool) on meta16's device.
     """
@@ -306,16 +322,18 @@ def huff_decode(pool, meta16, W: int):
     meta16 = torch.as_tensor(meta16)
     dev = meta16.device
     if dev.type == "cpu":
-        return huff_decode_torch(pool, meta16, W)
+        return huff_decode_torch(pool, meta16, W, lanes_per_frame)
     if dev.type == "cuda":
-        return huff_decode_cuda(pool, meta16, W)
+        return huff_decode_cuda(pool, meta16, W, lanes_per_frame)
     raise _kernels.KernelArgError(f"huff_decode: no kernel for device {dev}")
 
 
-def _lane_offsets(span: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumsum of the spans: each lane's first pool word."""
-    span = span.to(torch.int64)
-    return torch.cumsum(span, 0) - span
+def _lane_offsets(span: torch.Tensor, lanes_per_frame: int) -> torch.Tensor:
+    """Each lane's first pool word: the exclusive cumsum of the spans of
+    the frames before its frame (a frame's span is its first lane's)."""
+    frame = span.to(torch.int64)[::lanes_per_frame]
+    return (torch.cumsum(frame, 0) - frame).repeat_interleave(
+        lanes_per_frame)
 
 
 _M32 = 0xFFFFFFFF
@@ -340,16 +358,16 @@ def _extract(a, b, c, o, width):
     return torch.where(width > 0, val, 0)
 
 
-def huff_decode_torch(pool, meta16, W: int):
+def huff_decode_torch(pool, meta16, W: int, lanes_per_frame: int):
     """Plain PyTorch twin of the CUDA Huffman kernel: same contract as
     huff_decode.  A Python loop over steps, the lanes side by side, with
     per-lane table lookups by gather (int64 holding u32 words): the test
     oracle and the on-card comparison, never the CUDA main path."""
-    q, err, _steps = huff_decode_steps(pool, meta16, W)
+    q, err, _steps = huff_decode_steps(pool, meta16, W, lanes_per_frame)
     return q, err
 
 
-def huff_decode_steps(pool, meta16, W: int):
+def huff_decode_steps(pool, meta16, W: int, lanes_per_frame: int):
     """huff_decode_torch, and the steps each lane's FSM runs in the kernel
     ([L] int64: its big-values pairs plus its count1 iterations, the one
     that stops included): what the lanes of a warp wait on each other
@@ -358,7 +376,7 @@ def huff_decode_steps(pool, meta16, W: int):
     L = meta16.shape[0]
     m = meta16.to(torch.int64)
     span = m[:, M_SPAN]
-    offs = _lane_offsets(span)
+    offs = _lane_offsets(span, lanes_per_frame)
     words = pool.to(device=dev, dtype=torch.int64) & _M32
     blob = device_const(HUFF_BLOB, dev).to(torch.int64) & _M32
     n_pool = words.shape[0]
@@ -462,7 +480,7 @@ def huff_lane_perm(meta16) -> torch.Tensor:
     return torch.argsort(npairs, stable=True).to(torch.int32)
 
 
-def huff_decode_cuda(pool, meta16, W: int):
+def huff_decode_cuda(pool, meta16, W: int, lanes_per_frame: int):
     """Launch the CUDA Huffman kernel (csrc/mp3_huff.cu) on the tensors'
     card, on that card's current stream, after its plan (each lane's first
     pool word and the lane order of huff_lane_perm, made on the card).
@@ -474,9 +492,12 @@ def huff_decode_cuda(pool, meta16, W: int):
         ("meta16", meta16, (torch.int16,), (L, 16)),
         ("pool", pool, (torch.int32,), (pool.shape[0],)),
     ))
-    if not 4 <= W <= LANE_WORDS + 4:
+    if not 4 <= W <= FRAME_WORDS + 4:
         raise _kernels.KernelArgError(
             f"huff_decode: row width {W} out of range")
+    if lanes_per_frame < 1 or L % lanes_per_frame:
+        raise _kernels.KernelArgError(
+            f"huff_decode: {L} lanes are not frames of {lanes_per_frame}")
     # the kernel writes every position of q, zeros included
     q = torch.empty((L, 576), dtype=torch.int32, device=dev)
     err = torch.empty(L, dtype=torch.bool, device=dev)
@@ -487,17 +508,16 @@ def huff_decode_cuda(pool, meta16, W: int):
     lib = _kernels.load("mp3_huff")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _plan(lib, stream, meta16, offs, perm)
+        _plan(lib, stream, meta16, lanes_per_frame, offs, perm)
         _launch(lib, stream, pool, meta16, W, offs, perm, q, err)
     return q, err
 
 
-def huff_plan_cuda(meta16):
+def huff_plan_cuda(meta16, lanes_per_frame: int):
     """The plan alone (csrc/mp3_huff.cu af_mp3_huff_plan, three small
-    launches): each lane's first pool word (the exclusive cumsum of the
-    spans, int32) and the lane order of huff_lane_perm, made on the card.
-    meta16 as huff_decode_cuda takes it.  Returns (offs, perm), [L] int32
-    each."""
+    launches): each lane's first pool word (_lane_offsets, int32) and the
+    lane order of huff_lane_perm, made on the card.  meta16 as
+    huff_decode_cuda takes it.  Returns (offs, perm), [L] int32 each."""
     dev = meta16.device
     L = meta16.shape[0] if meta16.dim() == 2 else -1
     _kernels.check_args("huff_decode plan", dev, (
@@ -508,7 +528,7 @@ def huff_plan_cuda(meta16):
         lib = _kernels.load("mp3_huff")
         with torch.cuda.device(dev):
             _plan(lib, torch.cuda.current_stream(dev).cuda_stream, meta16,
-                  offs, perm)
+                  lanes_per_frame, offs, perm)
     return offs, perm
 
 
@@ -532,12 +552,13 @@ def huff_launch(pool, meta16, W: int, offs, perm, q, err):
     return q, err
 
 
-def _plan(lib, stream, meta16, offs, perm):
+def _plan(lib, stream, meta16, lanes_per_frame, offs, perm):
     L = meta16.shape[0]
     scratch = torch.empty(lib.af_mp3_huff_plan_scratch(L), dtype=torch.int32,
                           device=meta16.device)
-    rc = lib.af_mp3_huff_plan(meta16.data_ptr(), L, scratch.data_ptr(),
-                              offs.data_ptr(), perm.data_ptr(), stream)
+    rc = lib.af_mp3_huff_plan(meta16.data_ptr(), L, lanes_per_frame,
+                              scratch.data_ptr(), offs.data_ptr(),
+                              perm.data_ptr(), stream)
     _kernels.check_launch("huff_decode plan", rc)
 
 
@@ -635,13 +656,15 @@ def _intensity_abcd(q_r, pat_l, is_ms, t_ist, t_ms, sh, ist, mpeg1: bool):
 
 def packed_device_stage(pool, meta16, scfq, W: int, B: int, G: int,
                         nch: int, ist=None, mpeg1: bool = True,
-                        short: bool = True):
+                        short: bool = True, lanes_per_frame: int = None):
     """The device entropy stage of one window: Huffman FSM → dequant →
     stereo (the intensity 2×2 mix before the reorder when ``ist`` is given,
     else the MS butterfly after it) → short-block reorder → window types
     and antialias counts.
 
-    pool, meta16 as huff_decode (L = B·G·nch lanes); scfq [L, 40] int16
+    pool, meta16, lanes_per_frame as huff_decode (L = B·G·nch lanes; by
+    default the batch wire's, where the ngr·nch granule-channels of a
+    frame share its words); scfq [L, 40] int16
     quarter-exponent gains; ist [B·G, 40] int16 right-channel intensity
     positions (intensity windows only); short: any short-block lane.
 
@@ -650,7 +673,9 @@ def packed_device_stage(pool, meta16, scfq, W: int, B: int, G: int,
     """
     dev = meta16.device
     L = B * G * nch
-    q, _err = huff_decode(pool, meta16, W)
+    if lanes_per_frame is None:
+        lanes_per_frame = (2 if mpeg1 else 1) * nch
+    q, _err = huff_decode(pool, meta16, W, lanes_per_frame)
     pattern = meta16[:, M_PATTERN].to(torch.int64)
     stereo = meta16[:, M_STEREO].to(torch.int64)
     btype = meta16[:, M_BTYPE].to(torch.int64)

@@ -12,9 +12,12 @@ carried on the device.
 ``vorbis_window_chain`` runs both block sizes' IMDCTs as full-float32
 matmuls over the window's stacked lane-channels (ops/mdct.py), then the
 lapped chain: on a CUDA device K11, the hand-written kernel of
-``csrc/vorbis_win.cu`` (one block a lane-channel, its lap in shared
-memory across the K slots); on the CPU its plain PyTorch twin
-``lap_chain_torch``.  ``WIN_LAUNCHES`` counts K11's launches.
+``csrc/vorbis_win.cu`` (one block a lane-channel, its slots computed side
+by side, each mixed with the raw row of the lane's previous valid slot; the
+lanes of
+``chained_lanes`` run their slots in order within the same launch); on
+the CPU its plain PyTorch twin ``lap_chain_torch``.  ``WIN_LAUNCHES``
+counts K11's launches.
 
 Window slopes are not computed on the device: Vorbis laps have width
 bs0/2 or bs1/2 only, so both slopes (``slope_rows``, bit-equal to
@@ -90,13 +93,14 @@ def lap_chain(y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, *,
         raise _kernels.KernelArgError(f"lap_chain: no kernel for device "
                                       f"{dev}")
     K, L, _ = y1.shape
-    B = L // ch
+    B = _lanes(L, ch)
     out = (torch.empty((K, L, bs1), dtype=torch.float32, device=dev),
            torch.empty((L, bs1 // 2), dtype=torch.float32, device=dev),
            torch.empty(B, dtype=torch.int32, device=dev),
            torch.empty(B, dtype=torch.int32, device=dev))
-    lap_chain_launch(y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, out,
-                     bs0=bs0, bs1=bs1, ch=ch)
+    # outputs made here need no check
+    _launch(dev, y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, out,
+            bs0, bs1, ch, ())
     return out
 
 
@@ -104,39 +108,92 @@ def lap_chain_launch(y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, out,
                      *, bs0: int, bs1: int, ch: int) -> None:
     """K11 into made outputs: out = (pcm [K, L, bs1], lap' [L, bs1/2],
     lap_len' [B], had_prev' [B]), all on y1's CUDA device."""
-    global WIN_LAUNCHES
     K, L, _ = y1.shape
+    B, h = _lanes(L, ch), bs1 // 2
+    f32, i32 = (torch.float32,), (torch.int32,)
+    _launch(y1.device, y1, y0, ls, rs, re, valid, lap, lap_len, had_prev,
+            out, bs0, bs1, ch, (
+                ("pcm", out[0], f32, (K, L, bs1)),
+                ("lap'", out[1], f32, (L, h)),
+                ("lap_len'", out[2], i32, (B,)),
+                ("had_prev'", out[3], i32, (B,))))
+
+
+def _lanes(L: int, ch: int) -> int:
     if ch <= 0 or L % ch:
         raise _kernels.KernelArgError(f"lap_chain: {L} lane-channels are "
                                       f"not lanes of {ch} channels")
-    B = L // ch
-    h = bs1 // 2
+    return L // ch
+
+
+def _launch(dev, y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, out,
+            bs0, bs1, ch, out_checks) -> None:
+    """Check the inputs (and `out_checks`: the outputs a caller made) and
+    launch K11 on dev's current stream."""
+    global WIN_LAUNCHES
+    K, L, _ = y1.shape
+    B, h = L // ch, bs1 // 2
     if bs0 == bs1:
         y0 = y1
     f32, i32 = (torch.float32,), (torch.int32,)
-    _kernels.check_args("lap_chain", y1.device, (
+    _kernels.check_args("lap_chain", dev, (
         ("y1", y1, f32, (K, L, bs1)), ("y0", y0, f32, (K, L, bs0)),
         ("ls", ls, i32, (K, B)), ("rs", rs, i32, (K, B)),
         ("re", re, i32, (K, B)), ("valid", valid, i32, (K, B)),
         ("lap", lap, f32, (L, h)), ("lap_len", lap_len, i32, (B,)),
-        ("had_prev", had_prev, i32, (B,)),
-        ("pcm", out[0], f32, (K, L, bs1)), ("lap'", out[1], f32, (L, h)),
-        ("lap_len'", out[2], i32, (B,)), ("had_prev'", out[3], i32, (B,))))
+        ("had_prev", had_prev, i32, (B,)), *out_checks))
     if L == 0:
         return
-    slopes = device_const(slope_rows(bs0, bs1), y1.device)
-    lib = _kernels.load("vorbis_win")
-    with torch.cuda.device(y1.device):
-        stream = torch.cuda.current_stream(y1.device).cuda_stream
-        rc = lib.af_vorbis_win(
-            y1.data_ptr(), y0.data_ptr(), ls.data_ptr(), rs.data_ptr(),
+    fn, slopes = _entry(dev, bs0, bs1)
+    args = (y1.data_ptr(), y0.data_ptr(), ls.data_ptr(), rs.data_ptr(),
             re.data_ptr(), valid.data_ptr(), lap.data_ptr(),
-            lap_len.data_ptr(), had_prev.data_ptr(), slopes.data_ptr(),
+            lap_len.data_ptr(), had_prev.data_ptr(), slopes,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), K, L, ch, bs0, bs1, stream)
+            out[3].data_ptr(), K, L, ch, bs0, bs1)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_launch("vorbis_win", rc)
     with _launch_lock:
         WIN_LAUNCHES += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dev: torch.device, bs0: int, bs1: int):
+    """K11's C entry and the address of the slopes' constant on `dev`."""
+    return (_kernels.load("vorbis_win").af_vorbis_win,
+            device_const(slope_rows(bs0, bs1), dev).data_ptr())
+
+
+def chained_lanes(ls, rs, re, valid, lap_len, *, bs0: int, bs1: int):
+    """The lanes K11 runs in order, slot after slot ([B] bool): those where
+    a valid slot's new lap y_mix[rs : re] meets its mix [ls, ls +
+    min(lap_len, n - ls)), so depends on the lap it was given, and those
+    whose geometry leaves the spec's forms (an edge that is not a multiple
+    of 4, not 0 <= ls <= rs <= re <= n, a lap width other than bs0/2 or
+    bs1/2).  The other lanes' slots each mix with the raw IMDCT row of the
+    lane's previous valid slot, and their blocks run side by side.  ls, rs,
+    re, valid [K, B] and lap_len [B] int32, on any device."""
+    h0, h = bs0 // 2, bs1 // 2
+    lap_len = lap_len.to(torch.int64)
+    serial = ~((lap_len == 0) | (lap_len == h0) | (lap_len == h))
+    serial |= bool((h0 | h) & 3)
+    for k in range(ls.shape[0]):
+        v = valid[k] != 0
+        lsk, rsk, rek = (a[k].to(torch.int64) for a in (ls, rs, re))
+        n = torch.where((rsk == h0) & (rek == bs0), bs0, bs1)
+        nw = rek - rsk
+        mix_len = torch.minimum(lap_len, n - lsk)
+        chained = (nw > 0) & (mix_len > 0) & (
+            torch.maximum(rsk, lsk)
+            < torch.minimum(rsk + nw.clamp(max=h), lsk + mix_len))
+        spec = (((lsk | rsk | rek) & 3) == 0) & (0 <= lsk) & (lsk <= rsk) \
+            & (rsk <= rek) & (rek <= n) & ((nw == h0) | (nw == h))
+        serial |= v & (chained | ~spec)
+        lap_len = torch.where(v, nw, lap_len)
+    return serial
 
 
 def lap_chain_torch(y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, *,

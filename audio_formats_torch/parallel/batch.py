@@ -280,9 +280,14 @@ class BatchDecoder:
     width; "rice" ships the raw frame bytes (the host runs only the frame
     sync index) and decodes subframe headers and residuals on the device.
     "rice" needs the C host stage and raises where it did not load.
+
+    ``group_size`` is the lockstep group width: how many lanes of one
+    format group share a device window.  None (the default) puts 1024
+    lanes in a group with ``output="device"`` and 256 otherwise.
     """
 
-    def __init__(self, items: Sequence, device="cuda", flac_wire="packed"):
+    def __init__(self, items: Sequence, device="cuda", flac_wire="packed",
+                 group_size: int = None):
         if flac_wire not in ("packed", "rice"):
             raise ValueError(f"flac_wire {flac_wire!r}: want 'packed' or "
                              "'rice'")
@@ -290,6 +295,7 @@ class BatchDecoder:
             raise RuntimeError("flac_wire='rice' needs the C host stage "
                                "(host/src/af_host.cc), which did not load")
         self.flac_wire = flac_wire
+        self._group_size = group_size
         self.device = device_of(device)
         self.decoders: List[Optional[object]] = []
         self.errors: List[Optional[str]] = []
@@ -473,7 +479,7 @@ class BatchDecoder:
         # can ride one group (no per-window PCM download); when PCM is
         # downloaded, moderate groups let fetches overlap the next group's
         # host stage
-        GROUP = 1024 if to_device else 256
+        GROUP = self._group_size or (1024 if to_device else 256)
 
         def run(chunk, fn, *args):
             res = self._run_group(fn, chunk, *args, to_device=to_device)
@@ -651,10 +657,12 @@ class BatchDecoder:
     def _decode_mp3_group_packed(self, decs, nch: int, ngr: int, lib,
                                  to_device: bool = False):
         """Device-Huffman lockstep over the pooled wire: per window the C
-        stage parses 24 frames of every lane into Huffman bit rows, side
-        info and quarter-exponent scalefactors (one C call per lane chunk,
-        on a parse pool); the rows pack into one exact-size u32 pool (each
-        lane's span, lane after lane); one dispatch worker uploads it and
+        stage parses 24 frames of every lane into each frame's main data
+        words, side info and quarter-exponent scalefactors of its
+        granule-channels (one C call per lane chunk, on a parse pool); the
+        frames' words pack into one exact-size u32 pool (frame after frame,
+        each granule-channel addressing its frame's words by bit position);
+        one dispatch worker uploads it and
         runs ops/mp3_huff.packed_window — the Huffman kernel, dequant,
         stereo mix, reorder and the window DSP — with the carried overlap
         and slot history.  Returns the pending (PCM window, n_act) list."""
@@ -662,7 +670,8 @@ class BatchDecoder:
         W = MP3_WINDOW_FRAMES
         G = W * ngr
         NL = G * nch
-        LW = _native.LANE_WORDS
+        LPF = ngr * nch  # lanes a frame
+        FW = _native.FRAME_WORDS
         device = self.device
         dev_state = {
             "overlap": torch.zeros((B, nch, 32, 18), dtype=torch.float32,
@@ -751,8 +760,9 @@ class BatchDecoder:
             hole[nz] = pref[nz, n_fr_g[nz] - 1] < n_fr_g[nz]
             for i in np.flatnonzero(hole):
                 bi = int(g[i])
-                li = np.flatnonzero(np.repeat(actm[i], ngr * nch))
-                bits[bi, : len(li)] = bits[bi, li]
+                fi = np.flatnonzero(actm[i])
+                bits[bi, : len(fi)] = bits[bi, fi]
+                li = np.flatnonzero(np.repeat(actm[i], LPF))
                 meta[bi, : len(li)] = meta[bi, li]
                 scfq[bi, : len(li)] = scfq[bi, li]
                 meta[bi, len(li):] = 0
@@ -791,7 +801,7 @@ class BatchDecoder:
             while active.any():
                 t_host = time.perf_counter()
                 win.update(
-                    bits=np.empty((B, NL, LW), np.uint32),
+                    bits=np.empty((B, W, FW), np.uint32),
                     meta=np.zeros((B, NL, 16), np.int32),
                     scfq=np.zeros((B, NL, 40), np.int16),
                     ists=np.zeros((B, G, 40), np.int16),
@@ -813,13 +823,15 @@ class BatchDecoder:
                 meta = win["meta"]
                 L = B * NL
                 meta16 = mp3_huff.meta16_from_c(meta).reshape(L, 16)
-                # one C pass copies each lane's span of words into the pool
+                # one C pass copies each frame's span of words into the pool
                 t_pack = time.perf_counter()
-                span32 = meta16[:, mp3_huff.M_SPAN].astype(np.int32)
+                span32 = np.ascontiguousarray(
+                    meta16[::LPF, mp3_huff.M_SPAN], np.int32)
                 pool_w = np.empty(int(span32.sum()), np.uint32)
                 u32p = ctypes.POINTER(ctypes.c_uint32)
                 lib.af_u32_pack_prefix_rows(
-                    win["bits"].reshape(L, LW).ctypes.data_as(u32p), L, LW,
+                    win["bits"].reshape(B * W, FW).ctypes.data_as(u32p),
+                    B * W, FW,
                     span32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                     pool_w.ctypes.data_as(u32p))
                 self._stat_add("enq_mp3_pack_ms",

@@ -22,7 +22,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with frame lengths around slice edges and full-scale square waves, and
    its quantizer against its direct form on all 2^32 int32 residuals; the
    MP3 Huffman kernel at one full window of the MP3 slice (98,304
-   granule-channel lanes parsed by the C stage from the MP3 corpus) and on
+   granule-channel lanes parsed by the C stage from the MP3 corpus, four
+   a frame addressing their frame's main data in the pool) and on
    random-bit lanes at two row widths.  The LPC, Huffman and QOA decode
    kernels are timed through their wrappers, alone (a launch into a
    pre-made output) and by their host enqueue, the first two also by
@@ -88,7 +89,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the port's Ogg page writer and inverse-dB table); then K11 at that
    slice's first window (kept by wrapping
    ``ops.vorbis_win.vorbis_window_chain``), against its twin within 4e-6
-   of the peak, timed beside the IMDCT matmuls of the same window.
+   of the peak, timed through its wrapper and alone, by its device time
+   (``torch.profiler``) and its host enqueue, beside the IMDCT matmuls of
+   the same window, with the lanes it ran in order counted.
 
 Prints a JSON line with the kernels' launches, errors, times and bounds,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -96,7 +99,7 @@ the card's name and power limit, and last ``{"ok": true, "device":
 before the result.
 
     python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode
-                                    flac_rice]
+                                    flac_rice vorbis_win]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
     python3 chip_smoke.py --wires                   # the card
@@ -114,12 +117,15 @@ no result line.
 to this tree's K4 at the FLAC Rice slice's first dispatch and times it
 there alone and as one warp, in turns; it prints no result line.
 
-``--ab`` (on the card) times the Huffman, LPC, QOA encode, QOA decode and
-frame-entropy kernels of this tree (or those named) against those built
-from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
-``git archive``), parent / change / change / parent in one process, and
-the MP3, FLAC, QOA encode, QOA decode and FLAC Rice slices with either
-side's kernel; it prints no result line.  ``--divergence`` (CPU) counts the
+``--ab`` (on the card) times the Huffman, LPC, QOA encode, QOA decode,
+frame-entropy and Vorbis window kernels of this tree (or those named)
+against those built from DIR/audio_formats_torch/csrc (an earlier commit's
+sources, e.g. from ``git archive``), parent / change / change / parent in
+one process, and the MP3, FLAC, QOA encode, QOA decode, FLAC Rice and
+Vorbis slices with either side's kernel; where DIR holds the earlier
+commit's whole tree, its own K3 phase and MP3 slice (its wire and bytes to
+the card) run from DIR in a process of their own.  It prints no result
+line.  ``--divergence`` (CPU) counts the
 paths a warp of the branching frame-entropy kernel (the design before the
 register window) ran a sample at the FLAC Rice slice's first dispatch
 (the twin's scan with each lane's branches recorded), then each lane's
@@ -131,7 +137,8 @@ step of K5's full-slice body by pipe, of one step of K2's chain loop by
 pipe with its dependent chain from one sample to the next and the tile
 loop's instructions outside it, of K4's sample loop: its shortest and
 longest paths that decode, by pipe, with their dependent chains and the
-loads on them, and of one sample of K10's dithered s24 quantize.
+loads on them, of one sample of K10's dithered s24 quantize, and of K11's
+PCM row loop a 16-byte vector.
 """
 
 import json
@@ -540,6 +547,28 @@ def time_host(fn, reps=20):
     t = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     return t
+
+
+def device_ms(fn, kernel, reps=20):
+    """The card's own time, in ms a call, that `reps` calls of `fn` spend
+    in kernels whose name holds `kernel`: torch.profiler's CUPTI trace of
+    those calls.  None where the trace shows no device time for it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+    return us / reps / 1e3 if us > 0 else None
 
 
 # The least time the card could take for a kernel's work: the larger of its
@@ -1335,20 +1364,22 @@ def mp3_lane_expected(masters, mi, start, end):
 
 def mp3_window(streams):
     """The first window of the MP3 slice as the batch path ships it to the
-    Huffman kernel: the C stage parses 24 frames of every lane; the lanes'
-    words pack into one pool.  Returns (pool int32, meta16 [L, 16] int16,
-    row width W)."""
+    Huffman kernel: the C stage parses 24 frames of every lane; the frames'
+    words pack into one pool, each frame's 4 granule-channel lanes
+    addressing its words.  Returns (pool int32, meta16 [L, 16] int16, row
+    width W, lanes a frame)."""
     from audio_formats_torch.host import native
     from audio_formats_torch.io.source import MemorySource
     from audio_formats_torch.models.mp3 import Mp3Decoder
     from audio_formats_torch.ops import mp3_huff
 
     lib = native.get_lib()
-    LW = native.LANE_WORDS
+    FW = native.FRAME_WORDS
     G = MP3_WINDOW * 2
     NL = G * 2
+    LPF = NL // MP3_WINDOW
     B = len(streams)
-    bits = np.zeros((B, NL, LW), np.uint32)
+    bits = np.zeros((B, MP3_WINDOW, FW), np.uint32)
     meta = np.zeros((B, NL, 16), np.int32)
     mw = 16
     for bi, data in enumerate(streams):
@@ -1364,9 +1395,37 @@ def mp3_window(streams):
             raise AssertionError(f"MP3 lane {bi}: {n} frames in a window")
         mw = max(mw, w)
     meta16 = mp3_huff.meta16_from_c(meta.reshape(B * NL, 16))
-    span = meta16[:, mp3_huff.M_SPAN]
-    pool = bits.reshape(B * NL, LW)[np.arange(LW)[None, :] < span[:, None]]
-    return pool.view(np.int32), meta16, mp3_huff.row_width(mw)
+    span = meta16[::LPF, mp3_huff.M_SPAN]
+    pool = bits.reshape(B * MP3_WINDOW, FW)[
+        np.arange(FW)[None, :] < span[:, None]]
+    return pool.view(np.int32), meta16, mp3_huff.row_width(mw), LPF
+
+
+def mp3_read_words(meta16, lpf):
+    """The pool words K3's lanes read, frame by frame: the union of each
+    lane's words from its bit_start to 3 past its bit_limit (the lookahead
+    a codeword's peek takes), cut at its frame's span.  A frame's main data
+    beyond that (what the reservoir carries on to later frames, and a
+    coder's padding) ships with the pool, but no well-formed lane reads
+    it."""
+    from audio_formats_torch.ops import mp3_huff
+
+    m = meta16.astype(np.int64).reshape(-1, lpf, 16)
+    span = m[:, :1, mp3_huff.M_SPAN]
+    start = m[..., mp3_huff.M_BIT_START]
+    lo = np.minimum(start >> 5, span)
+    hi = np.minimum((np.maximum(start, m[..., mp3_huff.M_BIT_LIMIT]) >> 5)
+                    + 3, span)
+    order = np.argsort(lo, axis=1, kind="stable")
+    lo = np.take_along_axis(lo, order, 1)
+    hi = np.take_along_axis(hi, order, 1)
+    words = np.zeros(len(m), np.int64)
+    reached = np.zeros(len(m), np.int64)
+    for k in range(lpf):
+        a = np.maximum(lo[:, k], reached)
+        words += np.maximum(hi[:, k] - a, 0)
+        reached = np.maximum(reached, hi[:, k])
+    return int(words.sum())
 
 
 def mp3_random_lanes(rng, L, W):
@@ -1423,9 +1482,9 @@ def divergence(workers=4):
     with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
         masters = list(ex.map(mp3_master, range(MP3_MASTERS)))
     streams, _ = mp3_corpus(masters)
-    pool, meta16, W = mp3_window(streams)
+    pool, meta16, W, lpf = mp3_window(streams)
     _, _, steps = mp3_huff.huff_decode_steps(
-        torch.from_numpy(pool), torch.from_numpy(meta16), W)
+        torch.from_numpy(pool), torch.from_numpy(meta16), W, lpf)
     steps = steps.numpy()
     perm = mp3_huff.huff_lane_perm(torch.from_numpy(meta16)).numpy()
     print(f"# K3 divergence, one MP3 window (L={steps.size}, W={W}): steps "
@@ -1685,17 +1744,17 @@ def phase_mp3_kernel(card, streams):
     from audio_formats_torch.ops import mp3_huff
 
     dev = torch.device("cuda")
-    pool, meta16, W = mp3_window(streams)
+    pool, meta16, W, lpf = mp3_window(streams)
     L = meta16.shape[0]
     p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
     # the kernel's q comes from torch.empty: hand it a block of -7s, so a
     # position the kernel does not write shows in the comparison
     torch.full((L, 576), -7, dtype=torch.int32, device=dev)
-    q, err = mp3_huff.huff_decode(p_d, m_d, W)
+    q, err = mp3_huff.huff_decode(p_d, m_d, W, lpf)
     torch.cuda.synchronize()
     want = []
     plain_ms = time_cuda(
-        lambda: want.append(mp3_huff.huff_decode_steps(p_d, m_d, W)), 1)
+        lambda: want.append(mp3_huff.huff_decode_steps(p_d, m_d, W, lpf)), 1)
     qt, errt, steps = want[0]
     max_err = int((q.long() - qt.long()).abs().max())
     if not (torch.equal(q, qt) and torch.equal(err, errt)):
@@ -1707,36 +1766,41 @@ def phase_mp3_kernel(card, streams):
         pr, mr = (torch.from_numpy(a).to(dev)
                   for a in mp3_random_lanes(rng, 16384, Wr))
         torch.full((16384, 576), -7, dtype=torch.int32, device=dev)
-        qr, er = mp3_huff.huff_decode(pr, mr, Wr)
-        qrt, ert = mp3_huff.huff_decode_torch(pr, mr, Wr)
+        qr, er = mp3_huff.huff_decode(pr, mr, Wr, 1)
+        qrt, ert = mp3_huff.huff_decode_torch(pr, mr, Wr, 1)
         e = int((qr.long() - qrt.long()).abs().max())
         max_err = max(max_err, e)
         if not (torch.equal(qr, qrt) and torch.equal(er, ert)):
             raise AssertionError(f"MP3 Huffman kernel != twin on random "
                                  f"lanes at W={Wr}: max abs err {e}")
     for _ in range(3):
-        mp3_huff.huff_decode(p_d, m_d, W)
-    ms = time_cuda(lambda: mp3_huff.huff_decode(p_d, m_d, W), 20)
+        mp3_huff.huff_decode(p_d, m_d, W, lpf)
+    ms = time_cuda(lambda: mp3_huff.huff_decode(p_d, m_d, W, lpf), 20)
 
-    offs, perm = mp3_huff.huff_plan_cuda(m_d)
+    offs, perm = mp3_huff.huff_plan_cuda(m_d, lpf)
     if not (torch.equal(perm, mp3_huff.huff_lane_perm(m_d)) and torch.equal(
-            offs, mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN])
+            offs, mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN], lpf)
             .to(torch.int32))):
         raise AssertionError("MP3 Huffman plan != its twins")
     q2 = torch.empty_like(q)
     e2 = torch.empty_like(err)
     kernel_ms = time_cuda(
         lambda: mp3_huff.huff_launch(p_d, m_d, W, offs, perm, q2, e2), 20)
-    plan_ms = time_cuda(lambda: mp3_huff.huff_plan_cuda(m_d), 20)
-    host_ms = time_host(lambda: mp3_huff.huff_decode(p_d, m_d, W))
+    plan_ms = time_cuda(lambda: mp3_huff.huff_plan_cuda(m_d, lpf), 20)
+    host_ms = time_host(lambda: mp3_huff.huff_decode(p_d, m_d, W, lpf))
     steps_np = steps.cpu().numpy()
     ratio = warp_step_ratio(steps_np)
     ratio_perm = warp_step_ratio(steps_np, perm.cpu().numpy())
-    # q and err out; pool words and meta in
-    b = bound(L * 576 * 4 + L + pool.size * 4 + L * 32,
+    # q and err out; the pool words the lanes read and meta in
+    read = mp3_read_words(meta16, lpf)
+    b = bound(L * 576 * 4 + L + read * 4 + L * 32,
               int(steps_np.sum()) * HUFF_STEP_OPS)
     print(f"# kernel mp3_huff L={L} W={W} (one MP3 window, {pool.size} pool "
-          f"words, {nz} nonzero q, {int(steps_np.sum())} steps, warp max / "
+          f"words ({pool.size * 4} bytes, each frame's main data once, "
+          f"{lpf} lanes a frame; the lanes read {read} of them, "
+          f"{read * 4} bytes, the bound's), {nz} nonzero q, "
+          f"{int(steps_np.sum())} "
+          f"steps, warp max / "
           f"mean {ratio:.4f} in the window's order, {ratio_perm:.4f} in the "
           f"wrapper's): bit-equal to the twin, and on 2 x 16,384 random-bit "
           f"lanes at W=20 and 136; wrapper {ms:.4f} ms (its host enqueue "
@@ -2232,19 +2296,36 @@ def phase_vorbis_kernel(card, kept):
         y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch), 20)
     kernel_ms = time_cuda(lambda: vorbis_win.lap_chain_launch(
         y1, y0, *geo, *st, got, bs0=bs0, bs1=bs1, ch=ch), 20)
+    dev_ms = device_ms(lambda: vorbis_win.lap_chain_launch(
+        y1, y0, *geo, *st, got, bs0=bs0, bs1=bs1, ch=ch), "vorbis_win")
+    host_ms = time_host(lambda: vorbis_win.lap_chain(
+        y1, y0, *geo, *st, bs0=bs0, bs1=bs1, ch=ch))
+    launch_host_ms = time_host(lambda: vorbis_win.lap_chain_launch(
+        y1, y0, *geo, *st, got, bs0=bs0, bs1=bs1, ch=ch))
+    chained = int(vorbis_win.chained_lanes(*geo, lap_len, bs0=bs0,
+                                           bs1=bs1).sum())
     imdct_ms = time_cuda(imdct, 20)
     chain_ms = time_cuda(lambda: vorbis_win.vorbis_window_chain(
         *args, **kw), 20)
     b = bound(vorbis_win_work(y1, y0, *geo, bs0, bs1, ch), 0)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
     print(f"# kernel vorbis_win, the Vorbis slice's first window (K={K}, "
           f"L={L} lane-channels, bs {bs0}/{bs1}, "
-          f"{int(valid.sum())} valid slots): within {err:.3g} of the peak "
-          f"of the twin; wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} "
-          f"ms, twin {plain_ms:.1f} ms; the IMDCT matmuls beside it "
-          f"{imdct_ms:.4f} ms, the whole window chain {chain_ms:.4f} ms; "
-          f"bound_ms {b['bound_ms']:.4f} ({b['bound_by']}), share "
-          f"{b['bound_ms'] / ms:.3f} [{card}]")
+          f"{int(valid.sum())} valid slots, {chained} of {L // ch} lanes "
+          f"chained): within {err:.3g} of the peak "
+          f"of the twin; wrapper {ms:.4f} ms (its host enqueue "
+          f"{host_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms (its host "
+          f"enqueue {launch_host_ms:.4f} ms), the kernel's device time "
+          f"(torch.profiler) {dev_txt}, twin {plain_ms:.1f} ms; the IMDCT "
+          f"matmuls beside it {imdct_ms:.4f} ms, the whole window chain "
+          f"{chain_ms:.4f} ms; bound_ms {b['bound_ms']:.4f} "
+          f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} through the "
+          f"wrapper, "
+          + ("not measured" if dev_ms is None
+             else f"{b['bound_ms'] / dev_ms:.3f}")
+          + f" of its device time [{card}]")
     return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "device_ms": dev_ms, "host_ms": host_ms,
             "plain_ms": plain_ms, **b, "library_ms": None,
             "share": b["bound_ms"] / ms, "imdct_ms": imdct_ms,
             "chain_ms": chain_ms}
@@ -2870,9 +2951,42 @@ def k10_sass(funcs):
     return n_int, sum(span.values()) - n_int, span
 
 
+def k11_sass(funcs):
+    """K11's parallel path (vorbis_win_kernel): of its loops, the one whose
+    own instructions, outside nested loops, hold the most 16-byte global
+    loads: the PCM row's loop.  Returns (its instructions, the 16-byte
+    vectors it stores a trip, the opcodes counted)."""
+    import collections
+    import re
+
+    body = next(v for k, v in funcs.items() if "vorbis_win_kernel" in k)
+    at = {a: k for k, (a, _) in enumerate(body)}
+    loops = []
+    for k, (a, i) in enumerate(body):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)",
+                      re.sub(r"^@!?U?P\w+\s+", "", i))
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], k))
+
+    def own(lp):
+        inner = [s for s in loops if s != lp and lp[0] <= s[0]
+                 and s[1] <= lp[1]]
+        return collections.Counter(
+            _opcode(body[k][1]) for k in range(lp[0], lp[1] + 1)
+            if not any(s[0] <= k <= s[1] for s in inner))
+
+    def wide(ops, head):
+        return sum(n for o, n in ops.items()
+                   if o.startswith(head) and ".128" in o)
+
+    best = max(loops, key=lambda lp: (wide(own(lp), "LDG"), lp[0] - lp[1]))
+    ops = own(best)
+    return sum(ops.values()), wide(ops, "STG"), ops
+
+
 def print_sass(trees):
-    """--sass [DIR ...]: K5's, K2's, K4's and K10's SASS counts, this
-    tree's and each DIR's."""
+    """--sass [DIR ...]: K5's, K2's, K4's, K10's and K11's SASS counts,
+    this tree's and each DIR's."""
     for tree in (ROOT, *trees):
         funcs = kernel_sass(tree)
         per_step, ops = k5_sass(funcs)
@@ -2904,35 +3018,50 @@ def print_sass(trees):
                   f"{n_int} integer-pipe instructions a sample (the bound "
                   f"counts {DITHER_INT_OPS}), {n_other} others; "
                   f"{dict(ops.most_common())}")
+        if os.path.exists(os.path.join(tree, "audio_formats_torch", "csrc",
+                                       "vorbis_win.cu")):
+            n, vecs, ops = k11_sass(kernel_sass(tree, "vorbis_win"))
+            print(f"# K11 SASS, {tree}: the PCM row's loop, {n} "
+                  f"instructions, {vecs} 16-byte vectors stored a trip = "
+                  f"{n / max(vecs, 1):.2f} instructions a vector; "
+                  f"{dict(ops.most_common())}")
 
 
 AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode",
-              "flac_rice")
+              "flac_rice", "vorbis_win")
 
 
 def ab_compare(parent, names=AB_KERNELS):
-    """--ab PARENT [NAME ...]: K3, K1, K5, K2 and K4 of this tree (or those
-    NAMEd) against the kernels built from PARENT/audio_formats_torch/csrc
-    (an earlier commit's sources, called through the C entries and
-    wrappers they had then), in one process on one card, in turns parent /
-    change / change / parent: K3's wrapper and launch alone at one
-    98,304-lane window of the MP3 slice, K1's at the FLAC slice's first
+    """--ab PARENT [NAME ...]: K3, K1, K5, K2, K4 and K11 of this tree (or
+    those NAMEd) against the kernels built from
+    PARENT/audio_formats_torch/csrc (an earlier commit's sources, called
+    through the C entries and wrappers they had then), in one process on
+    one card, in turns parent / change / change / parent: K3's wrapper and
+    launch alone at one 98,304-lane window of the MP3 slice (its frame
+    pool; the parent's kernel given this tree's plan), then, where PARENT
+    holds the earlier commit's whole tree, that tree's own K3 phase and
+    MP3 slice (its wire, its h2d_bytes), imported in the same process as
+    parent_audio_formats_torch, beside this tree's; K11's wrapper, launch alone and device time at the Vorbis
+    slice's first window, with the largest difference between the two;
+    K1's at the FLAC slice's first
     window and at the random-lane window of phase_kernel, K5 at the random
     chunk of phase_qoa_kernels and at the QOA encode slice's first (full)
     and last (tail) chunks, K2's wrapper and launch alone at the random
     window of phase_qoa_kernels and at the QOA decode slice's first and
     last windows, and its int32 form at the random window, K4's wrapper,
     launch alone and first 32 lanes alone (one warp) at the FLAC Rice
-    slice's first dispatch.  Each pair is first held equal, bit for bit.
-    Then the MP3, FLAC, QOA encode, QOA decode and FLAC Rice slices with
-    either side's kernel, in turns.  Prints one line a measurement and the
-    card; no result line."""
+    slice's first dispatch.  Each pair is first held equal, bit for bit
+    (K11 within VORBIS_TOL of the peak, its largest difference printed).
+    Then the MP3, FLAC, QOA encode, QOA decode, FLAC Rice and Vorbis slices
+    with either side's kernel, in turns.  Prints one line a measurement and
+    the card; no result line."""
     import ctypes
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
-    from audio_formats_torch.ops import _kernels, flac_rice, lms, lpc, mp3_huff
+    from audio_formats_torch.ops import (_kernels, flac_rice, lms, lpc, mdct,
+                                         mp3_huff, vorbis_win)
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA GPU: the comparison runs on the card")
@@ -2944,7 +3073,8 @@ def ab_compare(parent, names=AB_KERNELS):
     print(card)
     V, I = ctypes.c_void_p, ctypes.c_int
     old_entries = {"flac_lpc": ("af_flac_lpc", [V] * 6 + [I, I, V]),
-                   "mp3_huff": ("af_mp3_huff", [V] * 4 + [I, I, I, V, V, V]),
+                   "mp3_huff": ("af_mp3_huff", [V] * 5 + [I, I, I, V, V, V]),
+                   "vorbis_win": ("af_vorbis_win", [V] * 14 + [I] * 5 + [V]),
                    "qoa_encode": ("af_qoa_encode",
                                   [V, I, V, V, V, V, V, V, I, V]),
                    "qoa_decode": ("af_qoa_decode", [V] * 6 + [I, I, V]),
@@ -2952,7 +3082,7 @@ def ab_compare(parent, names=AB_KERNELS):
                                  [V, I, V, V, V, V, I, I, I] + [V] * 6)}
     sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
                "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms",
-               "flac_rice": "flac_rice"}
+               "flac_rice": "flac_rice", "vorbis_win": "vorbis_win"}
 
     def build_parent(name):
         src = os.path.join(parent, "audio_formats_torch", "csrc",
@@ -2970,11 +3100,15 @@ def ab_compare(parent, names=AB_KERNELS):
     with ProcessPoolExecutor(max_workers=8, mp_context=ctx) as pool:
         if "mp3_huff" in names:
             mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
+        if "vorbis_win" in names:
+            vorbis_masters = pool.map(vorbis_master, range(VORBIS_MASTERS))
         with ThreadPoolExecutor(max_workers=2 * len(names)) as ex:
             olds = dict(zip(names, ex.map(build_parent, names)))
             list(ex.map(_kernels.build, {sources[n] for n in names}))
         if "mp3_huff" in names:
             mp3_masters = list(mp3_masters)
+        if "vorbis_win" in names:
+            vorbis_masters = list(vorbis_masters)
     dev = torch.device("cuda")
 
     def stream():
@@ -2989,21 +3123,21 @@ def ab_compare(parent, names=AB_KERNELS):
         print(f"# ab {label}: parent {t[0]:.4f} ms, change {t[1]:.4f} ms, "
               f"change {t[2]:.4f} ms, parent {t[3]:.4f} ms [{card}]")
 
-    # the parent's wrappers: int64 offsets cast to int32, q and err (or
-    # out, or the word plane and states) from torch.empty; `out` given:
-    # the launch alone
-    def huff_old(pool_d, meta_d, Wd, offs=None, out=None):
+    # the parent's wrappers: q and err (or out, or the word plane and
+    # states) from torch.empty; `out` given: the launch alone.  K3's takes
+    # this tree's plan (the frame pool's offsets and the lane order): the
+    # parent's plan addressed a pool of lane rows
+    def huff_old(pool_d, meta_d, Wd, lpf=1, offs=None, perm=None, out=None):
         Ld = meta_d.shape[0]
         if offs is None:
-            offs = mp3_huff._lane_offsets(meta_d[:, mp3_huff.M_SPAN])\
-                .to(torch.int32)
+            offs, perm = mp3_huff.huff_plan_cuda(meta_d, lpf)
         q_d, e_d = out or (torch.empty((Ld, 576), dtype=torch.int32,
                                        device=dev),
                            torch.empty(Ld, dtype=torch.bool, device=dev))
         _kernels.check_launch("old huff", olds["mp3_huff"](
             pool_d.data_ptr(), offs.data_ptr(), meta_d.data_ptr(),
-            blob.data_ptr(), blob.shape[0], Ld, Wd, q_d.data_ptr(),
-            e_d.data_ptr(), stream()))
+            perm.data_ptr(), blob.data_ptr(), blob.shape[0], Ld, Wd,
+            q_d.data_ptr(), e_d.data_ptr(), stream()))
         return q_d, e_d
 
     def lpc_old(residual, coeffs, order, shift, exact, out=None):
@@ -3027,28 +3161,170 @@ def ab_compare(parent, names=AB_KERNELS):
     slices = []   # (label, module, attribute, the parent's function, run)
     if "mp3_huff" in names:
         # K3 at one window of the MP3 slice
-        mp3_streams = mp3_corpus(mp3_masters)[0]
-        pool, meta16, W = mp3_window(mp3_streams)
+        mp3_streams, mp3_info = mp3_corpus(mp3_masters)
+        pool, meta16, W, lpf = mp3_window(mp3_streams)
         p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
         L = meta16.shape[0]
         blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
-        q_old, e_old = huff_old(p_d, m_d, W)
-        q_new, e_new = mp3_huff.huff_decode(p_d, m_d, W)
+        q_old, e_old = huff_old(p_d, m_d, W, lpf)
+        q_new, e_new = mp3_huff.huff_decode(p_d, m_d, W, lpf)
         torch.cuda.synchronize()
         if not (torch.equal(q_old, q_new) and torch.equal(e_old, e_new)):
             raise AssertionError("K3: parent and change differ")
-        offs32 = mp3_huff._lane_offsets(m_d[:, mp3_huff.M_SPAN])\
-            .to(torch.int32)
-        perm = mp3_huff.huff_lane_perm(m_d)
-        turns(f"mp3_huff wrapper L={L} W={W}", lambda: huff_old(p_d, m_d, W),
-              lambda: mp3_huff.huff_decode(p_d, m_d, W))
+        offs32, perm = mp3_huff.huff_plan_cuda(m_d, lpf)
+        turns(f"mp3_huff wrapper L={L} W={W}",
+              lambda: huff_old(p_d, m_d, W, lpf),
+              lambda: mp3_huff.huff_decode(p_d, m_d, W, lpf))
         turns(f"mp3_huff kernel alone L={L} W={W}",
-              lambda: huff_old(p_d, m_d, W, offs32, (q_old, e_old)),
+              lambda: huff_old(p_d, m_d, W, lpf, offs32, perm,
+                               (q_old, e_old)),
               lambda: mp3_huff.huff_launch(p_d, m_d, W, offs32, perm, q_new,
                                            e_new))
         del q_old, q_new
-        slices.append(("MP3 slice", mp3_huff, "huff_decode", huff_old,
+        # the MP3 slice over each tree's own wire (C stage, pool, plan and
+        # kernel), where PARENT holds the whole earlier tree
+        pkg = parent_package(parent)
+        if pkg is not None:
+            import audio_formats_torch
+
+            sides, pcm = [], []
+            for side in (pkg, audio_formats_torch):
+                (st, wall), (a, k) = first_call_of(
+                    side.ops.mp3_huff, "huff_decode",
+                    lambda: decode_stats(side, mp3_streams, pcm))
+                sides.append((st, wall, a, k, side.ops.mp3_huff.huff_decode))
+                print(f"# ab MP3 slice over the {side.__name__} wire: "
+                      f"h2d_bytes {st['h2d_bytes']}, windows "
+                      f"{st['windows']}, {st['decoded_seconds'] / wall:.1f}x "
+                      f"realtime; its first window {a[0].numel()} pool "
+                      f"words for {a[1].shape[0]} lanes, W={a[2]} [{card}]")
+            diff = max(float(np.abs(x - y).max()) for x, y in zip(*pcm))
+            if diff:
+                raise AssertionError(f"the MP3 slice's PCM differs between "
+                                     f"the two wires by {diff}")
+            print(f"# ab MP3 slice: the {len(pcm[0])} lanes' PCM bit-equal "
+                  f"over the two wires [{card}]")
+            del pcm
+            turns("mp3_huff wrapper at each wire's own first window",
+                  lambda: sides[0][4](*sides[0][2], **sides[0][3]),
+                  lambda: sides[1][4](*sides[1][2], **sides[1][3]))
+            runs = [(who, *decode_stats(side, mp3_streams))
+                    for who, side in (("parent", pkg),
+                                      ("change", audio_formats_torch),
+                                      ("change", audio_formats_torch),
+                                      ("parent", pkg)) * 2]
+            print("# ab MP3 slice over each wire, realtime factor (wall, "
+                  "enqueue_ms, host_ms): " + ", ".join(
+                      f"{who} {st['decoded_seconds'] / wall:.1f}x "
+                      f"({wall:.3f} s, {st['enqueue_ms']:.0f}, "
+                      f"{st['host_ms']:.0f})" for who, st, wall in runs)
+                  + f" [{card}]")
+            del sides
+        slices.append(("MP3 slice", mp3_huff, "huff_decode",
+                       lambda p_, m_, W_, lpf_=1: huff_old(p_, m_, W_, lpf_),
                        lambda: decode_realtime(mp3_streams)))
+
+    def win_old(y1, y0, ls, rs, re, valid, lap, lap_len, had_prev, *, bs0,
+                bs1, ch, out=None):
+        K, L_, _ = y1.shape
+        B = L_ // ch
+        out = out or (torch.empty((K, L_, bs1), device=dev),
+                      torch.empty((L_, bs1 // 2), device=dev),
+                      torch.empty(B, dtype=torch.int32, device=dev),
+                      torch.empty(B, dtype=torch.int32, device=dev))
+        slopes = mp3_huff.device_const(vorbis_win.slope_rows(bs0, bs1), dev)
+        _kernels.check_launch("old vorbis_win", olds["vorbis_win"](
+            y1.data_ptr(), (y1 if y0 is None else y0).data_ptr(),
+            ls.data_ptr(), rs.data_ptr(), re.data_ptr(), valid.data_ptr(),
+            lap.data_ptr(), lap_len.data_ptr(), had_prev.data_ptr(),
+            slopes.data_ptr(), *(o.data_ptr() for o in out), K, L_, ch, bs0,
+            bs1, stream()))
+        return out
+
+    if "vorbis_win" in names:
+        # K11 at the Vorbis slice's first window (its arguments kept from
+        # one run of the slice)
+        v_streams = [vorbis_masters[i % len(vorbis_masters)][0]
+                     for i in range(VORBIS_LANES)]
+        kept = {}
+        chain = vorbis_win.vorbis_window_chain
+
+        def first_call(*a, **k):
+            kept.setdefault("args", (a, k))
+            return chain(*a, **k)
+
+        vorbis_win.vorbis_window_chain = first_call
+        try:
+            decode_realtime(v_streams)
+        finally:
+            vorbis_win.vorbis_window_chain = chain
+        (X, *geo_st), kw = kept["args"]
+        Kv, Lv, hv = X.shape
+        bs0, bs1 = kw["bs0"], kw["bs1"]
+        y1 = mdct.imdct_batch(X.reshape(Kv * Lv, hv), bs1)\
+            .reshape(Kv, Lv, bs1)
+        y0 = mdct.imdct_batch(X[..., :bs0 // 2].reshape(Kv * Lv, bs0 // 2),
+                              bs0).reshape(Kv, Lv, bs0)
+        got_old = win_old(y1, y0, *geo_st, **kw)
+        got_new = vorbis_win.lap_chain(y1, y0, *geo_st, **kw)
+        torch.cuda.synchronize()
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(got_old[:2], got_new[:2]))
+        peak = float(got_old[0].abs().max())
+        if not (diff <= VORBIS_TOL * peak and torch.equal(got_old[2],
+                                                          got_new[2])
+                and torch.equal(got_old[3], got_new[3])):
+            raise AssertionError(f"K11: parent and change differ by {diff}")
+        print(f"# ab vorbis_win: largest difference between parent and "
+              f"change {diff:.6g} (PCM peak {peak:.6g}), lap_len' and "
+              f"had_prev' equal [{card}]")
+        label = f"the Vorbis slice's first window K={Kv} L={Lv}"
+        turns(f"vorbis_win wrapper, {label}",
+              lambda: win_old(y1, y0, *geo_st, **kw),
+              lambda: vorbis_win.lap_chain(y1, y0, *geo_st, **kw))
+        turns(f"vorbis_win kernel alone, {label}",
+              lambda: win_old(y1, y0, *geo_st, **kw, out=got_old),
+              lambda: vorbis_win.lap_chain_launch(y1, y0, *geo_st, got_new,
+                                                  **kw))
+        alone = (lambda: win_old(y1, y0, *geo_st, **kw, out=got_old),
+                 lambda: vorbis_win.lap_chain_launch(y1, y0, *geo_st,
+                                                     got_new, **kw))
+        d = [device_ms(fn, "vorbis_win") for fn in alone + alone[::-1]]
+        h = [time_host(fn) for fn in (
+            lambda: win_old(y1, y0, *geo_st, **kw),
+            lambda: vorbis_win.lap_chain(y1, y0, *geo_st, **kw))]
+        print(f"# ab vorbis_win device time (torch.profiler), {label}: "
+              f"parent, change, change, parent: "
+              + ", ".join("not measured" if t is None else f"{t:.4f} ms"
+                          for t in d)
+              + f"; host enqueue of the wrapper: parent {h[0]:.4f} ms, "
+              f"change {h[1]:.4f} ms [{card}]")
+        pkg = parent_package(parent)
+        if pkg is not None:
+            # the parent's own wrapper (its checks, allocations and launch)
+            pw = pkg.ops.vorbis_win
+            p_out = pw.lap_chain(y1, y0, *geo_st, **kw)
+            turns(f"vorbis_win wrappers as each tree has them, {label}",
+                  lambda: pw.lap_chain(y1, y0, *geo_st, **kw),
+                  lambda: vorbis_win.lap_chain(y1, y0, *geo_st, **kw))
+            turns(f"vorbis_win launches alone as each tree has them, {label}",
+                  lambda: pw.lap_chain_launch(y1, y0, *geo_st, p_out, **kw),
+                  lambda: vorbis_win.lap_chain_launch(y1, y0, *geo_st,
+                                                      got_new, **kw))
+            hp = [time_host(fn) for fn in (
+                lambda: pw.lap_chain(y1, y0, *geo_st, **kw),
+                lambda: vorbis_win.lap_chain(y1, y0, *geo_st, **kw),
+                lambda: pw.lap_chain_launch(y1, y0, *geo_st, p_out, **kw),
+                lambda: vorbis_win.lap_chain_launch(y1, y0, *geo_st,
+                                                    got_new, **kw))]
+            print(f"# ab vorbis_win host enqueue as each tree has it, "
+                  f"{label}: wrapper parent {hp[0]:.4f} ms, change "
+                  f"{hp[1]:.4f} ms; launch alone parent {hp[2]:.4f} ms, "
+                  f"change {hp[3]:.4f} ms [{card}]")
+            del p_out
+        del got_old, got_new, y1, y0
+        slices.append(("Vorbis slice", vorbis_win, "lap_chain", win_old,
+                       lambda: decode_realtime(v_streams)))
 
     if "flac_lpc" in names or "flac_rice" in names:
         streams, pcms = build_corpus()
@@ -3228,6 +3504,64 @@ def ab_compare(parent, names=AB_KERNELS):
         print(f"# ab {label} realtime factor: parent {r[0]:.1f}x, change "
               f"{r[1]:.1f}x, change {r[2]:.1f}x, parent {r[3]:.1f}x [{card}]")
     print(card)
+
+
+def parent_package(parent):
+    """The earlier commit's whole package, where PARENT holds it (``git
+    archive <commit> | tar -x -C PARENT``), imported beside this tree's as
+    ``parent_audio_formats_torch``: its wrappers, C stage and kernels, built
+    into PARENT.  None where PARENT holds only the kernel sources."""
+    import importlib
+    import importlib.util
+
+    name = "parent_audio_formats_torch"
+    if name in sys.modules:
+        return sys.modules[name]
+    init = os.path.join(os.path.abspath(parent), "audio_formats_torch",
+                        "__init__.py")
+    if not os.path.exists(init):
+        return None
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[os.path.dirname(init)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("ops.mp3_huff", "ops.vorbis_win"):
+        importlib.import_module(f"{name}.{sub}")
+    return mod
+
+
+def first_call_of(module, fn_name, run):
+    """Run `run()` with module.fn_name wrapped to keep its first call's
+    arguments; returns (run's result, (args, kwargs))."""
+    fn = getattr(module, fn_name)
+    kept = {}
+
+    def keep(*a, **k):
+        kept.setdefault("call", (a, k))
+        return fn(*a, **k)
+
+    setattr(module, fn_name, keep)
+    try:
+        return run(), kept["call"]
+    finally:
+        setattr(module, fn_name, fn)
+
+
+def decode_stats(package, streams, keep=None):
+    """One decode_all(output="device") of the streams with `package`'s
+    BatchDecoder on the card, synced: (its stats, wall seconds); the
+    lanes' PCM appended to `keep` where it is a list."""
+    import torch
+
+    dec = package.BatchDecoder(streams, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dec.decode_all(output="device").sync()
+    wall = time.perf_counter() - t0
+    if keep is not None:
+        keep.append(res.to_numpy())
+    return dec.stats, wall
 
 
 RING_PROBES = tuple((layout, depth) for layout in ("word-major", "lane-major")

@@ -508,11 +508,11 @@ def test_mp3_huff_kernel_matches_twin(cuda, L, W):
     # q comes from torch.empty: hand the kernel a block of -7s, so a
     # position it does not write shows
     torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
-    q, err = mp3_huff.huff_decode(pool, meta, W)
+    q, err = mp3_huff.huff_decode(pool, meta, W, 1)
     torch.cuda.synchronize()
     assert mp3_huff.HUFF_LAUNCHES == before + 1
     assert q.device.type == "cuda" and q.dtype == torch.int32
-    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W)
+    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W, 1)
     assert torch.equal(q, qt) and torch.equal(err, errt)
 
 
@@ -520,7 +520,8 @@ def test_mp3_huff_kernel_matches_twin(cuda, L, W):
     (300, 20, "past_clamp"),   # bit_start past (W - 3) * 32: the window
     (513, 136, "past_clamp"),  # of words reloads backwards
     (600, 4, "random"),        # the narrowest row
-    (700, 136, "random"),      # the widest row (LANE_WORDS + 4)
+    (700, 136, "random"),      # a lane row's width before the frame pool
+    (120, 1000, "random"),     # a frame pool's width
     (1000, 52, "no_pairs"),    # every lane bv = 0: count1 and zeros only
     (257, 52, "mixed_pairs"),  # pair counts of every size in one warp
     (400, 52, "wide_linbits"),  # linbits past the tables' 13
@@ -545,13 +546,13 @@ def test_mp3_huff_kernel_edges_match_twin(cuda, L, W, case):
     elif case == "wide_linbits":
         meta[:, 8:11] = rng.integers(0, 20, (L, 3))
     pool, meta = (torch.from_numpy(a).to(cuda) for a in (pool, meta))
-    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W)
+    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W, 1)
     torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
-    q, err = mp3_huff.huff_decode(pool, meta, W)
+    q, err = mp3_huff.huff_decode(pool, meta, W, 1)
     assert torch.equal(q, qt) and torch.equal(err, errt)
-    offs = mp3_huff._lane_offsets(meta[:, mp3_huff.M_SPAN]).to(torch.int32)
+    offs = mp3_huff._lane_offsets(meta[:, mp3_huff.M_SPAN], 1).to(torch.int32)
     # the card's plan is the twins' offsets and lane order
-    offs_c, perm_c = mp3_huff.huff_plan_cuda(meta)
+    offs_c, perm_c = mp3_huff.huff_plan_cuda(meta, 1)
     assert torch.equal(offs_c, offs)
     assert torch.equal(perm_c, mp3_huff.huff_lane_perm(meta))
     for perm in (torch.arange(L, dtype=torch.int32),
@@ -562,15 +563,56 @@ def test_mp3_huff_kernel_edges_match_twin(cuda, L, W, case):
         assert torch.equal(q2, qt) and torch.equal(e2, errt)
 
 
+def _as_frames(meta, lpf):
+    """Random lanes regrouped into frames of lpf lanes: a frame's words are
+    its lanes' words end to end (the pool as it is), each lane's bit
+    positions counted from its frame's first word.  Returns (meta, the
+    widest lane reach in words)."""
+    m = meta.copy()
+    span = meta[:, 15].astype(np.int64)
+    start = np.cumsum(span) - span
+    shift = 32 * (start - np.repeat(start[::lpf], lpf))
+    m[:, 0] += shift
+    m[:, 1] += shift
+    m[:, 15] = np.repeat(np.add.reduceat(span, np.arange(0, len(span), lpf)),
+                         lpf)
+    return m, int(max(m[:, 15].max(), (m[:, :2].max() >> 5) + 1))
+
+
+@pytest.mark.parametrize("lpf", [2, 4])
+def test_mp3_huff_kernel_frames_match_twin(cuda, lpf):
+    """Lanes that share their frame's words (lanes_per_frame > 1, the
+    batch wire): each reads on into the words of its frame's later lanes
+    and zeros past the frame; the plan's offsets are the twin's, and the
+    kernel's q and err the twin's."""
+    from audio_formats_torch.ops import mp3_huff
+
+    rng = np.random.default_rng(40 + lpf)
+    L = 1024
+    pool, meta = mp3_random_lanes(rng, L, 28)
+    meta, reach = _as_frames(meta, lpf)
+    W = mp3_huff.row_width(reach)
+    pool, meta = (torch.from_numpy(a).to(cuda) for a in (pool, meta))
+    qt, errt = mp3_huff.huff_decode_torch(pool, meta, W, lpf)
+    torch.full((L, 576), -7, dtype=torch.int32, device=cuda)
+    q, err = mp3_huff.huff_decode(pool, meta, W, lpf)
+    assert torch.equal(q, qt) and torch.equal(err, errt)
+    offs_c, perm_c = mp3_huff.huff_plan_cuda(meta, lpf)
+    assert torch.equal(offs_c, mp3_huff._lane_offsets(
+        meta[:, mp3_huff.M_SPAN], lpf).to(torch.int32))
+    assert torch.equal(perm_c, mp3_huff.huff_lane_perm(meta))
+
+
 def test_mp3_huff_kernel_rejects_bad_arguments(cuda):
     from audio_formats_torch.ops import mp3_huff
 
     rng = np.random.default_rng(5)
     pool, meta = (torch.from_numpy(a).to(cuda)
                   for a in mp3_random_lanes(rng, 16, 20))
-    for bad in ((pool, meta.to(torch.int32), 20), (pool.cpu(), meta, 20),
-                (pool.to(torch.int64), meta, 20),
-                (pool, meta.t().contiguous().t(), 20), (pool, meta, 1000)):
+    for bad in ((pool, meta.to(torch.int32), 20, 1), (pool.cpu(), meta, 20, 1),
+                (pool.to(torch.int64), meta, 20, 1),
+                (pool, meta.t().contiguous().t(), 20, 1),
+                (pool, meta, 1200, 1), (pool, meta, 20, 3)):
         with pytest.raises(ValueError):
             mp3_huff.huff_decode_cuda(*bad)
 
@@ -968,10 +1010,15 @@ def test_encode_wav_batch_cuda_equals_cpu(cuda, fmt, dither):
 
 
 # ------------------------------------------------------- Vorbis (K11)
-VORBIS_CASES = [  # (seed, B, ch, K, bs0, bs1, lies)
-    (1, 6, 2, 8, 512, 2048, False), (2, 5, 1, 8, 256, 1024, False),
-    (3, 40, 2, 8, 512, 2048, True), (4, 3, 1, 5, 64, 8192, False),
-    (5, 4, 2, 8, 512, 512, False), (6, 256, 2, 8, 512, 2048, False)]
+VORBIS_CASES = [  # (seed, B, ch, K, bs0, bs1, lies, share of empty slots)
+    (1, 6, 2, 8, 512, 2048, False, 0.15), (2, 5, 1, 8, 256, 1024, False, 0.15),
+    (3, 40, 2, 8, 512, 2048, True, 0.15), (4, 3, 1, 5, 64, 8192, False, 0.15),
+    (5, 4, 2, 8, 512, 512, False, 0.15), (6, 256, 2, 8, 512, 2048, False, 0.15),
+    # chained and parallel lanes in one window (a third of the lanes lie)
+    (7, 96, 2, 8, 512, 2048, 0.3, 0.15), (8, 64, 1, 8, 256, 1024, 0.3, 0.0),
+    # every slot of every lane empty; one slot a window; one block size
+    (9, 32, 2, 8, 512, 2048, False, 1.0), (10, 48, 2, 1, 512, 2048, 0.3, 0.15),
+    (11, 40, 1, 8, 2048, 2048, False, 0.15)]
 
 
 def _close(got, want, tol=4e-6):
@@ -984,12 +1031,13 @@ def _close(got, want, tol=4e-6):
 def test_vorbis_lap_kernel_matches_twin(cuda, case):
     """K11 against its twin over two windows in a row, on the same IMDCT
     rows: PCM and lap within 4e-6 of the peak, lap_len and had_prev
-    equal."""
-    seed, B, ch, K, bs0, bs1, lies = case
+    equal; where a share of the lanes lie, both of K11's paths run in the
+    one launch."""
+    seed, B, ch, K, bs0, bs1, lies, empty = case
     state = None
     for w in range(2):
         X, geom, lap, lap_len, had_prev = torch_pcm_cases.vorbis_chain_case(
-            seed + 100 * w, B, ch, K, bs0, bs1, lies=lies)
+            seed + 100 * w, B, ch, K, bs0, bs1, lies=lies, empty=empty)
         if state is None:
             state = tuple(torch.from_numpy(a).to(cuda)
                           for a in (lap, lap_len, had_prev))
@@ -999,6 +1047,9 @@ def test_vorbis_lap_kernel_matches_twin(cuda, case):
             .reshape(K, -1, bs1)
         y0 = tmdct.imdct_batch(Xd[..., :h0].reshape(-1, h0), bs0) \
             .reshape(K, -1, bs0) if bs0 != bs1 else None
+        if isinstance(lies, float) and K > 1:
+            chained = twin.chained_lanes(*g, state[1], bs0=bs0, bs1=bs1)
+            assert bool(chained.any()) and not bool(chained.all())
         before = twin.WIN_LAUNCHES
         got = twin.lap_chain(y1, y0, *g, *state, bs0=bs0, bs1=bs1, ch=ch)
         assert twin.WIN_LAUNCHES - before == 1
@@ -1008,6 +1059,37 @@ def test_vorbis_lap_kernel_matches_twin(cuda, case):
         _close(got[1], want[1])
         assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
         state = got[1:]
+
+
+def test_vorbis_lap_kernel_unaligned_rows_match_twin(cuda):
+    """IMDCT rows and outputs that do not start on 16 bytes take K11's
+    serial path for every lane, in the same launch: equal to the twin."""
+    B, ch, K, bs0, bs1 = 24, 2, 8, 512, 2048
+    X, geom, lap, lap_len, had_prev = torch_pcm_cases.vorbis_chain_case(
+        12, B, ch, K, bs0, bs1, lies=0.3)
+    L, h0 = B * ch, bs0 // 2
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    Xd, g = torch.from_numpy(X).to(cuda), torch.from_numpy(geom).to(cuda)
+    y1 = shifted(tmdct.imdct_batch(Xd.reshape(-1, bs1 // 2), bs1)
+                 .reshape(K, L, bs1))
+    y0 = shifted(tmdct.imdct_batch(Xd[..., :h0].reshape(-1, h0), bs0)
+                 .reshape(K, L, bs0))
+    st = [torch.from_numpy(a).to(cuda) for a in (lap, lap_len, had_prev)]
+    out = (shifted(torch.zeros((K, L, bs1), device=cuda)),
+           shifted(torch.zeros((L, bs1 // 2), device=cuda)),
+           torch.empty(B, dtype=torch.int32, device=cuda),
+           torch.empty(B, dtype=torch.int32, device=cuda))
+    twin.lap_chain_launch(y1, y0, *g, *st, out, bs0=bs0, bs1=bs1, ch=ch)
+    want = twin.lap_chain_torch(y1, y0, *g, *st, bs0=bs0, bs1=bs1, ch=ch)
+    _close(out[0], want[0])
+    _close(out[1], want[1])
+    assert torch.equal(out[2], want[2]) and torch.equal(out[3], want[3])
 
 
 def test_vorbis_lap_kernel_rejects_bad_arguments(cuda):

@@ -25,7 +25,7 @@ from audio_formats_torch.ops import mp3_dsp, mp3_huff
 from audio_formats_torch.utils.tables import mp3_tables as T
 
 from golden import mp3_ref
-from test_torch_cuda import mp3_random_lanes
+from test_torch_cuda import _as_frames, mp3_random_lanes
 
 #: patterns that have an sfb layout (kind 0..2, sample-rate index 0..8)
 VALID_PATTERNS = [p for p in range(48) if mp3_huff._sfb_widths(p)]
@@ -102,34 +102,36 @@ def mp3_stream_mpeg2(seed, channels=1, n_frames=8, mode_ext=None):
 # ---------------------------------------------------------------------- lanes
 def parsed_lanes(data):
     """Every lane of a stream as the C stage parses it for the batch path,
-    one 6-frame window after another, in the port's layout.  Returns
-    (pool int32, meta16 [L, 16] int16, the C stage's q of each active lane
-    or None)."""
+    one 6-frame window after another, in the port's layout: each frame's
+    words in the pool once, shared by its ngr * nch lanes.  Returns (pool
+    int32, meta16 [L, 16] int16, the C stage's q of each active lane or
+    None, lanes a frame, the widest lane reach in words)."""
     lib = native.get_lib()
     dec = Mp3Decoder(MemorySource(data), device="cpu")
     ref = Mp3Decoder(MemorySource(data), device="cpu")
     nch, ngr = dec.channels, (2 if dec._mpeg1 else 1)
-    W, LW = 6, native.LANE_WORDS
+    W, FW, lpf = 6, native.FRAME_WORDS, ngr * nch
     st = (np.zeros(511, np.uint8), np.zeros(1, np.int32), dec._ist_pos)
-    pools, metas, qrefs = [], [], []
+    pools, metas, qrefs, reach = [], [], [], 16
     while dec._offset < len(dec._view) - 4:
         G = W * ngr
-        bits = np.empty((G * nch, LW), np.uint32)
+        bits = np.empty((W, FW), np.uint32)
         meta = np.zeros((G * nch, 16), np.int32)
         scfq = np.empty((G * nch, 40), np.int16)
         flags = np.zeros(W, np.uint8)
-        n, dec._offset, _mw, _ist = native.mp3_parse_window_packed(
+        n, dec._offset, mw, _ist = native.mp3_parse_window_packed(
             lib, dec._view, dec._offset, dec._hdr0, W, ngr, nch, st, bits,
             meta, scfq, np.zeros((G, nch), np.int32),
             np.zeros((G, nch, 32), np.int32), flags,
             ist=np.zeros((G, 40), np.int16) if nch == 2 else None)
         if n == 0:
             break
+        reach = max(reach, mw)
         m16 = mp3_huff.meta16_from_c(meta)
-        span = m16[:, mp3_huff.M_SPAN]
-        for lane in range(n * ngr * nch):
-            pools.append(bits[lane, : span[lane]])
-        metas.append(m16[: n * ngr * nch])
+        span = m16[::lpf, mp3_huff.M_SPAN]
+        for w in range(n):
+            pools.append(bits[w, : span[w]])
+        metas.append(m16[: n * lpf])
         for w in range(n):
             tq = None
             if flags[w] & 1:
@@ -142,7 +144,23 @@ def parsed_lanes(data):
                     qrefs.append(None if tq is None else
                                  tq["q"][0, g, ch].astype(np.int32))
     return (np.concatenate(pools).astype(np.uint32).view(np.int32),
-            np.concatenate(metas), qrefs)
+            np.concatenate(metas), qrefs, lpf, reach)
+
+
+def lane_rows(pool, meta16, lpf):
+    """Frame-addressed lanes rebased to one row a lane (lanes_per_frame
+    1): each lane's words from its first Huffman word to its frame's end,
+    its bit positions from that word.  (pool, meta16)."""
+    m = meta16.copy()
+    span = meta16[:, mp3_huff.M_SPAN].astype(np.int64)
+    offs = mp3_huff._lane_offsets(torch.from_numpy(span), lpf).numpy()
+    skip = np.minimum(meta16[:, mp3_huff.M_BIT_START].astype(np.int64) >> 5,
+                      span)
+    m[:, mp3_huff.M_BIT_START] -= 32 * skip
+    m[:, mp3_huff.M_BIT_LIMIT] -= 32 * skip
+    m[:, mp3_huff.M_SPAN] = span - skip
+    words = [pool[o + k: o + n] for o, k, n in zip(offs, skip, span)]
+    return np.concatenate(words + [pool[:0]]), m
 
 
 def jax_huff(pool, meta16, W):
@@ -170,9 +188,10 @@ def jax_huff(pool, meta16, W):
     return np.asarray(q), np.asarray(err)
 
 
-def port_huff(pool, meta16, W):
+def port_huff(pool, meta16, W, lanes_per_frame):
     q, err = mp3_huff.huff_decode(torch.from_numpy(pool),
-                                  torch.from_numpy(meta16), W)
+                                  torch.from_numpy(meta16), W,
+                                  lanes_per_frame)
     return q.numpy(), err.numpy()
 
 
@@ -183,7 +202,6 @@ def test_tables_and_constants_equal_jax():
         a, b = getattr(mp3_huff, name), getattr(jhuff, name)
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     assert mp3_huff.SHORT_PATTERNS == jhuff.SHORT_PATTERNS
-    assert native.LANE_WORDS == jhuff.LANE_WORDS
     for name in ("SYNTH_FIR", "AA_CS", "AA_CA", "IMDCT_MATS", "UV_MATS",
                  "_SIGN_T", "SYNTH_TOEPLITZ"):
         a, b = getattr(mp3_dsp, name), getattr(jdsp, name)
@@ -230,19 +248,26 @@ def test_lookup_blob_decodes_every_codeword():
 def test_twin_matches_jax_and_c_stage_on_parsed_lanes():
     """Lanes the C stage parses from golden streams: mono, stereo with
     linbits escapes, short blocks, MS and intensity frames, MPEG-2 mono and
-    intensity stereo.  One JAX call over all of them."""
+    intensity stereo.  The twin on the frame-addressed pool, on the same
+    lanes rebased to a row each, and JAX (one call over all of them, on
+    those rows) decode alike."""
     streams = [mp3_stream(1, channels=1, big=False),
                mp3_stream(2, channels=2),
                mp3_stream(3, channels=2, mode_ext=3, right_cut=200),
                mp3_stream_mpeg2(4, channels=1),
                mp3_stream_mpeg2(5, channels=2, mode_ext=1)]
     parts = [parsed_lanes(d) for d in streams]
-    pool = np.concatenate([p[0] for p in parts])
-    meta16 = np.concatenate([p[1] for p in parts])
+    W = mp3_huff.row_width(max(p[4] for p in parts))
+    q, err = map(np.concatenate, zip(*(port_huff(p[0], p[1], W, p[3])
+                                       for p in parts)))
+    rows = [lane_rows(p[0], p[1], p[3]) for p in parts]
+    pool = np.concatenate([r[0] for r in rows])
+    meta16 = np.concatenate([r[1] for r in rows])
     qrefs = [q for p in parts for q in p[2]]
-    W = mp3_huff.row_width(int(meta16[:, mp3_huff.M_SPAN].max()))
-    q, err = port_huff(pool, meta16, W)
+    ql, errl = port_huff(pool, meta16, W, 1)
     qj, errj = jax_huff(pool, meta16, W)
+    np.testing.assert_array_equal(q, ql)
+    np.testing.assert_array_equal(err, errl)
     np.testing.assert_array_equal(q, qj)
     np.testing.assert_array_equal(err, errj)
     assert not err.any()
@@ -261,7 +286,7 @@ def test_twin_matches_jax_on_random_lanes(W):
     (W - 3) * 32 position clamp and the count1 bit-limit stop decide q."""
     rng = np.random.default_rng(W)
     pool, meta16 = mp3_random_lanes(rng, 600, W)
-    q, err = port_huff(pool, meta16, W)
+    q, err = port_huff(pool, meta16, W, 1)
     qj, errj = jax_huff(pool, meta16, W)
     np.testing.assert_array_equal(q, qj)
     np.testing.assert_array_equal(err, errj)
@@ -321,33 +346,33 @@ def test_huff_decode_rejects_unknown_device():
     with pytest.raises(ValueError):
         mp3_huff.huff_decode(torch.zeros(4, dtype=torch.int32),
                              torch.zeros((2, 16), dtype=torch.int16,
-                                         device="meta"), 20)
+                                         device="meta"), 20, 1)
 
 
-def test_device_stage_matches_jax():
-    """The whole device entropy stage on one window of random lanes with
-    every layout (long, short, mixed blocks at every sample rate), any
-    stereo bits and an intensity plane: Huffman, dequant, the intensity
-    mix, the reorder, window types and antialias counts."""
-    rng = np.random.default_rng(11)
-    B, G, nch, W = 2, 8, 2, 28
-    L = B * G * nch
+def _stage_lanes(rng, W):
+    """Random lanes of one window (B 2, G 8, stereo) with every layout (long,
+    short, mixed blocks at every sample rate), any stereo bits, block types,
+    scalefactors and an intensity plane.  (pool, meta16, scfq, ist)."""
+    L = 2 * 8 * 2
     pool, meta16 = mp3_random_lanes(rng, L, W)
-    meta16[:, 12] = np.repeat(rng.choice(VALID_PATTERNS, L // nch), nch)
-    meta16[:, 13] = np.repeat(rng.integers(0, 16, L // nch), nch)
+    meta16[:, 12] = np.repeat(rng.choice(VALID_PATTERNS, L // 2), 2)
+    meta16[:, 13] = np.repeat(rng.integers(0, 16, L // 2), 2)
     meta16[:, 14] = rng.choice([0, 1, 3], L)
     scfq = rng.integers(-40, 8, (L, 40)).astype(np.int16)
-    ist = rng.integers(0, 9, (B * G, 40)).astype(np.int16)
-    got = mp3_huff.packed_device_stage(
-        torch.from_numpy(pool), torch.from_numpy(meta16),
-        torch.from_numpy(scfq), W, B, G, nch, ist=torch.from_numpy(ist),
-        mpeg1=True, short=True)
+    ist = rng.integers(0, 9, (16, 40)).astype(np.int16)
+    return pool, meta16, scfq, ist
+
+
+def _jax_device_stage(pool, meta16, scfq, ist, W, lpf):
+    """JAX's packed_device_stage on the same lanes (B 2, G 8, stereo,
+    MPEG-1), each lane's row its frame's words with zeros past the span."""
+    L = meta16.shape[0]
     m = meta16.astype(np.int64)
     tabs = m[:, 5:8]
     cids = {int(jhuff.CODE_ID[t]) for t in tabs.ravel()}
     starts, d_pack, rank_of = jhuff.breakpoints_for_window(cids)
     span = m[:, 15]
-    offs = np.cumsum(span) - span
+    offs = mp3_huff._lane_offsets(torch.from_numpy(span), lpf).numpy()
     rows = np.zeros((L, W), np.uint32)
     for i in range(L):
         rows[i, : span[i]] = pool.view(np.uint32)[offs[i]: offs[i] + span[i]]
@@ -356,13 +381,54 @@ def test_device_stage_matches_jax():
     want = jhuff.packed_device_stage(
         rows, jmeta.astype(np.int16), scfq, starts, d_pack, pats=pats,
         spats=tuple(p for p in pats if p in jhuff.SHORT_PATTERNS), W=W,
-        NBIG=288, NC1=144, B=B, G=G, nch=nch, ist=ist.astype(np.int32),
+        NBIG=288, NC1=144, B=2, G=8, nch=2, ist=ist.astype(np.int32),
         mpeg1=True)
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+    return [np.asarray(a) for a in want]
+
+
+def test_device_stage_matches_jax():
+    """The whole device entropy stage on one window of random lanes, each
+    with words of its own (lanes_per_frame 1): Huffman, dequant, the
+    intensity mix, the reorder, window types and antialias counts."""
+    rng = np.random.default_rng(11)
+    W = 28
+    pool, meta16, scfq, ist = _stage_lanes(rng, W)
+    got = mp3_huff.packed_device_stage(
+        torch.from_numpy(pool), torch.from_numpy(meta16),
+        torch.from_numpy(scfq), W, 2, 8, 2, ist=torch.from_numpy(ist),
+        mpeg1=True, short=True, lanes_per_frame=1)
+    want = _jax_device_stage(pool, meta16, scfq, ist, W, 1)
+    np.testing.assert_allclose(got[0].numpy(), want[0],
                                rtol=4e-6, atol=0)  # |q|^(4/3), as above
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    assert (np.asarray(want[1]) != 31).any()
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    assert (want[1] != 31).any()
+
+
+def test_device_stage_matches_jax_on_frames():
+    """The same stage in the batch wire's layout: a frame's words shared by
+    its 4 granule-channel lanes (MPEG-1 stereo), bit positions from the
+    frame's first word, so a lane that runs past its bits reads on into its
+    frame's later lanes' words; the stage's own lanes_per_frame.  JAX
+    decodes each lane from its frame's whole row.  MS frames take (M ± S) /
+    sqrt 2 of two |q|^(4/3) values, which can cancel to near zero, so the
+    tolerance is 4e-6 of the window's peak."""
+    rng = np.random.default_rng(12)
+    pool, meta16, scfq, ist = _stage_lanes(rng, 28)
+    meta16, reach = _as_frames(meta16, 4)
+    W = mp3_huff.row_width(reach)
+    got = mp3_huff.packed_device_stage(
+        torch.from_numpy(pool), torch.from_numpy(meta16),
+        torch.from_numpy(scfq), W, 2, 8, 2, ist=torch.from_numpy(ist),
+        mpeg1=True, short=True)
+    want = _jax_device_stage(pool, meta16, scfq, ist, W, 4)
+    peak = float(np.abs(want[0]).max())
+    assert peak > 0
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=4e-6,
+                               atol=4e-6 * peak)
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    assert (want[1] != 31).any()
 
 
 # ---------------------------------------------------- lane order (K3)
@@ -382,7 +448,7 @@ def _twin_through_groups(pool, meta16, W, perm):
         words = [pool[offs[r]: offs[r] + span[r]] for r in rows.tolist()]
         gq, gerr = mp3_huff.huff_decode_torch(
             torch.from_numpy(np.concatenate(words + [pool[:0]])),
-            m[rows], W)
+            m[rows], W, 1)
         q[rows], err[rows] = gq, gerr
     return q.numpy(), err.numpy()
 
@@ -405,21 +471,23 @@ def test_lane_perm_groups_keep_the_twin_output(W):
     meta16[::7, mp3_huff.M_BV] = 0
     perm = _check_perm(meta16)
     q, err = _twin_through_groups(pool, meta16, W, perm)
-    qt, errt = port_huff(pool, meta16, W)
+    qt, errt = port_huff(pool, meta16, W, 1)
     np.testing.assert_array_equal(q, qt)
     np.testing.assert_array_equal(err, errt)
 
 
 def test_lane_perm_groups_keep_the_jax_output_on_parsed_lanes():
     """Lanes the C stage parses from golden streams (the JAX-checked
-    fixture of test_twin_matches_jax_and_c_stage_on_parsed_lanes): pair
-    count by pair count through the permutation, JAX's q on every lane."""
+    fixture of test_twin_matches_jax_and_c_stage_on_parsed_lanes, a row a
+    lane): pair count by pair count through the permutation, JAX's q on
+    every lane."""
     parts = [parsed_lanes(d) for d in (mp3_stream(2, channels=2),
                                        mp3_stream_mpeg2(5, channels=2,
                                                         mode_ext=1))]
-    pool = np.concatenate([p[0] for p in parts])
-    meta16 = np.concatenate([p[1] for p in parts])
-    W = mp3_huff.row_width(int(meta16[:, mp3_huff.M_SPAN].max()))
+    rows = [lane_rows(p[0], p[1], p[3]) for p in parts]
+    pool = np.concatenate([r[0] for r in rows])
+    meta16 = np.concatenate([r[1] for r in rows])
+    W = mp3_huff.row_width(max(p[4] for p in parts))
     perm = _check_perm(meta16)
     q, err = _twin_through_groups(pool, meta16, W, perm)
     qj, errj = jax_huff(pool, meta16, W)
@@ -434,8 +502,8 @@ def test_step_counts_follow_the_fsm():
     pool, meta16 = mp3_random_lanes(rng, 200, 28)
     meta16[:40, mp3_huff.M_BV] = 0
     q, err, steps = mp3_huff.huff_decode_steps(
-        torch.from_numpy(pool), torch.from_numpy(meta16), 28)
-    qt, errt = port_huff(pool, meta16, 28)
+        torch.from_numpy(pool), torch.from_numpy(meta16), 28, 1)
+    qt, errt = port_huff(pool, meta16, 28, 1)
     np.testing.assert_array_equal(q.numpy(), qt)
     np.testing.assert_array_equal(err.numpy(), errt)
     bv = meta16[:, mp3_huff.M_BV].astype(np.int64)

@@ -98,6 +98,51 @@ def test_window_chain_twin_matches_host_overlap_add():
     _close(pcm[0, 0, :rs - ls].numpy(), y[0, ls:rs], 1e-5)
 
 
+CLASSIFY_CASES = [
+    # (seed, B, ch, K, bs0, bs1, lies)
+    (31, 24, 2, 8, 512, 2048, True),
+    (32, 24, 1, 8, 256, 1024, True),
+    (33, 24, 2, 8, 512, 2048, 0.3),
+    (34, 12, 2, 8, 512, 2048, False),
+    (35, 8, 1, 5, 64, 8192, False),
+]
+
+
+@pytest.mark.parametrize("case", CLASSIFY_CASES)
+def test_chained_lanes_match_a_perturbed_lap(case):
+    """chained_lanes, the lanes K11 runs slot after slot, against brute
+    force: a lane is chained where, at some valid slot, changing the lap
+    the slot is given changes the lap it passes on (the twin run slot by
+    slot)."""
+    seed, B, ch, K, bs0, bs1, lies = case
+    X, geom, lap, lap_len, had_prev = cases.vorbis_chain_case(
+        seed, B, ch, K, bs0, bs1, lies=lies)
+    h0, h = bs0 // 2, bs1 // 2
+    Xt, g = torch.from_numpy(X), torch.from_numpy(geom)
+    y1 = tmdct.imdct_batch(Xt.reshape(-1, h), bs1).reshape(K, -1, bs1)
+    y0 = tmdct.imdct_batch(Xt[..., :h0].reshape(-1, h0), bs0) \
+        .reshape(K, -1, bs0)
+    got = twin.chained_lanes(*g, torch.from_numpy(lap_len), bs0=bs0,
+                             bs1=bs1)
+    state = tuple(torch.from_numpy(a) for a in (lap, lap_len, had_prev))
+    rng = np.random.default_rng(seed)
+    brute = torch.zeros(B, dtype=torch.bool)
+    for k in range(K):
+        gk = g[:, k:k + 1]
+        base = twin.lap_chain_torch(y1[k:k + 1], y0[k:k + 1], *gk, *state,
+                                    bs0=bs0, bs1=bs1, ch=ch)
+        moved = state[0] + torch.from_numpy(
+            rng.uniform(1.0, 2.0, state[0].shape).astype(np.float32))
+        pert = twin.lap_chain_torch(y1[k:k + 1], y0[k:k + 1], *gk, moved,
+                                    *state[1:], bs0=bs0, bs1=bs1, ch=ch)
+        changed = (base[1] != pert[1]).reshape(B, ch * h).any(1)
+        brute |= changed & (g[3, k] != 0)
+        state = base[1:]
+    assert torch.equal(got, brute)
+    if lies is not False:
+        assert bool(got.any()) and (lies is True or not bool(got.all()))
+
+
 @pytest.mark.parametrize("n", [64, 512, 2048])
 def test_imdct_batch_matches_jax(n):
     X = np.random.default_rng(n).standard_normal((7, n // 2)) \

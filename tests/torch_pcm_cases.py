@@ -90,15 +90,17 @@ def vorbis_geometry(n: int, long_block: bool, prev_long: bool,
 
 
 def vorbis_chain_case(seed: int, B: int, ch: int, K: int, bs0: int,
-                      bs1: int, *, lies: bool = False):
+                      bs1: int, *, lies=False, empty: float = 0.15):
     """One window of the Vorbis lapped chain: spectra X [K, B*ch, bs1/2]
     (short slots fill [:bs0/2]), geometry [4, K, B] (ls, rs, re, valid) of
     mixed long and short packets with their transitions, empty (valid 0)
     slots, and a carry (lap [L, bs1/2], lap_len [B], had_prev [B]) where
     the first lanes are unprimed and the others carry a lap of either
     width.  ``lies``: each long packet's prev/next flags are drawn at
-    random instead of from its neighbours (what a damaged stream gives).
-    Returns numpy arrays (X, geom, lap, lap_len, had_prev)."""
+    random instead of from its neighbours (what a damaged stream gives);
+    a float: the share of lanes, drawn at random, whose packets lie.
+    ``empty``: the share of empty slots.  Returns numpy arrays (X, geom,
+    lap, lap_len, had_prev)."""
     rng = np.random.default_rng(seed)
     h0, h = bs0 // 2, bs1 // 2
     L = B * ch
@@ -115,11 +117,13 @@ def vorbis_chain_case(seed: int, B: int, ch: int, K: int, bs0: int,
             lap[b * ch:(b + 1) * ch, :lap_len[b]] = \
                 rng.standard_normal((ch, lap_len[b])) * 0.3
         kinds = rng.random(K + 1) < (0.75 if bs0 != bs1 else 1.0)
+        lane_lies = lies if isinstance(lies, bool) \
+            else bool(rng.random() < lies)
         for k in range(K):
-            if rng.random() < 0.15:
+            if rng.random() < empty:
                 continue  # an empty slot
             lb = bool(kinds[k])
-            if lies:
+            if lane_lies:
                 pl, nl = bool(rng.random() < 0.5), bool(rng.random() < 0.5)
             else:
                 pl, nl = prev_long, bool(kinds[k + 1])
