@@ -5,8 +5,8 @@ compressed byte streams into dense tensors, and device stages written in
 PyTorch, with hand-written CUDA kernels where the JAX package had Pallas
 kernels, decode many streams in lockstep on one GPU.
 
-The port decodes FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3 (Layers
-I–III), and encodes QOA and WAV, so far.  Public surface:
+The port decodes Ogg Opus, FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3
+(Layers I–III), and encodes QOA and WAV, so far.  Public surface:
 
 * :class:`BatchDecoder` — ``BatchDecoder(items, device="cuda")``, then
   ``decode_all(output="numpy" | "device")``

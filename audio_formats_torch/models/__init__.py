@@ -1,25 +1,21 @@
 """Codec registry and probe cascade of the port.
 
-The port decodes FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3 (Layers
-I–III) so far, probed in the JAX cascade's order (stream.d:1586-1838:
+The port decodes Ogg Opus, FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3
+(Layers I–III) so far, probed in the JAX cascade's order (stream.d:1586-1838:
 Opus → FLAC → WAV → QOA → Vorbis → MP3 → XM → MOD).  A stream of a format
-that the JAX package decodes but the port does not yet is recognised by its
-magic bytes at that format's place in the cascade, and raises an
-AudioFormatError that names the format, so it becomes a lane error that
-says so rather than an "unrecognized encoding".  The MP3 probe scans for a
-run of frame headers anywhere in the stream, so the sniffs of the formats
-probed before it run before it; Ogg Opus, first in the reference's cascade,
-is sniffed just before MP3 (no format probed between them claims an Opus
-stream).
+that the JAX package decodes but the port does not yet (XM, MOD) is
+recognised by its magic bytes at that format's place in the cascade, and
+raises an AudioFormatError that names the format, so it becomes a lane
+error that says so rather than an "unrecognized encoding".
 """
 
 from __future__ import annotations
 
 from ..errors import AudioFormatError
-from ..io import ogg
 from ..io.source import ByteSource
 from . import flac as _flac
 from . import mp3 as _mp3
+from . import opus as _opus
 from . import qoa as _qoa
 from . import vorbis as _vorbis
 from . import wav as _wav
@@ -30,20 +26,6 @@ _MOD_TAGS = {
     b"1CHN", b"2CHN", b"3CHN", b"5CHN", b"6CHN", b"7CHN", b"8CHN", b"9CHN",
     b"10CH", b"11CH", b"12CH", b"13CH", b"14CH", b"15CH", b"16CH",
 }
-
-
-def _unported_before_mp3(src: ByteSource):
-    """Name of an unported format probed before MP3 (Ogg Opus), sniffed
-    from its magic bytes; None when none matches."""
-    head = bytes(src.peek(64))
-    if head[:4] == b"OggS":
-        view = src.view()
-        page = ogg.parse_page(view, 0)
-        if page is not None:
-            body = bytes(view[page.body_offset:page.body_offset + 8])
-            if body == b"OpusHead":
-                return "Ogg Opus"
-    return None
 
 
 def _unported_after_mp3(src: ByteSource):
@@ -67,17 +49,12 @@ def _unported(name):
 def probe_all(src: ByteSource, device="cuda"):
     """A decoder for the stream on `device`, or None when unrecognized.
     Raises AudioFormatError for a format the port does not decode yet."""
-    for probe in (_flac.probe, _wav.probe, _qoa.probe, _vorbis.probe):
+    for probe in (_opus.probe, _flac.probe, _wav.probe, _qoa.probe,
+                  _vorbis.probe, _mp3.probe):
         src.seek(0)
         dec = probe(src, device)
         if dec is not None:
             return dec
-    src.seek(0)
-    _unported(_unported_before_mp3(src))
-    src.seek(0)
-    dec = _mp3.probe(src, device)
-    if dec is not None:
-        return dec
     src.seek(0)
     _unported(_unported_after_mp3(src))
     return None

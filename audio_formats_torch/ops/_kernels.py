@@ -27,9 +27,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-#: a library's flags beyond NVCC_FLAGS: K10's float steps must each round
-#: alone (its one FMA is written out as __fmaf_rn)
-EXTRA_FLAGS = {"pcm": ("-fmad=false",)}
+#: a library's flags beyond NVCC_FLAGS: K10's and K12a's float steps must
+#: each round alone (the FMAs they need are written out as __fmaf_rn)
+EXTRA_FLAGS = {"pcm": ("-fmad=false",), "celt_ola": ("-fmad=false",)}
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +51,7 @@ _ENTRIES = {
     "vorbis_win": (("af_vorbis_win", [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                       _V, _V, _V, _V, _V, _I, _I, _I, _I,
                                       _I, _V]),),
+    "celt_ola": (("af_celt_ola", [_V, _V, _V, _V, _V, _I, _I, _I, _V]),),
 }
 
 

@@ -151,9 +151,9 @@ def decode_bytes_torch(raw: torch.Tensor, kind: str) -> torch.Tensor:
     return int_to_f32_torch(unpack_bytes_torch(raw, kind), kind)
 
 
-def _fma_f32(x: torch.Tensor, scale: float, c: float) -> torch.Tensor:
+def _fma_f32(x: torch.Tensor, scale, c) -> torch.Tensor:
     """The f32 rounding of the exact ``x * scale + c`` (an FMA), for f32 x
-    and f32 constants whose scale is an integer below 2^24.
+    and f32 scale and c (numbers, or tensors that broadcast with x).
 
     The product is exact in f64 (24 × 24 bits).  The f64 sum may round, and
     rounding it once more to f32 could then land on the wrong side of an

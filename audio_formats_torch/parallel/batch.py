@@ -20,10 +20,17 @@ Ogg Vorbis: the host runs the entropy stage of K packets a lane, and one
 upload of the window's spectra plus one device chain (both block sizes'
 IMDCT matmuls, then K11's lapped chain with the lap carried on the device)
 turns the whole group into PCM.  The PCM windows stay on the device with
-``decode_all(output="device")``.
+``decode_all(output="device")``.  Ogg Opus, CELT-only lanes: the host runs
+the symbol stage of one frame a lane, and each (blocks, blocksize) bucket of
+the step crosses once, runs its IMDCT matmul and the overlap-add kernel
+K12a, and comes back once for the postfilter and deemphasis on the host; so
+these lanes return host PCM for either output, as the JAX package's do.
+Every other Opus lane (SILK, hybrid, mode switches, multistream) takes the
+per-stream read.
 
-The port decodes FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3 (Layers
-I–III) so far; every other lane carries an error that names its format.
+The port decodes Ogg Opus, FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3
+(Layers I–III) so far; every other lane carries an error that names its
+format.
 
 Error lattice: a corrupt stream only poisons its own lane — it stops
 producing frames and its `errors` entry is set; other lanes are unaffected.
@@ -47,10 +54,12 @@ from ..host import native as _native
 from ..io.source import ByteSource, FileSource, MemorySource
 from ..models.flac import FlacDecoder, device_of
 from ..models.mp3 import Mp3Decoder
+from ..models.opus import OpusDecoder, RangeDecoder
+from ..models.opus import parse_packet as _opus_parse
 from ..models.qoa import _F32_RECIP, QoaDecoder
 from ..models.vorbis import VorbisDecoder
 from ..models.wav import _LINEAR_PCM, WavDecoder
-from ..ops import flac_rice
+from ..ops import celt_dsp, flac_rice
 from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
 from ..ops import pcm as pcm_ops
@@ -451,6 +460,7 @@ class BatchDecoder:
         qoa_groups = {}
         wav_groups = {}
         vorbis_groups = {}
+        opus_groups = {}
         for i, d in enumerate(self.decoders):
             if isinstance(d, Mp3Decoder) and d._layer == 3:
                 mp3_groups.setdefault((d.channels, d._mpeg1), []).append(i)
@@ -474,6 +484,10 @@ class BatchDecoder:
                 # sizes'
                 vorbis_groups.setdefault(
                     (d.channels, d._bs0, d._bs1), []).append(i)
+            elif isinstance(d, OpusDecoder) and self._opus_eligible(d):
+                # CELT-only lanes; every other Opus lane takes the
+                # per-stream read
+                opus_groups.setdefault(d.channels, []).append(i)
 
         # lockstep group width: with device-resident output the whole batch
         # can ride one group (no per-window PCM download); when PCM is
@@ -529,6 +543,11 @@ class BatchDecoder:
         else:
             for chunk, fn, args in jobs:
                 run(chunk, fn, *args)
+        # the Opus groups after the pooled jobs, a chunk after another, as
+        # the JAX package runs them
+        for lanes in opus_groups.values():
+            for c in range(0, len(lanes), GROUP):
+                run(lanes[c: c + GROUP], self._decode_opus_group)
 
         # demoted lanes: per-stream streaming read
         for i, d in enumerate(self.decoders):
@@ -1804,3 +1823,147 @@ class BatchDecoder:
         ]
         self._stat_add("fetch_ms", (time.perf_counter() - t0) * 1e3)
         return res
+
+    # ------------------------------------------------ batched Opus lockstep
+    @staticmethod
+    def _opus_eligible(d) -> bool:
+        """Lockstep-eligible: a mapping-0 stream whose packets are all
+        CELT-only with one frame size (music streams, the common case).
+        Stashes the packets on the decoder."""
+        if d.channel_mapping != 0 or d.s16_parity:
+            return False
+        try:
+            pkts = d._collect_packets()
+        except AudioFormatError:
+            return False
+        if not pkts:
+            return False
+        fs = None
+        for data in pkts:
+            pk = _opus_parse(data)
+            if pk is None or pk["mode"] != "celt":
+                return False
+            if fs is None:
+                fs = pk["frame_size"]
+            elif pk["frame_size"] != fs:
+                return False
+        d._lockstep_packets = pkts
+        return True
+
+    def _celt_imdct_bucket(self, items, blocks, bs):
+        """One bucket of a CELT lockstep step on the device: a row for each
+        output channel, each packet scaled by its own imdct_scale (0.5 when
+        a stereo-coded packet downmixes to a mono output,
+        models/celt.py:1243-1246; a bucket of mixed scales has its rows
+        pre-multiplied, exact for 0.5 and 1.0).  One upload of the spectra
+        and tails, the IMDCT matmul, K12a, and one download of both
+        outputs.  items: [(celt_decoder, params)] in row order.  Returns
+        (raw [rows, frame], newtail [rows, OVERLAP//2]) as numpy."""
+        frame = blocks * bs
+        half = celt_dsp.HALF
+        co, tails, scales = [], [], []
+        for cd, p in items:
+            for c in range(cd.output_channels):
+                co.append(p["coeffs"][c, :frame])
+                tails.append(cd.buf[c][1024: 1024 + half])
+                scales.append(p["imdct_scale"])
+        co = np.stack(co).astype(np.float32)
+        tails = np.stack(tails).astype(np.float32)
+        sc = np.asarray(scales, np.float32)
+        scale = float(sc[0])
+        if not np.all(sc == sc[0]):
+            co *= sc[:, None]
+            scale = 1.0
+        rows = co.shape[0]
+        t0 = time.perf_counter()
+        (flat,) = _upload(self.device, np.concatenate([co.ravel(),
+                                                        tails.ravel()]))
+        self._stat_add("enq_opus_upload_ms", (time.perf_counter() - t0) * 1e3)
+        nb = co.nbytes + tails.nbytes
+        self._stat_add("h2d_bytes", nb)
+        self._stat_add("h2d_bytes_by_format", nb, fmt="opus")
+        raw, newtail = celt_dsp.celt_imdct_ola(
+            flat[: rows * frame].view(rows, frame),
+            flat[rows * frame:].view(rows, half), blocks, bs, scale)
+        self._note_window("opus")
+        t0 = time.perf_counter()
+        packed = torch.cat([raw, newtail], dim=1).cpu().numpy()
+        self._stat_add("enq_opus_fetch_ms", (time.perf_counter() - t0) * 1e3)
+        self._stat_add("d2h_bytes", packed.nbytes)
+        return packed[:, :frame], packed[:, frame:]
+
+    def _decode_opus_group(self, decs: List[OpusDecoder],
+                           to_device: bool = False):
+        """CELT lockstep: the host symbol stage (C) runs a frame a lane a
+        step; each (blocks, blocksize) bucket of the step then runs on the
+        device (``_celt_imdct_bucket``), and the pitch postfilter and
+        deemphasis (data-dependent IIRs) finish on the host in C.  Returns
+        host PCM for either output, as the JAX package does."""
+        B = len(decs)
+        for d in decs:
+            # re-probed lanes (bisect recovery) lost the eligibility stash:
+            # a lane that no longer qualifies raises here, and the lattice
+            # isolates it
+            if not hasattr(d, "_lockstep_packets") and \
+                    not self._opus_eligible(d):
+                raise AudioFormatError("Opus: lane not lockstep-eligible")
+        lane_frames = []
+        for d in decs:
+            frames = []
+            for data in d._lockstep_packets:
+                pk = _opus_parse(data)
+                for fr in pk["frames"]:
+                    frames.append((fr, pk))
+            lane_frames.append(frames)
+        n_steps = max(len(f) for f in lane_frames)
+        outputs = [[] for _ in range(B)]
+        for step in range(n_steps):
+            buckets = {}
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            for bi, d in enumerate(decs):
+                if step >= len(lane_frames[bi]):
+                    continue
+                fr, pk = lane_frames[bi][step]
+                cd = d._streams[0]._celt
+                n = pk["frame_size"]
+                if len(fr) == 0:
+                    outputs[bi].append(np.zeros((n, d.channels), np.float32))
+                    continue
+                endband = [13, 17, 19, 21][(pk["config"] - 16) >> 2]
+                params = cd.decode_frame_symbols(
+                    RangeDecoder(fr), 2 if pk["stereo"] else 1, n, 0,
+                    endband)
+                buckets.setdefault(
+                    (params["blocks"], params["blocksize"]), []
+                ).append((bi, d, cd, params, n))
+            self._note_stage("host_ms", "opus", t_host)
+            self._note_host_cpu("opus", ct_host)
+            if not buckets:
+                continue
+            t_enq = time.perf_counter()
+            for (blocks, bs), items in buckets.items():
+                raw, newtail = self._celt_imdct_bucket(
+                    [(cd, p) for (_, _, cd, p, _) in items], blocks, bs)
+                t0 = time.perf_counter()
+                row = 0
+                for (bi, d, cd, p, n) in items:
+                    k = cd.output_channels
+                    pcm = cd.apply_raw(raw[row: row + k].T,
+                                       newtail[row: row + k].T, n)
+                    row += k
+                    outputs[bi].append(
+                        (pcm * np.float32(d._gain) if d._gain != 1.0
+                         else pcm).astype(np.float32))
+                self._stat_add("enq_opus_finish_ms",
+                               (time.perf_counter() - t0) * 1e3)
+            self._note_stage("enqueue_ms", "opus", t_enq)
+        result = []
+        for bi, d in enumerate(decs):
+            pcm = np.concatenate(outputs[bi]) if outputs[bi] else \
+                np.zeros((0, d.channels), np.float32)
+            pcm = pcm[d.preskip:]
+            if d.length_frames:
+                pcm = pcm[: d.length_frames]
+            result.append(pcm)
+        return result

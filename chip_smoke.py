@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the audio_formats_torch FLAC, QOA, MP3, WAV and Vorbis slices once on
-one CUDA GPU.
+"""Drive the audio_formats_torch FLAC, QOA, MP3, WAV, Vorbis and Opus slices
+once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -91,7 +91,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``ops.vorbis_win.vorbis_window_chain``), against its twin within 4e-6
    of the peak, timed through its wrapper and alone, by its device time
    (``torch.profiler``) and its host enqueue, beside the IMDCT matmuls of
-   the same window, with the lanes it ran in order counted.
+   the same window, with the lanes it ran in order counted;
+13. Opus  — ``decode_all(output="device")`` over 256 stereo CELT-only lanes
+   cut as packet prefixes (2-4 s, preskip 0, 130 or 312) of the four stereo
+   masters of the committed libopus corpus (tests/torch_opus_cases.py) and
+   a mono lane of the four real CELT packets of tests/test_opus_celt.py:
+   every stereo lane within 1e-5 of the peak of its master's per-stream
+   read on the host (models/celt.py's f64 IMDCT, a path K12a is not on),
+   the mono lane's spot samples and RMS (checked there against libopus)
+   within 1e-5, no demotion, one K12a launch a bucket a step; the
+   realtime factor and the host, upload, download and postfilter times;
+   then K12a at that slice's first bucket (kept by wrapping
+   ``ops.celt_dsp.celt_imdct_ola``) beside the bucket's IMDCT matmul, and
+   alone at 4,096 rows x 8 x 120 and 4,096 x 1 x 960 from random spectra,
+   each bit-equal to its twin and timed through its wrapper, alone, by its
+   device time and its host enqueue; then mixed Opus lanes (corpus stereo
+   and mono, the four CELT packets, a stereo-coded lane with a mono header,
+   a SILK lane on the per-stream read, a DTX lane, a corrupt lane), each
+   within 1e-5 of the peak of the port's CPU decode.
 
 Prints a JSON line with the kernels' launches, errors, times and bounds,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -182,6 +199,9 @@ VORBIS_MASTERS = 16
 VORBIS_PACKETS = 72   # 9 windows of 8 packets
 VORBIS_TOL = 4e-6     # of the peak: batch against the CPU decode
 VORBIS_REF_TOL = 1e-4  # of the peak: against the golden synthesis
+OPUS_LANES = 256      # stereo CELT lanes (bench.py:731's B=256)
+OPUS_TOL = 1e-5       # of the peak: batch against the per-stream read
+OPUS_BIG = ((4096, 8, 120), (4096, 1, 960))  # K12a alone: rows, blocks, bs
 F32_RECIP = np.float32(1.0) / np.float32(32767.0)  # QOA's s16 -> float
 
 _GOLDEN = {}
@@ -237,6 +257,32 @@ def golden_vorbis_ref():
         mod._imdct64_per_frame = mod.imdct64
         mod.imdct64 = imdct64
     return mod
+
+
+def golden_opus_ref():
+    """The golden Ogg Opus stream builder, with the port's Ogg page
+    writer."""
+    return golden("opus_ref", ("from audio_formats_tpu.io import ogg",))
+
+
+def read_constants(name, names):
+    """Module-level constants `names` of tests/<name>.py, read from its
+    source (the file imports the JAX package, so it is not imported)."""
+    import ast
+
+    path = os.path.join(ROOT, "tests", name + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name) and \
+                node.targets[0].id in names:
+            found[node.targets[0].id] = ast.literal_eval(node.value)
+    missing = set(names) - set(found)
+    if missing:
+        raise AssertionError(f"{path}: no {sorted(missing)}")
+    return found
 
 
 # --------------------------------------------------------------- corpus
@@ -1038,8 +1084,8 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     seen, over the peak with `rel`)."""
     import torch
     from audio_formats_torch import BatchDecoder
-    from audio_formats_torch.ops import (flac_rice, lms, lpc, mp3_huff, pcm,
-                                         vorbis_win)
+    from audio_formats_torch.ops import (celt_dsp, flac_rice, lms, lpc,
+                                         mp3_huff, pcm, vorbis_win)
 
     dec = BatchDecoder(streams, device=device, flac_wire=flac_wire)
     lpc.KERNEL_LAUNCHES = 0
@@ -1048,6 +1094,7 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     flac_rice.RICE_LAUNCHES = 0
     pcm.DECODE_LAUNCHES = 0
     vorbis_win.WIN_LAUNCHES = 0
+    celt_dsp.OLA_LAUNCHES = 0
     t0 = time.perf_counter()
     res = dec.decode_all(output="device")
     res.sync()
@@ -1057,7 +1104,8 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 "mp3_huff": mp3_huff.HUFF_LAUNCHES,
                 "flac_rice": flac_rice.RICE_LAUNCHES,
                 "pcm": pcm.DECODE_LAUNCHES,
-                "vorbis_win": vorbis_win.WIN_LAUNCHES}
+                "vorbis_win": vorbis_win.WIN_LAUNCHES,
+                "celt_ola": celt_dsp.OLA_LAUNCHES}
     st = dec.stats
     for _, wins in res.windows():
         for w in wins:
@@ -1065,10 +1113,10 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 raise AssertionError(f"a PCM window lies on {w.device}")
     if st["group_demotions"] or st.get("lanes_demoted"):
         raise AssertionError(f"demotions: {st.get('group_exceptions')}")
-    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window launches
-    # exactly one kernel (LPC, LMS, Huffman, PCM, lapped window), and a
-    # FLAC window of the Rice wire the frame entropy kernel too; Layer I/II
-    # windows are synthesis only
+    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window and every Opus
+    # bucket launches exactly one kernel (LPC, LMS, Huffman, PCM, lapped
+    # window, CELT overlap-add), and a FLAC window of the Rice wire the
+    # frame entropy kernel too; Layer I/II windows are synthesis only
     wbf = st["windows_by_format"]
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
@@ -1076,7 +1124,8 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                      "flac_rice": wbf.get("flac", 0)
                      if flac_wire == "rice" else 0,
                      "pcm": wbf.get("wav", 0),
-                     "vorbis_win": wbf.get("vorbis", 0)}
+                     "vorbis_win": wbf.get("vorbis", 0),
+                     "celt_ola": wbf.get("opus", 0)}
     if launches != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
@@ -2331,6 +2380,262 @@ def phase_vorbis_kernel(card, kept):
             "chain_ms": chain_ms}
 
 
+# --------------------------------------------------------------- Opus
+def opus_read(data):
+    """The port's per-stream read of an Opus stream on the host (its IMDCT
+    models/celt.py ``imdct_half``, an f64 FFT: a path that K12a is not on)."""
+    from audio_formats_torch import models
+    from audio_formats_torch.io.source import MemorySource
+
+    dec = models.probe_all(MemorySource(data), "cpu")
+    chunks = []
+    while True:
+        c = dec.read(1 << 16)
+        if c.shape[0] == 0:
+            break
+        chunks.append(c)
+    return np.concatenate(chunks)
+
+
+def opus_corpus(n_lanes=OPUS_LANES):
+    """The Opus slice's lanes: packet prefixes of 2-4 s (100-200 packets of
+    20 ms) of the committed corpus's four stereo masters
+    (tests/torch_opus_cases.py), with preskip 0, 130 or 312, and last a
+    mono lane of the four real CELT packets of tests/test_opus_celt.py.
+    Returns (streams, each lane's expected PCM, the constants of
+    test_opus_celt.py): a stereo lane's PCM is its master's per-stream read
+    at preskip 0, cut to the lane's span."""
+    import torch_opus_cases
+
+    ref = golden_opus_ref()
+    masters = [m for m in torch_opus_cases.load() if m[0] == 2]
+    full = [opus_read(torch_opus_cases.stream(ref.build_ogg_opus, m,
+                                              preskip=0)) for m in masters]
+    streams, spans = [], []
+    for i in range(n_lanes):
+        mi = i % len(masters)
+        n = 100 + (37 * i) % 101
+        skip = (0, 130, 312)[i % 3]
+        streams.append(torch_opus_cases.stream(
+            ref.build_ogg_opus, masters[mi], n, preskip=skip))
+        spans.append((mi, skip, n * masters[mi][1]))
+    celt = read_constants("test_opus_celt", (
+        "PACKETS", "SAMPLE_IDX", "SAMPLES", "RMS"))
+    streams.append(ref.build_ogg_opus(
+        [(bytes.fromhex(h), 480) for h in celt["PACKETS"]], channels=1,
+        preskip=0))
+
+    def expect(i):
+        if i == n_lanes:
+            return opus_read(streams[i])
+        mi, skip, end = spans[i]
+        return full[mi][skip:end]
+
+    return streams, expect, celt
+
+
+def opus_slice(card, streams, expect, celt):
+    """The Opus slice on the card: every stereo lane within OPUS_TOL of the
+    peak of its expected PCM; the lane of the four real CELT packets at its
+    spot samples and RMS (tests/test_opus_celt.py, checked there against
+    libopus) within 1e-5, the stream's R128 gain undone; the arguments of
+    the first bucket's celt_imdct_ola call kept.  Returns (K12a's
+    launches, the kept arguments)."""
+    from audio_formats_torch.ops import celt_dsp
+
+    kept = {}
+    imdct_ola = celt_dsp.celt_imdct_ola
+
+    def first_call(*args, **kw):
+        kept.setdefault("args", (args, kw))
+        return imdct_ola(*args, **kw)
+
+    celt_dsp.celt_imdct_ola = first_call
+    try:
+        dec, wall, launches, out, err = decode_checked(
+            streams, expect, "cuda", tol=OPUS_TOL, rel=True)
+    finally:
+        celt_dsp.celt_imdct_ola = imdct_ola
+    pk = out[-1][:, 0] / np.float32(10.0 ** (-1024 / 5120.0))
+    spot = max(abs(float(pk[i]) - v)
+               for i, v in zip(celt["SAMPLE_IDX"], celt["SAMPLES"]))
+    rms = abs(float(np.sqrt((pk ** 2).mean())) - celt["RMS"])
+    if not (spot <= 1e-5 and rms <= 1e-5):
+        raise AssertionError(f"CELT packets lane: spot samples off by "
+                             f"{spot}, RMS by {rms}")
+    st = dec.stats
+    secs = st["decoded_seconds"]
+    print(f"# Opus slice: {len(streams) - 1} stereo CELT lanes (packet "
+          f"prefixes of 2-4 s of 4 masters) and the 4-packet mono lane, "
+          f"{secs:.1f} s of audio in {wall:.3f} s wall = "
+          f"{secs / wall:.1f}x realtime; within {err:.3g} of the peak of "
+          f"the per-stream read; CELT packets lane spot samples within "
+          f"{spot:.3g}, RMS within {rms:.3g}; buckets "
+          f"{st['windows_by_format']['opus']}, "
+          f"K12a launches {launches['celt_ola']}, h2d_bytes "
+          f"{st['h2d_bytes']}, d2h_bytes {st['d2h_bytes']}, host_ms "
+          f"{st['host_ms']:.0f} (host_cpu_ms {st['host_cpu_ms']:.0f}), "
+          f"enqueue_ms {st['enqueue_ms']:.0f} (upload "
+          f"{st['enq_opus_upload_ms']:.0f}, the wait for the matmul and "
+          f"K12a and the download {st['enq_opus_fetch_ms']:.0f}, "
+          f"postfilter and deemphasis {st['enq_opus_finish_ms']:.0f}) "
+          f"[{card}]")
+    return launches["celt_ola"], kept["args"]
+
+
+def celt_ola_work(rows, blocks, bs):
+    """(bytes) of K12a: the half-transforms and the tail read once, the
+    output and the new tail written once, the window read once."""
+    return 4 * (2 * rows * (blocks * bs + 60) + 120)
+
+
+def time_celt_ola(card, label, halves, tail, imdct=None):
+    """K12a at one shape: bit-equal to its twin on the card, timed through
+    its wrapper, alone, by its device time and by its host enqueue, beside
+    its bound; `imdct` (the bucket's matmul) timed beside it."""
+    import torch
+    from audio_formats_torch.ops import celt_dsp
+
+    rows, blocks, bs = halves.shape
+    got = celt_dsp.celt_ola(halves, tail)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(
+        celt_dsp.celt_ola_torch(halves, tail)), 1)
+    want = want[0]
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        raise AssertionError(f"K12a != twin at {label}: max abs diff {d}")
+    for _ in range(3):
+        celt_dsp.celt_ola(halves, tail)
+    ms = time_cuda(lambda: celt_dsp.celt_ola(halves, tail), 50)
+    kernel_ms = time_cuda(lambda: celt_dsp.celt_ola_launch(
+        halves, tail, got), 50)
+    dev_ms = device_ms(lambda: celt_dsp.celt_ola_launch(halves, tail, got),
+                       "celt_ola")
+    host_ms = time_host(lambda: celt_dsp.celt_ola(halves, tail))
+    imdct_ms = None if imdct is None else time_cuda(imdct, 50)
+    b = bound(celt_ola_work(rows, blocks, bs), 0)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"# kernel celt_ola, {label} ({rows} rows x {blocks} x {bs}): "
+          f"bit-equal to its twin; wrapper {ms:.4f} ms (its host enqueue "
+          f"{host_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms, device "
+          f"time (torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms"
+          + ("" if imdct_ms is None
+             else f"; the bucket's IMDCT matmul {imdct_ms:.4f} ms")
+          + f"; bound_ms {b['bound_ms']:.5f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} through the wrapper, "
+          + ("not measured" if dev_ms is None
+             else f"{b['bound_ms'] / dev_ms:.3f}")
+          + f" of its device time [{card}]")
+    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+            "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            **b, "library_ms": None, "share": b["bound_ms"] / ms,
+            "imdct_ms": imdct_ms}
+
+
+def phase_celt_kernel(card, kept):
+    """K12a at the Opus slice's first bucket (its arguments kept), beside
+    that bucket's IMDCT matmul, and at the two shapes where bytes, not the
+    launch, set its bound: 4,096 rows of 8 short blocks and of one long
+    block, from random spectra."""
+    import torch
+    from audio_formats_torch.ops import celt_dsp
+
+    args, kw = kept
+    co, tail, blocks, bs = args[:4]
+    scale = args[4] if len(args) > 4 else kw.get("scale", 1.0)
+    halves = celt_dsp.imdct_halves(co, blocks, bs, scale)
+    res = time_celt_ola(
+        card, "the Opus slice's first bucket", halves, tail,
+        imdct=lambda: celt_dsp.imdct_halves(co, blocks, bs, scale))
+    rng = np.random.default_rng(12)
+    big = {}
+    for rows, nb, nbs in OPUS_BIG:
+        co = torch.from_numpy((rng.standard_normal((rows, nb * nbs))
+                               * 400).astype(np.float32)).cuda()
+        tl = torch.from_numpy((rng.standard_normal((rows, 60))
+                               * 400).astype(np.float32)).cuda()
+        h = celt_dsp.imdct_halves(co, nb, nbs)
+        r = time_celt_ola(card, "random spectra", h, tl,
+                          imdct=lambda: celt_dsp.imdct_halves(co, nb, nbs))
+        big[f"{rows}x{nb}x{nbs}"] = {k: r[k] for k in (
+            "ms", "kernel_ms", "device_ms", "bound_ms", "imdct_ms")}
+    res["large"] = big
+    return res
+
+
+def opus_mixed_streams(rng):
+    """Mixed Opus lanes: corpus lanes of both channel counts, the four
+    mono CELT packets, a stereo-coded lane with a mono header, a SILK lane
+    (per-stream read), a DTX lane, and last a corpus lane with bytes
+    flipped in its packets."""
+    import torch_opus_cases
+
+    ref = golden_opus_ref()
+    corpus = torch_opus_cases.load()
+    celt = read_constants("test_opus_celt", ("PACKETS",))["PACKETS"]
+    silk = read_constants("test_opus_silk", ("SILK_PACKETS",))[
+        "SILK_PACKETS"]
+    streams = [torch_opus_cases.stream(ref.build_ogg_opus, corpus[i], n,
+                                       preskip=ps)
+               for i, n, ps in ((0, 50, 312), (1, 73, 0), (4, 50, 130))]
+    streams += [
+        ref.build_ogg_opus([(bytes.fromhex(h), 480) for h in celt],
+                           channels=1, preskip=130),
+        torch_opus_cases.stream(ref.build_ogg_opus, corpus[2], 44,
+                                channels=1, preskip=0),
+        ref.build_ogg_opus([(bytes.fromhex(h), 960) for h in silk],
+                           channels=1, preskip=0),
+        ref.build_ogg_opus([ref.dtx_packet()] * 3
+                           + [ref.silence_packet()] * 2, channels=1,
+                           preskip=0)]
+    bad = bytearray(torch_opus_cases.stream(ref.build_ogg_opus, corpus[3],
+                                            60, preskip=0))
+    for pos in rng.integers(len(bad) // 4, len(bad), 16):
+        bad[pos] ^= 0xFF
+    streams.append(bytes(bad))
+    return streams
+
+
+def phase_opus_mixed(card):
+    """Mixed Opus lanes on the card, each within OPUS_TOL of the peak of
+    the port's CPU decode; the corrupt lane's error and length equal the
+    CPU's."""
+    from audio_formats_torch import BatchDecoder
+
+    streams = opus_mixed_streams(np.random.default_rng(77))
+    bad = len(streams) - 1
+    cpu = BatchDecoder(streams, device="cpu")
+    want = cpu.decode_all()
+    if any(e is not None for e in cpu.errors[:bad]):
+        raise AssertionError(f"CPU decode errors {cpu.errors}")
+    dec, _, launches, out, err = decode_checked(
+        streams, lambda i: want[i], "cuda", corrupt=(bad,), tol=OPUS_TOL,
+        rel=True)
+    if dec.errors != cpu.errors or (out[bad] is None) != (want[bad] is None):
+        raise AssertionError(f"corrupt Opus lane: card {dec.errors[bad]!r}, "
+                             f"CPU {cpu.errors[bad]!r}")
+    if want[bad] is not None:
+        if out[bad].shape != want[bad].shape:
+            raise AssertionError(f"corrupt Opus lane: {out[bad].shape}, CPU "
+                                 f"{want[bad].shape}")
+        if want[bad].size:
+            e = float(np.abs(out[bad] - want[bad]).max()
+                      / (np.abs(want[bad]).max() + 1e-12))
+            if not e <= OPUS_TOL:
+                raise AssertionError(f"corrupt Opus lane: {e:.3g} of the "
+                                     "peak")
+            err = max(err, e)
+    print(f"# mixed Opus lanes (corpus stereo and mono, the 4 CELT packets, "
+          f"a stereo-coded lane with a mono header, SILK, DTX, a corrupt "
+          f"lane): every lane within {err:.3g} of the peak of the CPU "
+          f"decode, corrupt lane {len(out[bad]) if out[bad] is not None else None} "
+          f"frames, error {dec.errors[bad]!r}; buckets "
+          f"{dec.stats['windows_by_format'].get('opus', 0)}, K12a launches "
+          f"{launches['celt_ola']} [{card}]")
+
+
 def main():
     import torch
 
@@ -2353,7 +2658,7 @@ def main():
     from concurrent.futures import ProcessPoolExecutor
 
     names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice", "pcm",
-             "vorbis_win")
+             "vorbis_win", "celt_ola")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=8,
@@ -2565,6 +2870,19 @@ def run_phases(card, mp3_masters, vorbis_masters):
     vres = phase_vorbis_kernel(card, kept)
     del kept
 
+    # 13. Opus, K12a at its first bucket and alone at two large shapes, and
+    # mixed Opus lanes
+    t0 = time.perf_counter()
+    o_streams, o_expect, o_celt = opus_corpus()
+    print(f"# Opus corpus: {len(o_streams)} lanes, "
+          f"{sum(len(x) for x in o_streams) / 1e6:.1f} MB, per-stream "
+          f"references in {time.perf_counter() - t0:.1f} s")
+    opus_launches, kept = opus_slice(card, o_streams, o_expect, o_celt)
+    del o_streams
+    ores = phase_celt_kernel(card, kept)
+    del kept
+    phase_opus_mixed(card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "audio_formats_tpu"))
@@ -2605,6 +2923,10 @@ def run_phases(card, mp3_masters, vorbis_masters):
          "source": "audio_formats_torch/csrc/vorbis_win.cu",
          "replaces": "audio_formats_tpu/ops/vorbis_win.py:62",
          "launches": vorbis_launches, **vres},
+        {"name": "celt_ola", "route": "cuda",
+         "source": "audio_formats_torch/csrc/celt_ola.cu",
+         "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
+         "launches": opus_launches, **ores},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,104 @@
+"""The port's CELT device stage against the JAX package's
+``ops/celt_dsp.celt_imdct_ola``, on the CPU.
+
+The IMDCT basis is JAX's bit for bit.  The overlap-add twin (K12a's twin),
+fed the half-transforms that JAX's einsum computes, gives JAX's output bit
+for bit: on the CPU XLA contracts the reference's window mix into
+``lo = fma(b0, w[119-u], -(b1·w[u]))`` and ``hi = fma(b1, w[119-u],
+b0·w[u])``, and the twin rounds those FMAs exactly.  The whole twin, whose
+IMDCT is a torch matmul, cannot give XLA's einsum bits; it is held within
+TOL of the peak (it stays within ~7e-7 on these inputs; JAX's own batch
+against its facade is held to 1e-5, tests/test_batch.py:489-490).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audio_formats_tpu.ops import celt_dsp as jdsp
+
+from audio_formats_torch.ops import _kernels
+from audio_formats_torch.ops import celt_dsp as tdsp
+
+TOL = 4e-6   # max abs error over the peak: the twin against JAX
+
+#: every (blocks, blocksize) of CELT's frames of 120, 240, 480 and 960
+#: samples: one long block, or 2^LM short blocks of 120
+SHAPES = [(1, 120), (1, 240), (2, 120), (1, 480), (4, 120), (1, 960),
+          (8, 120)]
+
+
+@pytest.mark.parametrize("n", [120, 240, 480, 960])
+def test_imdct_basis_equals_jax(n):
+    np.testing.assert_array_equal(tdsp.imdct_basis(n), jdsp.imdct_basis(n))
+
+
+def _jax_halves(co, blocks, bs, scale):
+    """JAX's einsum of celt_imdct_ola, alone."""
+    B = co.shape[0]
+    X = co.reshape(B, bs, blocks).transpose(0, 2, 1) if blocks > 1 \
+        else co.reshape(B, 1, bs)
+    M = jnp.asarray(jdsp.imdct_basis(bs))
+    return np.array(jax.jit(lambda X: jnp.einsum(
+        "bjk,mk->bjm", X * scale, M,
+        precision=jax.lax.Precision.HIGHEST))(X))
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("blocks,bs", SHAPES)
+def test_twin_matches_jax(blocks, bs, B, scale):
+    rng = np.random.default_rng([blocks, bs, B, int(scale * 2)])
+    frame = blocks * bs
+    co = (rng.standard_normal((B, frame)) * 400).astype(np.float32)
+    tail = (rng.standard_normal((B, tdsp.HALF)) * 400).astype(np.float32)
+    want = [np.asarray(a) for a in jdsp.celt_imdct_ola(
+        co, tail, blocks, bs, scale=scale)]
+    got = [a.numpy() for a in tdsp.celt_imdct_ola(
+        torch.from_numpy(co), torch.from_numpy(tail), blocks, bs, scale)]
+    twin = [a.numpy() for a in tdsp.celt_imdct_ola_torch(
+        torch.from_numpy(co), torch.from_numpy(tail), blocks, bs, scale)]
+    peak = np.abs(want[0]).max()
+    for g, t, w, shape in zip(got, twin, want, [(B, frame), (B, 60)]):
+        assert g.shape == w.shape == shape and g.dtype == np.float32
+        np.testing.assert_array_equal(g, t)   # the CPU dispatch is the twin
+        assert np.abs(g - w).max() / peak < TOL
+    # the overlap-add alone, on JAX's own half-transforms: JAX's bits
+    halves = _jax_halves(co, blocks, bs, scale)
+    ola = tdsp.celt_ola(torch.from_numpy(halves), torch.from_numpy(tail))
+    np.testing.assert_array_equal(ola[0].numpy(), want[0])
+    np.testing.assert_array_equal(ola[1].numpy(), want[1])
+
+
+def test_ola_is_not_the_plain_f32_sum():
+    """The FMA form matters: the plain f32 products and sum of the
+    reference's formula miss JAX's bits on part of the mix region."""
+    rng = np.random.default_rng(5)
+    co = (rng.standard_normal((16, 960)) * 400).astype(np.float32)
+    tail = (rng.standard_normal((16, 60)) * 400).astype(np.float32)
+    want = np.asarray(jdsp.celt_imdct_ola(co, tail, 1, 960)[0])
+    h = _jax_halves(co, 1, 960, 1.0)[:, 0]
+    w = tdsp.WINDOW_F32
+    u = np.arange(60)
+    b1 = h[:, 59 - u]
+    plain = tail * w[119 - u] - b1 * w[u]
+    assert (plain != want[:, :60]).any()
+    np.testing.assert_array_equal(
+        tdsp.celt_ola(torch.from_numpy(h[:, None]),
+                      torch.from_numpy(tail))[0].numpy()[:, :60],
+        want[:, :60])
+
+
+def test_ola_rejects_what_it_cannot_take():
+    """A tensor on no CPU and no CUDA device, or blocks shorter than the
+    overlap, raise KernelArgError (a ValueError)."""
+    meta = torch.empty((2, 1, 960), device="meta")
+    with pytest.raises(_kernels.KernelArgError, match="CUDA"):
+        tdsp.celt_ola(meta, torch.empty((2, 60), device="meta"))
+    with pytest.raises(_kernels.KernelArgError, match="at least 120"):
+        tdsp.celt_ola_launch(
+            torch.empty((2, 1, 60), device="meta"),
+            torch.empty((2, 60), device="meta"),
+            (torch.empty((2, 60)), torch.empty((2, 60))))

@@ -15,6 +15,7 @@ import torch
 
 from audio_formats_torch import (BatchDecoder, encode_qoa_batch,
                                  encode_wav_batch)
+from audio_formats_torch.ops import celt_dsp as tcelt
 from audio_formats_torch.ops import flac_rice as trice
 from audio_formats_torch.ops import lms as tlms
 from audio_formats_torch.ops import lpc as tlpc
@@ -24,6 +25,7 @@ from audio_formats_torch.ops import vorbis_win as twin
 from audio_formats_torch.parallel import batch as tbatch
 
 import torch_flac_cases
+import torch_opus_cases
 import torch_pcm_cases
 import torch_qoa_cases
 
@@ -1162,3 +1164,106 @@ def test_vorbis_imdct_refuses_tf32(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(KernelError, match="Vorbis IMDCT"):
         tmdct.imdct_batch(torch.zeros((2, 256), device=cuda), 512)
+
+
+#: K12a's bucket shapes: every (blocks, blocksize) of CELT's frames of 120,
+#: 240, 480 and 960 samples, at a few row counts
+CELT_SHAPES = [(1, 120), (1, 240), (2, 120), (1, 480), (4, 120), (1, 960),
+               (8, 120)]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 257])
+@pytest.mark.parametrize("blocks,bs", CELT_SHAPES)
+def test_celt_ola_kernel_matches_twin(cuda, blocks, bs, rows):
+    """K12a bit-equal to its twin on the card, on random half-transforms
+    and on the matmul's own (the whole celt_imdct_ola against
+    celt_imdct_ola_torch)."""
+    rng = np.random.default_rng([blocks, bs, rows])
+    halves = torch.from_numpy(
+        (rng.standard_normal((rows, blocks, bs)) * 400).astype(np.float32)
+    ).to(cuda)
+    tail = torch.from_numpy(
+        (rng.standard_normal((rows, 60)) * 400).astype(np.float32)).to(cuda)
+    before = tcelt.OLA_LAUNCHES
+    got = tcelt.celt_ola(halves, tail)
+    want = tcelt.celt_ola_torch(halves, tail)
+    assert tcelt.OLA_LAUNCHES - before == 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    co = halves.reshape(rows, blocks * bs)
+    for scale in (1.0, 0.5):
+        got = tcelt.celt_imdct_ola(co, tail, blocks, bs, scale)
+        want = tcelt.celt_imdct_ola_torch(co, tail, blocks, bs, scale)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_celt_ola_launch_alone_matches_wrapper(cuda):
+    rng = np.random.default_rng(12)
+    halves = torch.from_numpy(rng.standard_normal(
+        (64, 8, 120)).astype(np.float32)).to(cuda)
+    tail = torch.from_numpy(rng.standard_normal(
+        (64, 60)).astype(np.float32)).to(cuda)
+    want = tcelt.celt_ola(halves, tail)
+    out = (torch.full((64, 960), float("nan"), device=cuda),
+           torch.full((64, 60), float("nan"), device=cuda))
+    tcelt.celt_ola_launch(halves, tail, out)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_celt_ola_kernel_rejects_bad_arguments(cuda):
+    halves = torch.zeros((4, 1, 960), device=cuda)
+    tail = torch.zeros((4, 60), device=cuda)
+    with pytest.raises(ValueError):
+        tcelt.celt_ola(halves, tail[:3])
+    with pytest.raises(ValueError):
+        tcelt.celt_ola(halves, tail.cpu())
+    with pytest.raises(ValueError):
+        tcelt.celt_ola(halves.double(), tail)
+    with pytest.raises(ValueError):
+        tcelt.celt_ola(torch.zeros((4, 1, 60), device=cuda), tail)
+    with pytest.raises(ValueError):
+        tcelt.celt_ola(halves[:, :, ::2], tail)
+
+
+def test_celt_imdct_refuses_tf32(cuda, monkeypatch):
+    from audio_formats_torch.ops._kernels import KernelError
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(KernelError, match="CELT IMDCT"):
+        tcelt.celt_imdct_ola(torch.zeros((2, 960), device=cuda),
+                             torch.zeros((2, 60), device=cuda), 1, 960)
+
+
+def _opus_streams():
+    """CELT lanes of the committed corpus (both bucket shapes, a
+    stereo-coded lane with a mono header) and a SILK lane."""
+    from golden import opus_ref
+    from test_opus_silk import SILK_PACKETS
+
+    corpus = torch_opus_cases.load()
+    streams = [torch_opus_cases.stream(opus_ref.build_ogg_opus, corpus[i],
+                                       n, channels=ch, preskip=ps)
+               for i, n, ch, ps in ((0, 60, None, 312), (1, 41, None, 0),
+                                    (2, 77, None, 130), (4, 50, None, 312),
+                                    (3, 33, 1, 0))]
+    streams.append(opus_ref.build_ogg_opus(
+        [(bytes.fromhex(h), 960) for h in SILK_PACKETS], channels=1,
+        preskip=0))
+    return streams
+
+
+def test_batch_decoder_opus_cuda_equals_cpu(cuda):
+    """The Opus group on the card (K12a once a bucket a step) within 1e-5
+    of the peak of the CPU decode (the IMDCT matmuls differ in their
+    sums)."""
+    streams = _opus_streams()
+    before = tcelt.OLA_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda)
+    got = dec.decode_all(output="device").sync().to_numpy()
+    assert tcelt.OLA_LAUNCHES - before == dec.stats["windows"] > 0
+    assert dec.stats["group_demotions"] == 0
+    want = BatchDecoder(streams, device="cpu").decode_all()
+    for a, b in zip(got, want, strict=True):
+        _close(torch.from_numpy(a), torch.from_numpy(b), tol=1e-5)

@@ -288,10 +288,11 @@ def _unported_streams(rng):
 
 
 def test_unported_formats_get_lane_errors(rng):
-    """Formats not ported yet (Ogg Opus, MOD, XM) become lane errors that
-    name them.  WAV and Ogg Vorbis are ported: the WAV lane decodes, and
-    the Vorbis stream here, an ID header alone, is not one the cascade
-    recognizes (as in the JAX package)."""
+    """Formats not ported yet (MOD, XM) become lane errors that name them.
+    WAV, Ogg Vorbis and Ogg Opus are ported: the WAV lane decodes, the
+    Opus lane (two CELT silence packets) decodes as JAX's batch decodes
+    it, and the Vorbis stream here, an ID header alone, is not one the
+    cascade recognizes (as in the JAX package)."""
     fx = _unported_streams(rng)
     good, pcm = _flac(rng, 2000)
     dec = BatchDecoder([good, *fx.values(), b"\x01" * 100], device="cpu")
@@ -300,6 +301,11 @@ def test_unported_formats_get_lane_errors(rng):
     for name, err, o in zip(fx, dec.errors[1:], out[1:]):
         if name == "WAV":
             assert err is None and o.shape == (2048, 1)
+            continue
+        if name == "Ogg Opus":
+            want = JaxBatchDecoder([fx[name]]).decode_all()[0]
+            assert err is None and o.shape == want.shape == (168, 1)
+            np.testing.assert_array_equal(o, want)
             continue
         assert o is None
         if name == "Ogg Vorbis":

@@ -16,7 +16,12 @@ bits (the port's wire ships each frame's main data whole).  Against JAX's
 BatchDecoder, its uninitialised host buffers zeroed: the same lane errors,
 and within 4e-6 of the peak where JAX's batch keeps to the facade; on the
 three mutations where it reads its zeroed rows instead, the port keeps to
-the facade and JAX's batch does not.
+the facade and JAX's batch does not.  Each mutation of its Opus fixture
+(SILK packets) and of a CELT fixture (25 stereo packets of the committed
+corpus, tests/torch_opus_cases.py) goes through the port's batch decoder
+and is held to JAX's facade: a lane error where the facade errs at open,
+else within 1e-5 of the peak (JAX's own bound between its batch and its
+facade, tests/test_batch.py:489-490).
 
 The reference's per-lane demotion test runs on the port, on both FLAC wires:
 a fault injected at the wire's host seam for one lane of a 64-lane group
@@ -39,9 +44,10 @@ from audio_formats_torch.models.flac import FlacDecoder
 from audio_formats_torch.ops import flac_rice, lpc
 from audio_formats_torch.ops._kernels import KernelError
 
-from golden import flac_ref
+from golden import flac_ref, opus_ref
 
 import test_robustness
+import torch_opus_cases
 
 N_MUTATIONS = 14   # 3 truncations, 6 flips, a zeroed run, 3 splices, a prefix
 
@@ -63,9 +69,20 @@ def _flac_mutations():
     return _mutations("flac")
 
 
+@functools.lru_cache(maxsize=None)
+def _celt_mutations():
+    """Mutations of a CELT fixture (the first 25 packets of the corpus's
+    first stereo master), drawn as the reference test draws them."""
+    data = torch_opus_cases.stream(opus_ref.build_ogg_opus,
+                                   torch_opus_cases.load()[0], 25)
+    return tuple(test_robustness._mutations(data,
+                                            np.random.default_rng(0xCE17)))
+
+
 def test_sweep_has_every_mutation():
-    for fmt in ("qoa", "flac", "wav", "vorbis", "mp3"):
+    for fmt in ("qoa", "flac", "wav", "vorbis", "mp3", "opus"):
         assert len(_mutations(fmt)) == N_MUTATIONS
+    assert len(_celt_mutations()) == N_MUTATIONS
 
 
 def _matches_jax(streams, tol=None, **kw):
@@ -333,3 +350,26 @@ def test_mp3_sweep_overruns_are_the_known_ones(monkeypatch):
     assert firsts == [None, None, None, 7, 1, 2, None, 4, 6, None, None,
                       None, None, None]
     assert differ == []
+
+
+@pytest.mark.parametrize("k", range(N_MUTATIONS))
+@pytest.mark.parametrize("fixture", ["silk", "celt"])
+def test_opus_mutation_matches_jax_facade(fixture, k):
+    """The port's batch decode of each Opus mutation against JAX's
+    AudioStream facade: a lane error where the facade errs at open, else
+    within 1e-5 of the peak over the whole stream, with no demotion."""
+    data = (_mutations("opus") if fixture == "silk"
+            else _celt_mutations())[k]
+    s = AudioStream()
+    s.open_from_memory(data)
+    tdec = BatchDecoder([data], device="cpu")
+    got = tdec.decode_all()[0]
+    assert tdec.stats["group_demotions"] == 0
+    if s.is_error():
+        assert got is None and tdec.errors == [s.error_message()]
+        return
+    want = s.read_samples_float(10 ** 7)
+    assert not s.is_error()
+    assert tdec.errors == [None] and got.shape == want.shape
+    if want.size:
+        assert _rel(got, want) < 1e-5

@@ -14,8 +14,8 @@ from audio_formats_tpu.ops import vorbis_win as jwin
 from audio_formats_tpu.parallel import BatchDecoder as JaxBatchDecoder
 
 from audio_formats_torch import BatchDecoder, models
-from audio_formats_torch.errors import AudioFormatError
 from audio_formats_torch.io.source import MemorySource
+from audio_formats_torch.models import opus as topus
 from audio_formats_torch.models import vorbis as tvorbis
 from audio_formats_torch.ops import mdct as tmdct
 from audio_formats_torch.ops import vorbis_win as twin
@@ -260,16 +260,21 @@ def test_batch_groups_match_jax(kind, output):
 
 
 def test_probe_finds_vorbis_and_names_opus():
-    """Vorbis after QOA and before MP3; an Ogg Opus stream, not ported
-    yet, raises an error that names it."""
+    """Vorbis after QOA and before MP3; an Ogg Opus stream, probed first,
+    gets an OpusDecoder and decodes beside the Vorbis lane as JAX's batch
+    and facade decode it."""
     data = _group("mono")[0]
     assert isinstance(models.probe_all(MemorySource(data), "cpu"),
                       tvorbis.VorbisDecoder)
     opus = opus_ref.build_ogg_opus([(b"\xfc\xff\xfe", 960)], channels=1,
                                    preskip=0)
-    with pytest.raises(AudioFormatError, match="Ogg Opus"):
-        models.probe_all(MemorySource(opus), "cpu")
+    assert isinstance(models.probe_all(MemorySource(opus), "cpu"),
+                      topus.OpusDecoder)
     dec = BatchDecoder([data, opus], device="cpu")
     out = dec.decode_all()
-    assert out[1] is None and "Ogg Opus" in dec.errors[1]
+    jout = JaxBatchDecoder([data, opus]).decode_all()
+    assert dec.errors == [None, None]
+    assert out[1].shape == (960, 1)
+    _close(out[1], _facade(opus), tol=1e-5)
+    _close(out[1], jout[1], tol=1e-5)
     _close(out[0], _facade(data))
