@@ -16,9 +16,12 @@ are the window mix of the previous block's last 60 raw samples (the carried
 tail for j = 0) with its own first 60, and the rest of the block is a copy;
 the new tail is the last block's last 60 raw samples.
 
-The pitch postfilter and the deemphasis are data-dependent IIRs that stay
-on the host, in the C stage (models/celt.py ``apply_raw``).  The JAX
-package's ``deemphasis_scan`` is on no decode path and is not ported yet.
+The pitch postfilter and the deemphasis of the decode paths are
+data-dependent IIRs that stay on the host, in the C stage (models/celt.py
+``apply_raw``), as in the JAX package.  Its device deemphasis,
+``deemphasis_scan`` (on no decode path there either), is ported as K12b,
+the hand-written kernel of ``csrc/celt_deemph.cu``, with its plain PyTorch
+twin ``deemphasis_scan_torch``; ``DEEMPH_LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import threading
 import numpy as np
 import torch
 
-from ..models.celt import OVERLAP, imdct_half
+from ..models.celt import DEEMPH_COEFF, OVERLAP, imdct_half
 from ..utils.tables import celt_tables as CT
 from . import _kernels
 from .mp3_dsp import device_const, full_fp32
@@ -37,6 +40,8 @@ from .pcm import _fma_f32
 
 #: launches of K12a (af_celt_ola) in this process
 OLA_LAUNCHES = 0
+#: launches of K12b (af_celt_deemph) in this process
+DEEMPH_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 HALF = OVERLAP // 2
@@ -177,3 +182,58 @@ def _entry(dev: torch.device):
     """K12a's C entry and the address of the window's constant on `dev`."""
     return (_kernels.load("celt_ola").af_celt_ola,
             device_const(WINDOW_F32, dev).data_ptr())
+
+
+def deemphasis_scan_torch(x: torch.Tensor, m0: torch.Tensor):
+    """Twin of K12b (and of the JAX package's ops/celt_dsp.py:85
+    ``deemphasis_scan``): x [B, n] f32, m0 [B] f32 (the carried memory,
+    pre-multiplied by c) → (y / 32768 [B, n], m = c·y[n-1] [B]) with
+    y[i] = x[i] + c·y[i-1] and c·y[-1] = m0.  The plain recurrence, a
+    sample at a time, each product and sum rounded to f32."""
+    c = torch.tensor(DEEMPH_COEFF, dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    v = m0.clone()
+    for i in range(x.shape[1]):
+        yi = x[:, i] + v
+        y[:, i] = yi
+        v = c * yi
+    return y / 32768.0, v
+
+
+def deemphasis_scan(x: torch.Tensor, m0: torch.Tensor):
+    """The deemphasis of ``deemphasis_scan_torch``: K12b on a CUDA device
+    (it raises where the kernel does not build or launch), the twin on the
+    CPU."""
+    if x.device.type == "cpu":
+        return deemphasis_scan_torch(x, m0)
+    out = (torch.empty_like(x), torch.empty_like(m0))
+    deemphasis_launch(x, m0, out)
+    return out
+
+
+def deemphasis_launch(x, m0, out) -> None:
+    """K12b into made outputs out = (y [B, n], m [B]), on x's CUDA
+    device."""
+    global DEEMPH_LAUNCHES
+    dev = x.device
+    if x.dim() != 2:
+        raise _kernels.KernelArgError(f"celt_deemph: x has shape "
+                                      f"{list(x.shape)}, want [B, n]")
+    B, n = x.shape
+    f32 = (torch.float32,)
+    _kernels.check_args("celt_deemph", dev, (
+        ("x", x, f32, (B, n)), ("m0", m0, f32, (B,)),
+        ("y", out[0], f32, (B, n)), ("m", out[1], f32, (B,))))
+    if B == 0:
+        return
+    fn = _kernels.load("celt_deemph").af_celt_deemph
+    args = (x.data_ptr(), m0.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), B, n, float(np.float32(DEEMPH_COEFF)))
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_launch("celt_deemph", rc)
+    with _launch_lock:
+        DEEMPH_LAUNCHES += 1

@@ -10,15 +10,25 @@ resampler is zero-delay end to end, plus an explicit per-bandwidth
 alignment delay matching the libopus decoder's SILK path (so Ogg preskip
 trims the same audio a libopus-based player would).
 
-This is the numpy half of the JAX package's ops/resample.py, copied: the
-per-stream read's resamplers.  Its batched SILK upsample
-(``BatchedFittedUpsampler``, the polyphase conv of the SILK and hybrid
-lockstep groups) is not ported yet.
+The per-stream read's resamplers are the numpy half of the JAX package's
+ops/resample.py, copied.  ``BatchedFittedUpsampler`` is the SILK and hybrid
+lockstep groups' upsample: its state stays on the host in float64, and
+each packet step's polyphase convolution (the JAX package's
+``_poly_conv_rows``, an XLA conv) runs as ``silk_upsample``: on a CUDA
+device K13, the hand-written kernel of ``csrc/silk_upsample.cu``; on the
+CPU its plain PyTorch twin ``silk_upsample_torch``.  ``UPSAMPLE_LAUNCHES``
+counts K13's launches.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
+import torch
+
+from . import _kernels
+from .mp3_dsp import full_fp32
 
 # taps per polyphase branch; total kernel length = 2 * K * R
 K = 8
@@ -300,4 +310,150 @@ class FittedUpsampler:
     def reset(self):
         self._hist[:] = 0
         self._pending = np.zeros(0, np.float64)
+
+
+
+class BatchedFittedUpsampler:
+    """`rows` FittedUpsampler lanes in lockstep: the SILK and hybrid
+    groups' upsample (the JAX package's ops/resample.py:300).
+
+    Each ``process`` is one ``silk_upsample`` over the [rows, n_groups +
+    L - 1] float32 window of every row at once (one upload, one K13 on a
+    CUDA `device`, one download): out[r, n·den + p] = Σ_k h[p, k] ·
+    x[r, n + A − k].  The state (hist and pending) stays on the host in
+    float64 and uniform across rows, since lockstep groups feed every row
+    the same block length; a lane that ends early is drained with
+    ``flush_row`` (exact per-row float64) before later blocks zero-feed
+    its row, so its tail equals the per-stream decoder's."""
+
+    def __init__(self, bandwidth: int, rows: int, feed: int = 0,
+                 device="cuda"):
+        t = _fit_tables()
+        self.h = np.asarray(
+            [t["h_nb"], t["h_mb"], t["h_wb"]][bandwidth], np.float64)
+        self.den = self.h.shape[0]
+        self.L = int(t["L"])
+        self.A = int(t["A"])
+        self.rows = rows
+        self.device = torch.device(device)
+        self._h_rev = torch.from_numpy(
+            np.ascontiguousarray(self.h[:, ::-1], np.float32)).to(
+                self.device)
+        self._hist = np.zeros((rows, self.L), np.float64)
+        self._pending = np.zeros((rows, 0), np.float64)
+        #: bytes uploaded and downloaded by ``process``
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        if feed:
+            self.process(np.zeros((rows, feed), np.float64), 0)
+
+    def process(self, x: np.ndarray, out_max: int) -> np.ndarray:
+        """Feed x [rows, n] (native rate) to every row; returns the
+        [rows, n_groups·den] float32 output, at most out_max a row."""
+        buf = np.concatenate(
+            [self._hist, self._pending, np.asarray(x, np.float64)], axis=1)
+        P = buf.shape[1] - self.L
+        n_groups = max(0, min(P - self.A, out_max // self.den))
+        if n_groups:
+            win = np.ascontiguousarray(
+                buf[:, self.A + 1: self.A + 1 + n_groups + self.L - 1],
+                np.float32)
+            xd = torch.from_numpy(win).to(self.device)
+            y = silk_upsample(xd, self._h_rev, n_groups).cpu().numpy()
+            self.h2d_bytes += win.nbytes
+            self.d2h_bytes += y.nbytes
+        else:
+            y = np.zeros((self.rows, 0), np.float32)
+        rest = buf[:, n_groups:]
+        self._hist = rest[:, : self.L]
+        self._pending = rest[:, self.L:]
+        return y
+
+    def flush_row(self, r: int, count: int) -> np.ndarray:
+        """Drain row r's delayed tail (FittedUpsampler.flush, float64)."""
+        pad = (count + self.den - 1) // self.den + self.A + 1
+        buf = np.concatenate(
+            [self._hist[r], self._pending[r], np.zeros(pad)])
+        P = buf.shape[0] - self.L
+        n_groups = max(0, min(P - self.A, count // self.den))
+        if not n_groups:
+            return np.zeros(0, np.float32)
+        W = np.lib.stride_tricks.sliding_window_view(
+            buf, self.L)[self.A + 1: self.A + 1 + n_groups]
+        y = (W @ self.h[:, ::-1].T).reshape(-1).astype(np.float32)
+        return y[:count]
+
+
+#: launches of K13 (af_silk_upsample) in this process
+UPSAMPLE_LAUNCHES = 0
+_launch_lock = threading.Lock()
+#: K13's limits: the fitted kernels' taps, and the largest phase count
+#: (NB's 8 kHz -> 48 kHz)
+FIT_TAPS = 96
+MAX_DEN = 6
+
+
+def silk_upsample_torch(x: torch.Tensor, h_rev: torch.Tensor,
+                        G: int) -> torch.Tensor:
+    """Twin of K13 (and of the JAX package's ``_poly_conv_rows``, a VALID
+    cross-correlation): x [rows, W] f32 with W >= G + L - 1, h_rev [den, L]
+    f32 (the taps, reversed) → out [rows, G·den] f32 with
+
+      out[r, g·den + p] = Σ_{k<L} x[r, g + k] · h_rev[p, k],  g < G.
+
+    One matmul of every row's L-sample windows against the taps, in full
+    float32 (it raises on a CUDA device that allows TF32 matmuls)."""
+    full_fp32(x.device, "the SILK upsample twin")
+    rows = x.shape[0]
+    den, L = h_rev.shape
+    win = x.unfold(1, L, 1)[:, :G].reshape(rows * G, L)
+    return (win @ h_rev.T).reshape(rows, G * den)
+
+
+def silk_upsample(x: torch.Tensor, h_rev: torch.Tensor,
+                  G: int) -> torch.Tensor:
+    """The polyphase upsample of ``silk_upsample_torch``: K13 on a CUDA
+    device (it raises where the kernel does not build or launch), the twin
+    on the CPU."""
+    dev = x.device
+    if dev.type == "cpu":
+        return silk_upsample_torch(x, h_rev, G)
+    out = torch.empty((x.shape[0], G * h_rev.shape[0]), dtype=torch.float32,
+                      device=dev)
+    silk_upsample_launch(x, h_rev, G, out)
+    return out
+
+
+def silk_upsample_launch(x, h_rev, G: int, out) -> None:
+    """K13 into a made output `out` [rows, G·den], on x's CUDA device."""
+    global UPSAMPLE_LAUNCHES
+    dev = x.device
+    if x.dim() != 2 or h_rev.dim() != 2:
+        raise _kernels.KernelArgError(
+            f"silk_upsample: x {list(x.shape)}, h_rev {list(h_rev.shape)}, "
+            "want [rows, W] and [den, L]")
+    rows, W = x.shape
+    den, L = h_rev.shape
+    if not (1 <= den <= MAX_DEN and L == FIT_TAPS and G >= 1
+            and W >= G + L - 1):
+        raise _kernels.KernelArgError(
+            f"silk_upsample: {G} groups of {den} phases from rows of {W} "
+            f"with {L} taps, want 1 <= den <= {MAX_DEN}, {FIT_TAPS} taps "
+            "and W >= G + L - 1")
+    f32 = (torch.float32,)
+    _kernels.check_args("silk_upsample", dev, (
+        ("x", x, f32, (rows, W)), ("h_rev", h_rev, f32, (den, L)),
+        ("out", out, f32, (rows, G * den))))
+    if rows == 0:
+        return
+    fn = _kernels.load("silk_upsample").af_silk_upsample
+    args = (x.data_ptr(), h_rev.data_ptr(), out.data_ptr(), rows, W, G, den)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_launch("silk_upsample", rc)
+    with _launch_lock:
+        UPSAMPLE_LAUNCHES += 1
 

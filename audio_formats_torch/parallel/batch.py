@@ -25,8 +25,17 @@ the symbol stage of one frame a lane, and each (blocks, blocksize) bucket of
 the step crosses once, runs its IMDCT matmul and the overlap-add kernel
 K12a, and comes back once for the postfilter and deemphasis on the host; so
 these lanes return host PCM for either output, as the JAX package's do.
-Every other Opus lane (SILK, hybrid, mode switches, multistream) takes the
-per-stream read.
+SILK-only lanes of one (config, stereo, frames) shape run their SILK
+synthesis on the host a packet a lane, and each packet step upsamples every
+lane to 48 kHz in one K13 launch (``ops.resample.BatchedFittedUpsampler``).
+Hybrid lanes of one (config, stereo) shape add the CELT layer: its symbols
+on the host, its IMDCT buckets through K12a as in the CELT group, and the
+delay FIFO and redundancy fades on the host.  Mapping-0 lanes that switch
+modes ride the mixed group on a thread of their own: each lane drives the
+per-stream read's own packet generator, and the group answers its CELT
+synthesis requests in buckets on the device (from
+``OPUS_MIXED_DEVICE_MIN_LANES`` lanes) or on the host.  Multistream Opus
+lanes take the per-stream read.
 
 The port decodes Ogg Opus, FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3
 (Layers I–III) so far; every other lane carries an error that names its
@@ -57,6 +66,7 @@ from ..models.mp3 import Mp3Decoder
 from ..models.opus import OpusDecoder, RangeDecoder
 from ..models.opus import parse_packet as _opus_parse
 from ..models.qoa import _F32_RECIP, QoaDecoder
+from ..models.silk import SilkDecoder
 from ..models.vorbis import VorbisDecoder
 from ..models.wav import _LINEAR_PCM, WavDecoder
 from ..ops import celt_dsp, flac_rice
@@ -64,6 +74,7 @@ from ..ops import lms as lms_ops
 from ..ops import lpc as lpc_ops
 from ..ops import pcm as pcm_ops
 from ..ops import vorbis_win
+from ..ops.resample import BatchedFittedUpsampler
 from ..ops._kernels import KernelError
 from ..ops import mp3_dsp, mp3_huff
 
@@ -75,6 +86,10 @@ MP3_WINDOW_FRAMES = 24
 QOA_WINDOW_LANES = 8192
 #: Vorbis packets a lane per device call
 VORBIS_WINDOW_PACKETS = 8
+#: the mixed Opus group answers its CELT synthesis requests in buckets on
+#: the device from this many lanes on; a smaller group answers them on the
+#: host (CeltDecoder.synthesize, the per-stream read's own IMDCT)
+OPUS_MIXED_DEVICE_MIN_LANES = 16
 
 #: device-Rice wire: a FLAC group whose streams hold at least this many
 #: bytes uploads them once as a corpus and gathers each dispatch's frame pool
@@ -461,6 +476,9 @@ class BatchDecoder:
         wav_groups = {}
         vorbis_groups = {}
         opus_groups = {}
+        silk_groups = {}
+        hybrid_groups = {}
+        opus_mixed_groups = {}
         for i, d in enumerate(self.decoders):
             if isinstance(d, Mp3Decoder) and d._layer == 3:
                 mp3_groups.setdefault((d.channels, d._mpeg1), []).append(i)
@@ -485,9 +503,20 @@ class BatchDecoder:
                 vorbis_groups.setdefault(
                     (d.channels, d._bs0, d._bs1), []).append(i)
             elif isinstance(d, OpusDecoder) and self._opus_eligible(d):
-                # CELT-only lanes; every other Opus lane takes the
-                # per-stream read
                 opus_groups.setdefault(d.channels, []).append(i)
+            elif isinstance(d, OpusDecoder) and self._silk_eligible(d):
+                pk0 = d._silk_lockstep[0]
+                silk_groups.setdefault(
+                    (d.channels, pk0["config"], pk0["stereo"],
+                     len(pk0["frames"])), []).append(i)
+            elif isinstance(d, OpusDecoder) and self._hybrid_eligible(d):
+                pk0 = d._silk_lockstep[0]
+                hybrid_groups.setdefault(
+                    (d.channels, pk0["config"], pk0["stereo"]),
+                    []).append(i)
+            elif isinstance(d, OpusDecoder) and \
+                    self._opus_mixed_eligible(d):
+                opus_mixed_groups.setdefault(d.channels, []).append(i)
 
         # lockstep group width: with device-resident output the whole batch
         # can ride one group (no per-window PCM download); when PCM is
@@ -531,23 +560,56 @@ class BatchDecoder:
             for c in range(0, len(lanes), GROUP):
                 jobs.append((lanes[c: c + GROUP], self._decode_vorbis_group,
                              (nch,)))
-        # groups run concurrently on multi-core hosts (lane sets are
-        # disjoint; stats ride _stat_add's lock): one group's host parse
-        # overlaps another group's uploads and device windows
-        conc = 2 if (os.cpu_count() or 1) > 1 else 1
-        if conc > 1 and len(jobs) > 1:
-            with ThreadPoolExecutor(max_workers=conc) as ex:
-                for f in [ex.submit(run, chunk, fn, *args)
-                          for chunk, fn, args in jobs]:
-                    f.result()
-        else:
-            for chunk, fn, args in jobs:
-                run(chunk, fn, *args)
-        # the Opus groups after the pooled jobs, a chunk after another, as
-        # the JAX package runs them
-        for lanes in opus_groups.values():
-            for c in range(0, len(lanes), GROUP):
-                run(lanes[c: c + GROUP], self._decode_opus_group)
+        # the mode-switching Opus group runs on a thread of its own, beside
+        # the other groups; it is joined even when another group raises,
+        # so no orphaned thread goes on writing `out`, and its own
+        # exception is raised here on the main thread
+        mixed_thread = None
+        mixed_err = []
+        if opus_mixed_groups:
+            def run_mixed():
+                try:
+                    for lanes in opus_mixed_groups.values():
+                        for c in range(0, len(lanes), GROUP):
+                            run(lanes[c: c + GROUP],
+                                self._decode_opus_mixed_group)
+                except BaseException as e:  # raised on the main thread
+                    mixed_err.append(e)
+
+            mixed_thread = threading.Thread(target=run_mixed,
+                                            name="af-opus-mixed")
+            mixed_thread.start()
+        try:
+            # groups run concurrently on multi-core hosts (lane sets are
+            # disjoint; stats ride _stat_add's lock): one group's host
+            # parse overlaps another group's uploads and device windows
+            conc = 2 if (os.cpu_count() or 1) > 1 else 1
+            if conc > 1 and len(jobs) > 1:
+                with ThreadPoolExecutor(max_workers=conc) as ex:
+                    for f in [ex.submit(run, chunk, fn, *args)
+                              for chunk, fn, args in jobs]:
+                        f.result()
+            else:
+                for chunk, fn, args in jobs:
+                    run(chunk, fn, *args)
+            # the Opus groups after the pooled jobs, a chunk after
+            # another, as the JAX package runs them: CELT, SILK, hybrid
+            for lanes in opus_groups.values():
+                for c in range(0, len(lanes), GROUP):
+                    run(lanes[c: c + GROUP], self._decode_opus_group)
+            for (nch, config, stereo, nfr), lanes in silk_groups.items():
+                for c in range(0, len(lanes), GROUP):
+                    run(lanes[c: c + GROUP], self._decode_silk_group, nch,
+                        config, stereo, nfr)
+            for (nch, config, stereo), lanes in hybrid_groups.items():
+                for c in range(0, len(lanes), GROUP):
+                    run(lanes[c: c + GROUP], self._decode_hybrid_group,
+                        nch, config, stereo)
+        finally:
+            if mixed_thread is not None:
+                mixed_thread.join()
+        if mixed_err:
+            raise mixed_err[0]
 
         # demoted lanes: per-stream streaming read
         for i, d in enumerate(self.decoders):
@@ -1958,12 +2020,409 @@ class BatchDecoder:
                 self._stat_add("enq_opus_finish_ms",
                                (time.perf_counter() - t0) * 1e3)
             self._note_stage("enqueue_ms", "opus", t_enq)
+        return self._lane_pcm(decs, outputs)
+
+    # ------------------------------ batched SILK, hybrid and mixed Opus
+    @staticmethod
+    def _opus_packets(d):
+        """A mapping-0 stream's parsed packets for the SILK, hybrid and
+        mixed groups, or None: multistream lanes, s16 parity lanes (the
+        reference's output grid, a per-stream feature) and streams whose
+        pages do not read take the per-stream read."""
+        if d.channel_mapping != 0 or d.s16_parity:
+            return None
+        try:
+            pkts = d._collect_packets()
+        except AudioFormatError:
+            return None
+        parsed = [_opus_parse(data) for data in pkts]
+        if not parsed or any(pk is None for pk in parsed):
+            return None
+        return parsed
+
+    @staticmethod
+    def _silk_eligible(d) -> bool:
+        """Lockstep-eligible SILK: every packet SILK-only with no empty
+        frame and one (config, stereo, frames) shape (the common VoIP
+        shape), upsampled by the fitted kernels (a lane of the reference
+        resampler takes another path).  Stashes the parsed packets on the
+        decoder."""
+        if d._reference_resampler:
+            return False
+        parsed = BatchDecoder._opus_packets(d)
+        if parsed is None:
+            return False
+        key = None
+        for pk in parsed:
+            if pk["mode"] != "silk" or any(len(f) == 0 for f in pk["frames"]):
+                return False
+            k = (pk["config"], pk["stereo"], len(pk["frames"]))
+            if key is None:
+                key = k
+            elif k != key:
+                return False
+        d._silk_lockstep = parsed
+        return True
+
+    @staticmethod
+    def _hybrid_eligible(d) -> bool:
+        """Lockstep-eligible hybrid: every packet one non-empty hybrid
+        frame, with one (config, stereo), upsampled by the fitted kernels.
+        Stashes the parsed packets on the decoder."""
+        if d._reference_resampler:
+            return False
+        parsed = BatchDecoder._opus_packets(d)
+        if parsed is None:
+            return False
+        key = None
+        for pk in parsed:
+            if pk["mode"] != "hybrid" or len(pk["frames"]) != 1 \
+                    or len(pk["frames"][0]) == 0:
+                return False
+            k = (pk["config"], pk["stereo"])
+            if key is None:
+                key = k
+            elif k != key:
+                return False
+        d._silk_lockstep = parsed
+        return True
+
+    @staticmethod
+    def _opus_mixed_eligible(d) -> bool:
+        """The mixed group takes every mapping-0 stream the other Opus
+        groups decline (mode switches, mixed frame sizes, multi-frame
+        hybrid): its lanes replay the per-stream read's own packet
+        generator, so any stream that read decodes is eligible.  Stashes
+        the parsed packets on the decoder."""
+        parsed = BatchDecoder._opus_packets(d)
+        if parsed is None or any(
+                pk["mode"] not in ("silk", "celt", "hybrid") for pk in parsed):
+            return False
+        d._mixed_pkts = parsed
+        return True
+
+    def _silk_upsample_step(self, rs, X, out_max: int) -> np.ndarray:
+        """One packet step of a SILK or hybrid group's upsample: every row
+        of X [rows, T] through `rs` (one upload, one K13 launch, one
+        download).  Returns the [rows, n] float32 48 kHz samples."""
+        h0, d0 = rs.h2d_bytes, rs.d2h_bytes
+        Y = rs.process(X, out_max)
+        nb = rs.h2d_bytes - h0
+        if nb:
+            self._stat_add("h2d_bytes", nb)
+            self._stat_add("h2d_bytes_by_format", nb, fmt="opus")
+            self._stat_add("d2h_bytes", rs.d2h_bytes - d0)
+            self._note_window("opus_silk")
+        return Y
+
+    @staticmethod
+    def _drain_rows(d, rs, bi, out, owed, sd=None):
+        """EOS of lane bi of a SILK or hybrid group: drain its upsampler
+        rows' tail (flush_row) into `out` now, before later steps zero-feed
+        its rows, as the per-stream read drains at its end: as many samples
+        as the stream's length still wants, at most the `owed` ones (the
+        samples the upsampler holds back, or a hybrid lane's CELT delay
+        FIFO if longer; never the granule field alone), padded with zeros
+        to that count.  For a hybrid lane (its stream decoder `sd`), the
+        FIFO and the unfinished redundancy fade join the tail, as in the
+        per-stream read's drain_tail."""
+        nch = d.channels
+        want = min(d.preskip + d.length_frames - sum(o.shape[0] for o in out),
+                   owed)
+        if want <= 0:
+            return
+        tail = np.stack([rs.flush_row(bi * nch + c, want)
+                         for c in range(nch)], 1).astype(np.float32)
+        if sd is not None:
+            hd = sd._celt_hyb_delay
+            if hd.shape[0]:
+                m = min(tail.shape[0], hd.shape[0])
+                tail[:m] += hd[:m, :nch]
+                sd._celt_hyb_delay = hd[:0]
+            sd._apply_red_carry(tail)
+        if tail.shape[0] < want:
+            tail = np.pad(tail, ((0, want - tail.shape[0]), (0, 0)))
+        out.append(tail * np.float32(d._gain) if d._gain != 1.0 else tail)
+
+    @staticmethod
+    def _lane_pcm(decs, outs):
+        """Each lane's PCM: its steps' outputs, preskip and length
+        applied."""
         result = []
         for bi, d in enumerate(decs):
-            pcm = np.concatenate(outputs[bi]) if outputs[bi] else \
+            pcm = np.concatenate(outs[bi]) if outs[bi] else \
                 np.zeros((0, d.channels), np.float32)
             pcm = pcm[d.preskip:]
             if d.length_frames:
                 pcm = pcm[: d.length_frames]
             result.append(pcm)
         return result
+
+    def _decode_silk_group(self, decs: List[OpusDecoder], nch: int,
+                           config: int, stereo: bool, nfr: int,
+                           to_device: bool = False):
+        """SILK lockstep (the JAX package's batch.py:3247): each lane's
+        SILK synthesis at the native rate on the host (the per-stream
+        read's SilkDecoder), then one K13 launch a packet step upsamples
+        every lane to 48 kHz.  A lane that ends drains its resampler tail
+        at once (flush_row), before later steps zero-feed its rows, as the
+        per-stream read drains at EOS.  Returns host PCM for either
+        output, as the JAX package does."""
+        B = len(decs)
+        for d in decs:
+            # re-probed lanes lost the eligibility stash; a still-eligible
+            # lane gives the same group key
+            if not hasattr(d, "_silk_lockstep") and \
+                    not self._silk_eligible(d):
+                raise AudioFormatError("Opus: lane not SILK-eligible")
+        bw = config // 4
+        dur_ms = [10, 20, 40, 60][config & 3]
+        frame48 = dur_ms * 48 * nfr
+        T = dur_ms * [8, 12, 16][bw] * nfr
+        coded = 2 if stereo else 1
+        # one warm-up a bandwidth whatever the channel count
+        # (models/silk.py: the mono copy and the MS unmix share a
+        # one-sample-delay timeline)
+        rs = BatchedFittedUpsampler(bw, B * nch, feed=[4, 9, 12][bw],
+                                    device=self.device)
+        silks = [SilkDecoder(output_channels=nch) for _ in decs]
+        outs = [[] for _ in range(B)]
+        owed = [0] * B   # each lane's samples the upsampler holds back
+        self._stat_add("opus_silk_lanes", B)
+        for s in range(max(len(d._silk_lockstep) for d in decs)):
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            X = np.zeros((B * nch, T), np.float32)
+            for bi, d in enumerate(decs):
+                if s >= len(d._silk_lockstep):
+                    continue
+                cols = []
+                for fr in d._silk_lockstep[s]["frames"]:
+                    rd = RangeDecoder(fr)
+                    cols.append(silks[bi].decode_superframe(
+                        rd, bw, coded, dur_ms))
+                    if rd.tell() + 17 <= len(fr) * 8:
+                        # an unread tail is a mode-transition CELT
+                        # redundancy frame: the group cannot splice its
+                        # fade at the native rate, so the lane is demoted
+                        # to the per-stream read
+                        raise AudioFormatError(
+                            "Opus: SILK redundancy tail in group")
+                X[bi * nch: (bi + 1) * nch] = \
+                    np.concatenate(cols, axis=0).T[:, :T]
+            self._note_stage("host_ms", "opus", t_host)
+            self._note_host_cpu("opus", ct_host)
+            t_enq = time.perf_counter()
+            Y = self._silk_upsample_step(rs, X, frame48)
+            self._note_stage("enqueue_ms", "opus", t_enq)
+            for bi, d in enumerate(decs):
+                if s >= len(d._silk_lockstep):
+                    continue
+                g = np.float32(d._gain)
+                pcm = np.ascontiguousarray(Y[bi * nch: (bi + 1) * nch].T)
+                outs[bi].append(pcm * g if d._gain != 1.0 else pcm)
+                owed[bi] += frame48 - pcm.shape[0]
+                if s == len(d._silk_lockstep) - 1:
+                    self._drain_rows(d, rs, bi, outs[bi], owed[bi])
+        return self._lane_pcm(decs, outs)
+
+    def _decode_hybrid_group(self, decs: List[OpusDecoder], nch: int,
+                             config: int, stereo: bool,
+                             to_device: bool = False):
+        """Hybrid lockstep (the JAX package's batch.py:3079), a step in
+        three phases.  On the host, each lane's SILK superframe at 16 kHz,
+        its redundancy flag and its CELT symbols (bands 17 on, on the same
+        range decoder).  On the device, one K13 launch upsamples every
+        lane's SILK block and the CELT spectra run the bucketed IMDCT and
+        K12a (``_celt_imdct_bucket``).  On the host again, the postfilter
+        and deemphasis (apply_raw), the CELT delay FIFO and the redundancy
+        paste and fade: the per-stream read's own methods.  Each lane's
+        SILK delay count lives in this call, keyed by lane, so a retry
+        after a demotion starts from zero with its fresh decoder.  Returns
+        host PCM for either output."""
+        B = len(decs)
+        for d in decs:
+            if not hasattr(d, "_silk_lockstep") and \
+                    not self._hybrid_eligible(d):
+                raise AudioFormatError("Opus: lane not hybrid-eligible")
+        dur_ms = 20 if config & 1 else 10    # configs 12-15: 10 or 20 ms
+        frame48 = dur_ms * 48
+        T = dur_ms * 16                      # SILK runs wideband
+        coded = 2 if stereo else 1
+        endband = 19 if config < 14 else 21
+        rs = BatchedFittedUpsampler(2, B * nch, feed=12, device=self.device)
+        sds = []
+        for d in decs:
+            sd = d._streams[0]
+            if sd._silk is None:
+                sd._silk = SilkDecoder(output_channels=nch)
+            sds.append(sd)
+        delayed = [0] * B
+        outs = [[] for _ in range(B)]
+        self._stat_add("opus_hybrid_lanes", B)
+        for st in range(max(len(d._silk_lockstep) for d in decs)):
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            X = np.zeros((B * nch, T), np.float32)
+            stash = {}
+            for bi, d in enumerate(decs):
+                if st >= len(d._silk_lockstep):
+                    continue
+                sd = sds[bi]
+                frame = d._silk_lockstep[st]["frames"][0]
+                rd = RangeDecoder(frame)
+                native = sd._silk.decode_superframe(rd, 2, coded, dur_ms)
+                X[bi * nch: (bi + 1) * nch] = native.T[:, :T]
+                # redundancy flag and size (dopus.d:6400-6420)
+                size = len(frame)
+                redundancy = redundancy_pos = 0
+                red = None
+                if rd.tell() + 37 <= size * 8:
+                    redundancy = rd.dec_bit_logp(12)
+                if redundancy:
+                    redundancy_pos = rd.dec_bit_logp(1)
+                    size -= rd.dec_uint(256) + 2
+                    if size < 0:
+                        raise AudioFormatError("Opus: bad redundancy size")
+                    rd.rebound_end(size)
+                    if redundancy_pos:
+                        sd._celt.flush()
+                        red = sd._decode_red_frame(frame[size:], coded, 2)
+                params = sd._celt.decode_frame_symbols(
+                    rd, coded, frame48, 17, endband)
+                stash[bi] = (params, redundancy, red, frame, size)
+            self._note_stage("host_ms", "opus", t_host)
+            self._note_host_cpu("opus", ct_host)
+            if not stash:
+                break
+            t_enq = time.perf_counter()
+            Y = self._silk_upsample_step(rs, X, frame48)
+            buckets = {}
+            for bi, (params, *_) in stash.items():
+                buckets.setdefault((params["blocks"], params["blocksize"]),
+                                   []).append(bi)
+            raws = {}
+            for (blocks, bs), lanes in buckets.items():
+                raw, newtail = self._celt_imdct_bucket(
+                    [(sds[bi]._celt, stash[bi][0]) for bi in lanes],
+                    blocks, bs)
+                row = 0
+                for bi in lanes:
+                    k = sds[bi]._celt.output_channels
+                    raws[bi] = (raw[row: row + k].T, newtail[row: row + k].T)
+                    row += k
+            self._note_stage("enqueue_ms", "opus", t_enq)
+            for bi, (params, redundancy, red, frame, size) in stash.items():
+                d, sd = decs[bi], sds[bi]
+                pcm = np.ascontiguousarray(Y[bi * nch: (bi + 1) * nch].T)
+                before = delayed[bi]
+                delayed[bi] += frame48 - pcm.shape[0]
+                celt_pcm = sd._celt.apply_raw(*raws[bi], frame48).astype(
+                    np.float32)
+                # the CELT delay FIFO (dopus.d:6424-6466)
+                comb = np.concatenate([sd._celt_hyb_delay, celt_pcm])
+                n = pcm.shape[0]
+                pcm = pcm + comb[:n, : pcm.shape[1]]
+                sd._celt_hyb_delay = comb[n:]
+                sd._apply_red_carry(pcm)
+                if red is not None:   # redundancy at the frame's start
+                    sd._paste_red_start(pcm, red, before)
+                elif redundancy:
+                    sd._celt.flush()
+                    sd._fade_red_tail(
+                        pcm, sd._decode_red_frame(frame[size:], coded, 2),
+                        before)
+                g = np.float32(d._gain)
+                outs[bi].append(pcm * g if d._gain != 1.0 else pcm)
+                if st == len(d._silk_lockstep) - 1:
+                    self._drain_rows(d, rs, bi, outs[bi], max(
+                        delayed[bi], sd._celt_hyb_delay.shape[0]), sd)
+        return self._lane_pcm(decs, outs)
+
+    def _decode_opus_mixed_group(self, decs: List[OpusDecoder],
+                                 to_device: bool = False):
+        """Mode-switching Opus lockstep (the JAX package's batch.py:2874):
+        every lane drives the per-stream read's own packet generator
+        (models/opus.py ``decode_packet_gen``), so SILK synthesis,
+        resampler flushes, redundancy fades and the hybrid delay FIFO are
+        the per-stream read's by construction.  Only the full CELT
+        syntheses are answered here: from OPUS_MIXED_DEVICE_MIN_LANES
+        lanes on, bucketed by (blocks, blocksize) across lanes, one IMDCT
+        matmul and one K12a launch a bucket a round
+        (``_celt_imdct_bucket``); in a smaller group, on the host by
+        ``CeltDecoder.synthesize``, the per-stream read's own IMDCT.
+        Returns host PCM for either output."""
+        B = len(decs)
+        use_device = B >= OPUS_MIXED_DEVICE_MIN_LANES
+        for d in decs:
+            if not hasattr(d, "_mixed_pkts") and \
+                    not self._opus_mixed_eligible(d):
+                raise AudioFormatError("Opus: lane not mixed-eligible")
+        outs = [[] for _ in range(B)]
+        gens = [None] * B     # each lane's live decode_packet_gen
+        nexts = [0] * B       # each lane's next packet
+        sends = [None] * B    # each lane's pending synthesis answer
+        sds = [d._streams[0] for d in decs]
+        done = [False] * B
+        self._stat_add("opus_mixed_lanes", B)
+        while not all(done):
+            t_host = time.perf_counter()
+            ct_host = time.thread_time()
+            jobs = {}
+            for bi, d in enumerate(decs):
+                while not done[bi]:
+                    if gens[bi] is None:
+                        if nexts[bi] >= len(d._mixed_pkts):
+                            done[bi] = True
+                            break
+                        gens[bi] = sds[bi].decode_packet_gen(
+                            d._mixed_pkts[nexts[bi]])
+                        nexts[bi] += 1
+                        sends[bi] = None
+                    try:
+                        cd, params = gens[bi].send(sends[bi])
+                    except StopIteration as e:
+                        pcm = e.value
+                        outs[bi].append(pcm * np.float32(d._gain)
+                                        if d._gain != 1.0 else pcm)
+                        gens[bi] = sends[bi] = None
+                        continue
+                    jobs.setdefault((params["blocks"], params["blocksize"]),
+                                    []).append((bi, cd, params))
+                    break
+            if jobs and not use_device:
+                for items in jobs.values():
+                    for bi, cd, p in items:
+                        sends[bi] = cd.synthesize(p)
+                self._stat_add("opus_mixed_host_rounds", 1)
+            self._note_stage("host_ms", "opus", t_host)
+            self._note_host_cpu("opus", ct_host)
+            if not jobs or not use_device:
+                continue
+            t_enq = time.perf_counter()
+            for (blocks, bs), items in jobs.items():
+                raw, newtail = self._celt_imdct_bucket(
+                    [(cd, p) for _, cd, p in items], blocks, bs)
+                row = 0
+                for bi, cd, p in items:
+                    k = cd.output_channels
+                    sends[bi] = cd.apply_raw(raw[row: row + k].T,
+                                             newtail[row: row + k].T,
+                                             p["frame_size"])
+                    row += k
+            self._note_stage("enqueue_ms", "opus", t_enq)
+        for bi, d in enumerate(decs):
+            sd = sds[bi]
+            total = sum(o.shape[0] for o in outs[bi])
+            # the EOS drain of the resampler tail, the hybrid FIFO and the
+            # redundancy carry, bounded by what the lane owes (never the
+            # granule field alone), as the per-stream read
+            want = min(d.preskip + d.length_frames - total,
+                       max(sd._delayed, sd._celt_hyb_delay.shape[0]))
+            if want > 0 and sd._silk_rs is not None:
+                tail = sd.drain_tail(want)
+                if tail.shape[0] < want:
+                    tail = np.pad(tail, ((0, want - tail.shape[0]), (0, 0)))
+                outs[bi].append(tail * np.float32(d._gain)
+                                if d._gain != 1.0 else tail)
+        return self._lane_pcm(decs, outs)

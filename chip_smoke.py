@@ -107,8 +107,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each bit-equal to its twin and timed through its wrapper, alone, by its
    device time and its host enqueue; then mixed Opus lanes (corpus stereo
    and mono, the four CELT packets, a stereo-coded lane with a mono header,
-   a SILK lane on the per-stream read, a DTX lane, a corrupt lane), each
-   within 1e-5 of the peak of the port's CPU decode.
+   mono and stereo SILK and hybrid lanes and a mode tour in their groups,
+   a DTX lane, a corrupt lane), each within 1e-5 of the peak of the port's
+   CPU decode;
+14. Opus speech — ``decode_all(output="device")`` over 256 mono WB SILK
+   lanes (the SILK group: one K13 launch a packet step), 256 mono FB
+   hybrid lanes (K13 and the CELT buckets' K12a) and 64 mode-tour lanes
+   (the mixed group on its device path), packet prefixes of 2-4 s of the
+   committed libopus speech corpus (tests/torch_opus_speech_cases.py),
+   every lane within 1e-5 of the peak of the host per-stream read (made
+   once for each distinct lane), every lane in its group, no demotion;
+   then K13 at the SILK slice's first step (kept by wrapping
+   ``ops.resample.silk_upsample``) and at 4,096 rows for den 6, 4 and 3,
+   within 1e-6 of the peak of its twin, beside a build with -fmad=false,
+   the twin and ``conv1d`` (cuDNN, TF32 off), timed as K12a is; K12b at
+   [512, 960] and [4,096, 960] within 1e-6 of its twin, alone and chained
+   after the IMDCT and K12a over 12 frames with the memory carried (the
+   JAX bench's CELT chain); and the mixed group's host and device CELT
+   answers at 8, 16 and 32 lanes, in turns.
 
 Prints a JSON line with the kernels' launches, errors, times and bounds,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -202,6 +218,15 @@ VORBIS_REF_TOL = 1e-4  # of the peak: against the golden synthesis
 OPUS_LANES = 256      # stereo CELT lanes (bench.py:731's B=256)
 OPUS_TOL = 1e-5       # of the peak: batch against the per-stream read
 OPUS_BIG = ((4096, 8, 120), (4096, 1, 960))  # K12a alone: rows, blocks, bs
+SPEECH_LANES = 256    # mono WB SILK lanes, and mono FB hybrid lanes
+TOUR_LANES = 64       # mode tours: above OPUS_MIXED_DEVICE_MIN_LANES
+SPEECH_PACKETS = (100, 133, 166, 200)  # lane prefixes: 2-4 s of 20 ms
+SILK_BIG_ROWS = 4096  # K13 alone, at each of den 6, 4, 3
+DEEMPH_SHAPES = ((512, 960), (4096, 960))  # K12b: bench.py:731's 512 rows
+DEEMPH_FRAMES = 12    # K12a then K12b, m carried (bench.py:800-810)
+DEEMPH_TOL = 1e-6     # of the peak: K12b against its twin
+K13_TOL = 1e-6        # of the peak: K13 against its twin
+MIXED_PROBE = (8, 16, 32)  # mixed group lanes timed on host and device
 F32_RECIP = np.float32(1.0) / np.float32(32767.0)  # QOA's s16 -> float
 
 _GOLDEN = {}
@@ -1085,9 +1110,11 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     import torch
     from audio_formats_torch import BatchDecoder
     from audio_formats_torch.ops import (celt_dsp, flac_rice, lms, lpc,
-                                         mp3_huff, pcm, vorbis_win)
+                                         mp3_huff, pcm, resample, vorbis_win)
 
     dec = BatchDecoder(streams, device=device, flac_wire=flac_wire)
+    resample.UPSAMPLE_LAUNCHES = 0
+    celt_dsp.DEEMPH_LAUNCHES = 0
     lpc.KERNEL_LAUNCHES = 0
     lms.DECODE_LAUNCHES = 0
     mp3_huff.HUFF_LAUNCHES = 0
@@ -1105,7 +1132,9 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 "flac_rice": flac_rice.RICE_LAUNCHES,
                 "pcm": pcm.DECODE_LAUNCHES,
                 "vorbis_win": vorbis_win.WIN_LAUNCHES,
-                "celt_ola": celt_dsp.OLA_LAUNCHES}
+                "celt_ola": celt_dsp.OLA_LAUNCHES,
+                "silk_upsample": resample.UPSAMPLE_LAUNCHES,
+                "celt_deemph": celt_dsp.DEEMPH_LAUNCHES}
     st = dec.stats
     for _, wins in res.windows():
         for w in wins:
@@ -1113,10 +1142,12 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 raise AssertionError(f"a PCM window lies on {w.device}")
     if st["group_demotions"] or st.get("lanes_demoted"):
         raise AssertionError(f"demotions: {st.get('group_exceptions')}")
-    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window and every Opus
-    # bucket launches exactly one kernel (LPC, LMS, Huffman, PCM, lapped
-    # window, CELT overlap-add), and a FLAC window of the Rice wire the
-    # frame entropy kernel too; Layer I/II windows are synthesis only
+    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window, every Opus
+    # CELT bucket and every SILK upsample step launches exactly one kernel
+    # (LPC, LMS, Huffman, PCM, lapped window, CELT overlap-add, SILK
+    # upsample), and a FLAC window of the Rice wire the frame entropy
+    # kernel too; Layer I/II windows are synthesis only, and no decode path
+    # runs the CELT deemphasis on the card
     wbf = st["windows_by_format"]
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
@@ -1125,7 +1156,9 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                      if flac_wire == "rice" else 0,
                      "pcm": wbf.get("wav", 0),
                      "vorbis_win": wbf.get("vorbis", 0),
-                     "celt_ola": wbf.get("opus", 0)}
+                     "celt_ola": wbf.get("opus", 0),
+                     "silk_upsample": wbf.get("opus_silk", 0),
+                     "celt_deemph": 0}
     if launches != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
@@ -2568,12 +2601,20 @@ def phase_celt_kernel(card, kept):
 def opus_mixed_streams(rng):
     """Mixed Opus lanes: corpus lanes of both channel counts, the four
     mono CELT packets, a stereo-coded lane with a mono header, a SILK lane
-    (per-stream read), a DTX lane, and last a corpus lane with bytes
-    flipped in its packets."""
+    of the in-repo packets, a DTX lane, stereo SILK and stereo hybrid
+    lanes, a mono hybrid lane and a mode tour of the speech corpus, and
+    last a corpus lane with bytes flipped in its packets."""
     import torch_opus_cases
+    import torch_opus_speech_cases as sc
 
     ref = golden_opus_ref()
     corpus = torch_opus_cases.load()
+    speech = sc.load()
+    kinds = sc.kinds()
+
+    def master(kind, ch):
+        return next(m for m, k in zip(speech, kinds)
+                    if k == kind and m[0] == ch)
     celt = read_constants("test_opus_celt", ("PACKETS",))["PACKETS"]
     silk = read_constants("test_opus_silk", ("SILK_PACKETS",))[
         "SILK_PACKETS"]
@@ -2589,7 +2630,11 @@ def opus_mixed_streams(rng):
                            channels=1, preskip=0),
         ref.build_ogg_opus([ref.dtx_packet()] * 3
                            + [ref.silence_packet()] * 2, channels=1,
-                           preskip=0)]
+                           preskip=0),
+        sc.stream(ref.build_ogg_opus, master("silk", 2), 60, preskip=312),
+        sc.stream(ref.build_ogg_opus, master("hybrid", 2), 45, preskip=0),
+        sc.stream(ref.build_ogg_opus, master("hybrid", 1), 52, preskip=312),
+        sc.stream(ref.build_ogg_opus, master("tour", 1), 70, preskip=0)]
     bad = bytearray(torch_opus_cases.stream(ref.build_ogg_opus, corpus[3],
                                             60, preskip=0))
     for pos in rng.integers(len(bad) // 4, len(bad), 16):
@@ -2616,6 +2661,13 @@ def phase_opus_mixed(card):
     if dec.errors != cpu.errors or (out[bad] is None) != (want[bad] is None):
         raise AssertionError(f"corrupt Opus lane: card {dec.errors[bad]!r}, "
                              f"CPU {cpu.errors[bad]!r}")
+    st = dec.stats
+    groups = {g: st.get(f"opus_{g}_lanes", 0)
+              for g in ("silk", "hybrid", "mixed")}
+    if groups != {"silk": 2, "hybrid": 2, "mixed": 1} or \
+            not st["windows_by_format"].get("opus_silk"):
+        raise AssertionError(f"mixed Opus lanes by group {groups}, windows "
+                             f"{st['windows_by_format']}")
     if want[bad] is not None:
         if out[bad].shape != want[bad].shape:
             raise AssertionError(f"corrupt Opus lane: {out[bad].shape}, CPU "
@@ -2628,12 +2680,377 @@ def phase_opus_mixed(card):
                                      "peak")
             err = max(err, e)
     print(f"# mixed Opus lanes (corpus stereo and mono, the 4 CELT packets, "
-          f"a stereo-coded lane with a mono header, SILK, DTX, a corrupt "
-          f"lane): every lane within {err:.3g} of the peak of the CPU "
-          f"decode, corrupt lane {len(out[bad]) if out[bad] is not None else None} "
-          f"frames, error {dec.errors[bad]!r}; buckets "
-          f"{dec.stats['windows_by_format'].get('opus', 0)}, K12a launches "
-          f"{launches['celt_ola']} [{card}]")
+          f"a stereo-coded lane with a mono header, mono and stereo SILK, "
+          f"DTX, mono and stereo hybrid, a mode tour, a corrupt lane): "
+          f"every lane within {err:.3g} of the peak of the CPU decode, "
+          f"corrupt lane {len(out[bad]) if out[bad] is not None else None} "
+          f"frames, error {dec.errors[bad]!r}; lanes by group {groups}, "
+          f"lanes demoted {st.get('lanes_demoted', 0)}, windows by format "
+          f"{st['windows_by_format']}, K12a launches "
+          f"{launches['celt_ola']}, K13 launches "
+          f"{launches['silk_upsample']} [{card}]")
+
+
+# --------------------------------------------------------------- speech Opus
+def speech_corpus(kind, n_lanes):
+    """A speech slice's lanes: packet prefixes of 2-4 s (SPEECH_PACKETS)
+    of the speech corpus's mono masters of `kind` (tests/
+    torch_opus_speech_cases.py: "silk", "hybrid" or "tour"), preskip 0 or
+    312, the distinct (master, packets, preskip) in turn.  Returns
+    (streams, each lane's expected PCM): the port's per-stream read on the
+    host, made once for each distinct lane."""
+    import torch_opus_speech_cases as sc
+
+    ref = golden_opus_ref()
+    masters = [m for m, k in zip(sc.load(), sc.kinds())
+               if k == kind and m[0] == 1]
+    specs = [(mi, n, skip) for mi in range(len(masters))
+             for n in SPEECH_PACKETS for skip in (0, 312)]
+    distinct = [sc.stream(ref.build_ogg_opus, masters[mi], n, preskip=skip)
+                for mi, n, skip in specs]
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        refs = list(ex.map(opus_read, distinct))
+    streams = [distinct[i % len(specs)] for i in range(n_lanes)]
+    return streams, lambda i: refs[i % len(specs)]
+
+
+def speech_slice(card, kind, n_lanes, group):
+    """A speech slice on the card through decode_all(output="device"):
+    every lane within OPUS_TOL of the peak of its per-stream read, every
+    lane in `group`, no demotion; the first K13 call's arguments kept.
+    Returns (launches by kernel, the kept arguments)."""
+    from audio_formats_torch.ops import resample
+
+    t0 = time.perf_counter()
+    streams, expect = speech_corpus(kind, n_lanes)
+    t_ref = time.perf_counter() - t0
+    kept = {}
+    upsample = resample.silk_upsample
+
+    def first_call(*args, **kw):
+        kept.setdefault("args", (args, kw))
+        return upsample(*args, **kw)
+
+    resample.silk_upsample = first_call
+    try:
+        dec, wall, launches, _, err = decode_checked(
+            streams, expect, "cuda", tol=OPUS_TOL, rel=True)
+    finally:
+        resample.silk_upsample = upsample
+    st = dec.stats
+    if st.get(f"opus_{group}_lanes") != n_lanes:
+        raise AssertionError(f"{kind} slice: {st.get(f'opus_{group}_lanes')} "
+                             f"of {n_lanes} lanes in the {group} group")
+    if kind != "tour" and launches["silk_upsample"] == 0:
+        raise AssertionError(f"{kind} slice: K13 never launched")
+    secs = st["decoded_seconds"]
+    print(f"# Opus {kind} slice: {n_lanes} mono lanes in the {group} group "
+          f"(packet prefixes of 2-4 s, preskip 0/312; per-stream references "
+          f"of the distinct lanes {t_ref:.1f} s), {secs:.1f} s of audio in "
+          f"{wall:.3f} s wall = {secs / wall:.1f}x realtime; within "
+          f"{err:.3g} of the peak of the per-stream read; host_ms "
+          f"{st['host_ms']:.0f} (host_cpu_ms {st['host_cpu_ms']:.0f}), "
+          f"enqueue_ms {st['enqueue_ms']:.0f}, h2d_bytes {st['h2d_bytes']}, "
+          f"d2h_bytes {st['d2h_bytes']}, windows {st['windows_by_format']}, "
+          f"K13 launches {launches['silk_upsample']}, K12a launches "
+          f"{launches['celt_ola']}, mixed host rounds "
+          f"{st.get('opus_mixed_host_rounds', 0)} [{card}]")
+    return launches, kept.get("args")
+
+
+def build_fmad_off(name="silk_upsample"):
+    """csrc/<name>.cu built again with -fmad=false (each product and sum
+    rounded alone) beside the package's build: its C entry."""
+    import ctypes
+    from audio_formats_torch.ops import _kernels
+
+    src = os.path.join(_kernels.CSRC_DIR, name + ".cu")
+    out = os.path.join(_kernels.BUILD_DIR, name + "-fmad-off.so")
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-fmad=false",
+                    "-o", out, src], check=True, capture_output=True,
+                   timeout=600)
+    ((fn_name, argtypes),) = _kernels._ENTRIES[name]
+    fn = getattr(ctypes.CDLL(out), fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def silk_upsample_work(rows, W, G, den):
+    """(bytes, multiply-adds) of K13: the input rows and the taps read
+    once, the output written once; 96 multiply-adds an output sample."""
+    return 4 * (rows * W + den * 96 + rows * G * den), rows * G * den * 96
+
+
+def time_silk_upsample(card, label, x, h_rev, G, fmad_off):
+    """K13 at one shape: within K13_TOL of the peak of its twin on the
+    card (the twin a full-float32 matmul), and the -fmad=false build
+    against the twin; timed through its wrapper, alone, by its device
+    time and by its host enqueue, beside its bound, the twin and
+    torch.nn.functional.conv1d (cuDNN, TF32 off: the library yardstick,
+    which the port never calls)."""
+    import torch
+    from audio_formats_torch.ops import resample
+
+    rows, W = x.shape
+    den = h_rev.shape[0]
+    got = resample.silk_upsample(x, h_rev, G)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(
+        resample.silk_upsample_torch(x, h_rev, G)), 1)
+    want = want[0]
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max()) / peak
+    if not err <= K13_TOL:
+        raise AssertionError(f"K13 at {label}: {err:.3g} of the peak from "
+                             "its twin")
+    off = torch.empty_like(got)
+    rc = fmad_off(x.data_ptr(), h_rev.data_ptr(), off.data_ptr(), rows, W,
+                  G, den, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"K13 -fmad=false: CUDA error {rc}")
+    off_err = float((off - want).abs().max()) / peak
+    off_equal = float((off == want).float().mean())
+    equal = float((got == want).float().mean())
+    for _ in range(3):
+        resample.silk_upsample(x, h_rev, G)
+    ms = time_cuda(lambda: resample.silk_upsample(x, h_rev, G), 50)
+    kernel_ms = time_cuda(lambda: resample.silk_upsample_launch(
+        x, h_rev, G, got), 50)
+    dev_ms = device_ms(lambda: resample.silk_upsample_launch(
+        x, h_rev, G, got), "silk_upsample")
+    host_ms = time_host(lambda: resample.silk_upsample(x, h_rev, G))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = lambda: torch.nn.functional.conv1d(  # noqa: E731
+            x[:, None, : G + 95], h_rev[:, None, :])
+        conv()
+        library_ms = time_cuda(conv, 50)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    nbytes, macs = silk_upsample_work(rows, W, G, den)
+    b = bound(nbytes, 0, macs)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"# kernel silk_upsample, {label} ({rows} rows x {W} -> {G} x "
+          f"{den}): {err:.3g} of the peak from its twin ({equal:.3f} of "
+          f"samples bit-equal); built -fmad=false: {off_err:.3g} "
+          f"({off_equal:.3f} bit-equal); wrapper {ms:.4f} ms (its host "
+          f"enqueue {host_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms, "
+          f"device time (torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms, "
+          f"conv1d (cuDNN, TF32 off) {library_ms:.4f} ms; {nbytes} bytes, "
+          f"{macs} multiply-adds, bound_ms {b['bound_ms']:.5f} "
+          f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} through the "
+          f"wrapper, "
+          + ("not measured" if dev_ms is None
+             else f"{b['bound_ms'] / dev_ms:.3f}")
+          + f" of its device time [{card}]")
+    return {"max_abs_err": err * peak, "rel_err": err, "ms": ms,
+            "kernel_ms": kernel_ms, "device_ms": dev_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, **b, "library_ms": library_ms,
+            "share": b["bound_ms"] / ms, "fmad_off_rel_err": off_err,
+            "fmad_off_bit_equal": off_equal == 1.0}
+
+
+def phase_silk_kernel(card, kept, fmad_off):
+    """K13 at the SILK slice's first step (its arguments kept) and at
+    SILK_BIG_ROWS random rows of a 20 ms step for each of den 6, 4, 3."""
+    import torch
+    from audio_formats_torch.ops import resample
+
+    args, kw = kept
+    x, h_rev, G = args[:3]
+    res = time_silk_upsample(card, "the SILK slice's first step", x, h_rev,
+                             G, fmad_off)
+    rng = np.random.default_rng(13)
+    t = resample._fit_tables()
+    big = {}
+    for bw, key in enumerate(("h_nb", "h_mb", "h_wb")):
+        h = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(t[key], np.float64)[:, ::-1], np.float32)).cuda()
+        den = h.shape[0]
+        G = 960 // den
+        xb = torch.from_numpy((rng.standard_normal(
+            (SILK_BIG_ROWS, G + 95)) * 3000).astype(np.float32)).cuda()
+        r = time_silk_upsample(card, f"random rows, den {den}", xb, h, G,
+                               fmad_off)
+        big[f"{SILK_BIG_ROWS}x{G}x{den}"] = {k: r[k] for k in (
+            "ms", "kernel_ms", "device_ms", "bound_ms", "plain_ms",
+            "library_ms", "rel_err")}
+    res["large"] = big
+    return res
+
+
+def deemph_work(B, n):
+    """(bytes) of K12b: x and m0 read once, y and m written once."""
+    return 4 * (2 * B * n + 2 * B)
+
+
+def time_deemph(card, B, n, rng):
+    """K12b alone at [B, n]: within DEEMPH_TOL of the peak of its twin on
+    the card, timed through its wrapper, alone, by its device time and its
+    host enqueue, beside its bound and the twin (no PyTorch call computes
+    a linear recurrence: library_ms is null)."""
+    import torch
+    from audio_formats_torch.ops import celt_dsp
+
+    x = torch.from_numpy(rng.uniform(-8000, 8000, (B, n)).astype(
+        np.float32)).cuda()
+    m0 = torch.from_numpy(rng.uniform(-8000, 8000, B).astype(
+        np.float32)).cuda()
+    y, m = celt_dsp.deemphasis_scan(x, m0)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(
+        celt_dsp.deemphasis_scan_torch(x, m0)), 1)
+    wy, wm = want[0]
+    err = max(float((y - wy).abs().max()) / float(wy.abs().max()),
+              float((m - wm).abs().max()) / float(wm.abs().max()))
+    if not err <= DEEMPH_TOL:
+        raise AssertionError(f"K12b at [{B}, {n}]: {err:.3g} of the peak "
+                             "from its twin")
+    equal = float((y == wy).float().mean())
+    for _ in range(3):
+        celt_dsp.deemphasis_scan(x, m0)
+    ms = time_cuda(lambda: celt_dsp.deemphasis_scan(x, m0), 50)
+    kernel_ms = time_cuda(lambda: celt_dsp.deemphasis_launch(
+        x, m0, (y, m)), 50)
+    dev_ms = device_ms(lambda: celt_dsp.deemphasis_launch(x, m0, (y, m)),
+                       "celt_deemph")
+    host_ms = time_host(lambda: celt_dsp.deemphasis_scan(x, m0))
+    b = bound(deemph_work(B, n), 0, 2 * B * n)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"# kernel celt_deemph, [{B}, {n}] random x (amplitude 8000) and "
+          f"m0: {err:.3g} of the peak from its twin ({equal:.3f} of samples "
+          f"bit-equal); wrapper {ms:.4f} ms (its host enqueue {host_ms:.4f} "
+          f"ms), kernel alone {kernel_ms:.4f} ms, device time "
+          f"(torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms; bound_ms "
+          f"{b['bound_ms']:.5f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} through the wrapper, "
+          + ("not measured" if dev_ms is None
+             else f"{b['bound_ms'] / dev_ms:.3f}")
+          + f" of its device time [{card}]")
+    return {"max_abs_err": err * float(wy.abs().max()), "rel_err": err,
+            "ms": ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, **b,
+            "library_ms": None, "share": b["bound_ms"] / ms}
+
+
+def deemph_chain(card, rows, rng):
+    """The JAX bench's device CELT synthesis (bench.py:800-810): for
+    DEEMPH_FRAMES frames of random long-block spectra, celt_imdct_ola (the
+    IMDCT matmul, then K12a) and deemphasis_scan (K12b), the tail and the
+    memory m carried from frame to frame, counted from 0 just before the
+    run; then the same chain with the twins, held within DEEMPH_TOL of the
+    peak.  Returns (K12b's launches in the kernel chain, ms a frame)."""
+    import torch
+    from audio_formats_torch.ops import celt_dsp
+
+    X = torch.from_numpy((rng.standard_normal((DEEMPH_FRAMES, rows, 960))
+                          * 400).astype(np.float32)).cuda()
+    tail0 = torch.zeros((rows, 60), device="cuda")
+    m0 = torch.zeros(rows, device="cuda")
+
+    def chain(imdct_ola, deemph):
+        tail, m, ys = tail0, m0, []
+        for k in range(DEEMPH_FRAMES):
+            raw, tail = imdct_ola(X[k], tail, 1, 960)
+            y, m = deemph(raw, m)
+            ys.append(y)
+        return torch.stack(ys), m
+
+    chain(celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan)
+    torch.cuda.synchronize()
+    celt_dsp.DEEMPH_LAUNCHES = 0
+    celt_dsp.OLA_LAUNCHES = 0
+    got = []
+    ms = time_cuda(lambda: got.append(chain(
+        celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan)), 1)
+    launches = celt_dsp.DEEMPH_LAUNCHES
+    ola = celt_dsp.OLA_LAUNCHES
+    want = []
+    plain_ms = time_cuda(lambda: want.append(chain(
+        celt_dsp.celt_imdct_ola_torch, celt_dsp.deemphasis_scan_torch)), 1)
+    (gy, gm), (wy, wm) = got[0], want[0]
+    err = max(float((gy - wy).abs().max()) / float(wy.abs().max()),
+              float((gm - wm).abs().max()) / float(wm.abs().max()))
+    if not err <= DEEMPH_TOL:
+        raise AssertionError(f"K12a+K12b chain at {rows} rows: {err:.3g} of "
+                             "the peak from the twins' chain")
+    if launches != DEEMPH_FRAMES or ola != DEEMPH_FRAMES:
+        raise AssertionError(f"chain launches K12b {launches}, K12a {ola}")
+    print(f"# CELT synthesis chain (bench.py:800-810), {rows} rows x "
+          f"{DEEMPH_FRAMES} frames of 960 (random spectra): IMDCT matmul, "
+          f"K12a and K12b a frame, tail and m carried; {err:.3g} of the peak "
+          f"from the twins' chain; {ms / DEEMPH_FRAMES:.4f} ms a frame, the "
+          f"twins' chain {plain_ms / DEEMPH_FRAMES:.3f} ms a frame; K12b "
+          f"launches {launches}, K12a {ola} [{card}]")
+    return launches, ms / DEEMPH_FRAMES
+
+
+def phase_deemph_kernel(card):
+    """K12b alone at DEEMPH_SHAPES, then chained after K12a at each row
+    count.  Returns (its result at bench.py:731's 512 rows, the launches
+    of the 512-row chain)."""
+    rng = np.random.default_rng(85)
+    res = None
+    chains = {}
+    for B, n in DEEMPH_SHAPES:
+        r = time_deemph(card, B, n, rng)
+        if res is None:
+            res = r
+        else:
+            res.setdefault("large", {})[f"{B}x{n}"] = {k: r[k] for k in (
+                "ms", "kernel_ms", "device_ms", "bound_ms", "plain_ms",
+                "rel_err")}
+        chains[B] = deemph_chain(card, B, rng)
+    res["chain_ms_a_frame"] = {str(B): c[1] for B, c in chains.items()}
+    return res, chains[DEEMPH_SHAPES[0][0]][0]
+
+
+def phase_mixed_threshold(card):
+    """The mixed group's CELT answers on the host and on the device, at
+    MIXED_PROBE lanes of mode tours (50 packets, 1 s): each size's wall
+    with OPUS_MIXED_DEVICE_MIN_LANES set so that the group takes the host
+    path and then the device path, in turns (host, device, device, host),
+    the two outputs within OPUS_TOL of the peak of each other."""
+    from audio_formats_torch import BatchDecoder
+    import torch_opus_speech_cases as sc
+    from audio_formats_torch.parallel import batch
+
+    ref = golden_opus_ref()
+    tours = [m for m, k in zip(sc.load(), sc.kinds()) if k == "tour"]
+    saved = batch.OPUS_MIXED_DEVICE_MIN_LANES
+    walls = {}
+    try:
+        for n in MIXED_PROBE:
+            streams = [sc.stream(ref.build_ogg_opus, tours[i % 2], 50,
+                                 preskip=(0, 312)[i % 2]) for i in range(n)]
+            outs = {}
+            for path in ("host", "device", "device", "host"):
+                batch.OPUS_MIXED_DEVICE_MIN_LANES = \
+                    n + 1 if path == "host" else 1
+                dec = BatchDecoder(streams, device="cuda")
+                t0 = time.perf_counter()
+                outs[path] = dec.decode_all()
+                walls.setdefault((n, path), []).append(
+                    time.perf_counter() - t0)
+            for a, b in zip(outs["host"], outs["device"]):
+                e = float(np.abs(a - b).max() / (np.abs(a).max() + 1e-12))
+                if not e <= OPUS_TOL:
+                    raise AssertionError(f"mixed group at {n} lanes: device "
+                                         f"path {e:.3g} of the peak from the "
+                                         "host path")
+    finally:
+        batch.OPUS_MIXED_DEVICE_MIN_LANES = saved
+    print("# mixed Opus group, host against device CELT answers (50-packet "
+          "mode tours, walls in s, host/device/device/host): " + "; ".join(
+              f"{n} lanes host {walls[(n, 'host')]} device "
+              f"{walls[(n, 'device')]}" for n in MIXED_PROBE)
+          + f" [{card}]")
+    return walls
 
 
 def main():
@@ -2658,15 +3075,17 @@ def main():
     from concurrent.futures import ProcessPoolExecutor
 
     names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice", "pcm",
-             "vorbis_win", "celt_ola")
+             "vorbis_win", "celt_ola", "silk_upsample", "celt_deemph")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=8,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
         vorbis_masters = pool.map(vorbis_master, range(VORBIS_MASTERS))
-        with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        with ThreadPoolExecutor(max_workers=len(names) + 1) as ex:
+            fmad_off = ex.submit(build_fmad_off)
             list(ex.map(_kernels.build, names))
+            fmad_off = fmad_off.result()
         for name in names:
             _kernels.load(name)
         print(f"# nvcc builds of {', '.join(names)}: "
@@ -2680,7 +3099,7 @@ def main():
         print(f"#   {name}: nvcc {secs:.2f} s")
         for line in log.strip().splitlines():
             print(f"#   {name}: {line.strip()}")
-    run_phases(card, mp3_masters, vorbis_masters)
+    run_phases(card, mp3_masters, vorbis_masters, fmad_off)
 
 
 def flac_slice(streams, pcms):
@@ -2736,7 +3155,7 @@ def rice_slice(streams, pcms):
     return dec, wall, launches, kept
 
 
-def run_phases(card, mp3_masters, vorbis_masters):
+def run_phases(card, mp3_masters, vorbis_masters, fmad_off):
     import torch
 
     # 3. kernels vs twins
@@ -2883,6 +3302,17 @@ def run_phases(card, mp3_masters, vorbis_masters):
     del kept
     phase_opus_mixed(card)
 
+    # 14. speech Opus: the SILK, hybrid and mode-tour slices, K13 at the
+    # SILK slice's first step and alone, K12b alone and chained after
+    # K12a, and the mixed group's host and device paths by lane count
+    silk_l, kept = speech_slice(card, "silk", SPEECH_LANES, "silk")
+    sres = phase_silk_kernel(card, kept, fmad_off)
+    del kept
+    speech_slice(card, "hybrid", SPEECH_LANES, "hybrid")
+    speech_slice(card, "tour", TOUR_LANES, "mixed")
+    zres, deemph_launches = phase_deemph_kernel(card)
+    phase_mixed_threshold(card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "audio_formats_tpu"))
@@ -2927,6 +3357,16 @@ def run_phases(card, mp3_masters, vorbis_masters):
          "source": "audio_formats_torch/csrc/celt_ola.cu",
          "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
          "launches": opus_launches, **ores},
+        {"name": "silk_upsample", "route": "cuda",
+         "source": "audio_formats_torch/csrc/silk_upsample.cu",
+         "replaces": "audio_formats_tpu/ops/resample.py:358",
+         "launches": silk_l["silk_upsample"], **sres},
+        {"name": "celt_deemph", "route": "cuda",
+         "source": "audio_formats_torch/csrc/celt_deemph.cu",
+         "replaces": "audio_formats_tpu/ops/celt_dsp.py:85",
+         "path": "the CELT synthesis chain of bench.py:800-810 (no decode "
+                 "path runs it)",
+         "launches": deemph_launches, **zres},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The port's CELT device stage against the JAX package's
-``ops/celt_dsp.celt_imdct_ola``, on the CPU.
+"""The port's CELT device stages against the JAX package's
+``ops/celt_dsp.celt_imdct_ola`` and ``deemphasis_scan``, on the CPU.
 
 The IMDCT basis is JAX's bit for bit.  The overlap-add twin (K12a's twin),
 fed the half-transforms that JAX's einsum computes, gives JAX's output bit
@@ -9,6 +9,9 @@ b0·w[u])``, and the twin rounds those FMAs exactly.  The whole twin, whose
 IMDCT is a torch matmul, cannot give XLA's einsum bits; it is held within
 TOL of the peak (it stays within ~7e-7 on these inputs; JAX's own batch
 against its facade is held to 1e-5, tests/test_batch.py:489-490).
+The deemphasis twin (K12b's twin) steps the recurrence a sample at a time
+in f32, where JAX runs an associative scan: it is held within DEEMPH_TOL
+of the peak.
 """
 
 import jax
@@ -102,3 +105,57 @@ def test_ola_rejects_what_it_cannot_take():
             torch.empty((2, 1, 60), device="meta"),
             torch.empty((2, 60), device="meta"),
             (torch.empty((2, 60)), torch.empty((2, 60))))
+
+
+# ------------------------------------------------- K12b, the deemphasis
+DEEMPH_TOL = 1e-6   # max abs error over the peak: the twin against JAX
+
+
+@pytest.mark.parametrize("B,n", [(512, 960), (3, 100), (1, 120), (7, 1)])
+def test_deemphasis_twin_matches_jax(B, n):
+    """Three chained calls, each carrying the memory m of the last: the
+    twin's sequential f32 recurrence against JAX's associative scan,
+    within DEEMPH_TOL of the peak for y and for m (measured at [512, 960],
+    amplitude 8000: 2.2e-7 of the peak, a quarter of the samples
+    bit-equal).  On a CPU tensor the wrapper is the twin."""
+    rng = np.random.default_rng([B, n])
+    m_t = rng.uniform(-8000, 8000, B).astype(np.float32)
+    m_j = m_t
+    for _ in range(3):
+        x = rng.uniform(-8000, 8000, (B, n)).astype(np.float32)
+        y_j, m_j = (np.asarray(a) for a in jdsp.deemphasis_scan(x, m_j))
+        y_w, m_w = tdsp.deemphasis_scan(torch.from_numpy(x),
+                                        torch.from_numpy(m_t))
+        y_t, m_t = tdsp.deemphasis_scan_torch(torch.from_numpy(x),
+                                              torch.from_numpy(m_t))
+        assert torch.equal(y_w, y_t) and torch.equal(m_w, m_t)
+        y_t, m_t = y_t.numpy(), m_t.numpy()
+        assert y_t.shape == y_j.shape == (B, n) and y_t.dtype == np.float32
+        assert m_t.shape == m_j.shape == (B,) and m_t.dtype == np.float32
+        assert np.abs(y_t - y_j).max() / np.abs(y_j).max() < DEEMPH_TOL
+        assert np.abs(m_t - m_j).max() / np.abs(m_j).max() < DEEMPH_TOL
+
+
+def test_deemphasis_twin_is_the_recurrence():
+    """The twin's y[0] takes m0 whole (c·y[-1] = m0), each later sample
+    c times the one before, in f32; m = c·y[n-1]."""
+    c = np.float32(tdsp.DEEMPH_COEFF)
+    x = np.array([[1.0, 2.0, -3.0, 0.5]], np.float32)
+    m0 = np.array([4.0], np.float32)
+    y, m = tdsp.deemphasis_scan_torch(torch.from_numpy(x),
+                                      torch.from_numpy(m0))
+    v = m0[0]
+    for i in range(4):
+        yi = np.float32(x[0, i] + v)
+        assert y[0, i].item() == np.float32(yi / np.float32(32768.0))
+        v = np.float32(c * yi)
+    assert m[0].item() == v
+
+
+def test_deemphasis_rejects_what_it_cannot_take():
+    meta = torch.empty((2, 960), device="meta")
+    with pytest.raises(_kernels.KernelArgError, match="CUDA"):
+        tdsp.deemphasis_scan(meta, torch.empty((2,), device="meta"))
+    with pytest.raises(_kernels.KernelArgError, match=r"\[B, n\]"):
+        tdsp.deemphasis_launch(meta[0], torch.empty((2,), device="meta"),
+                               (meta[0], meta[0]))

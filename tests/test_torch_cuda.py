@@ -21,11 +21,13 @@ from audio_formats_torch.ops import lms as tlms
 from audio_formats_torch.ops import lpc as tlpc
 from audio_formats_torch.ops import mdct as tmdct
 from audio_formats_torch.ops import pcm as tpcm
+from audio_formats_torch.ops import resample as trs
 from audio_formats_torch.ops import vorbis_win as twin
 from audio_formats_torch.parallel import batch as tbatch
 
 import torch_flac_cases
 import torch_opus_cases
+import torch_opus_speech_cases
 import torch_pcm_cases
 import torch_qoa_cases
 
@@ -1238,7 +1240,8 @@ def test_celt_imdct_refuses_tf32(cuda, monkeypatch):
 
 def _opus_streams():
     """CELT lanes of the committed corpus (both bucket shapes, a
-    stereo-coded lane with a mono header) and a SILK lane."""
+    stereo-coded lane with a mono header) and a SILK lane (the SILK
+    group)."""
     from golden import opus_ref
     from test_opus_silk import SILK_PACKETS
 
@@ -1259,11 +1262,159 @@ def test_batch_decoder_opus_cuda_equals_cpu(cuda):
     of the peak of the CPU decode (the IMDCT matmuls differ in their
     sums)."""
     streams = _opus_streams()
-    before = tcelt.OLA_LAUNCHES
+    before = tcelt.OLA_LAUNCHES, trs.UPSAMPLE_LAUNCHES
     dec = BatchDecoder(streams, device=cuda)
     got = dec.decode_all(output="device").sync().to_numpy()
-    assert tcelt.OLA_LAUNCHES - before == dec.stats["windows"] > 0
+    wbf = dec.stats["windows_by_format"]
+    assert tcelt.OLA_LAUNCHES - before[0] == wbf["opus"] > 0
+    assert trs.UPSAMPLE_LAUNCHES - before[1] == wbf["opus_silk"] > 0
     assert dec.stats["group_demotions"] == 0
+    want = BatchDecoder(streams, device="cpu").decode_all()
+    for a, b in zip(got, want, strict=True):
+        _close(torch.from_numpy(a), torch.from_numpy(b), tol=1e-5)
+
+
+def _silk_taps(den, cuda):
+    t = trs._fit_tables()
+    h = np.asarray(t[{6: "h_nb", 4: "h_mb", 3: "h_wb"}[den]], np.float64)
+    return torch.from_numpy(np.ascontiguousarray(h[:, ::-1],
+                                                 np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 257])
+@pytest.mark.parametrize("G", [1, 7, 65, 140, 320])
+@pytest.mark.parametrize("den", [6, 4, 3])
+def test_silk_upsample_kernel_matches_twin(cuda, den, G, rows):
+    """K13 (one launch) within 1e-6 of the peak of its twin, a
+    full-float32 matmul, at every phase count, ragged group counts and a
+    single row; rows wider than G + 95 are read only as far as needed."""
+    rng = np.random.default_rng([den, G, rows])
+    h = _silk_taps(den, cuda)
+    x = torch.from_numpy((rng.standard_normal((rows, G + 95 + G % 3))
+                          * 3000).astype(np.float32)).to(cuda)
+    before = trs.UPSAMPLE_LAUNCHES
+    got = trs.silk_upsample(x, h, G)
+    want = trs.silk_upsample_torch(x, h, G)
+    assert trs.UPSAMPLE_LAUNCHES - before == 1
+    assert got.shape == want.shape == (rows, G * den)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 1e-6
+
+
+def test_silk_upsample_launch_alone_matches_wrapper(cuda):
+    h = _silk_taps(3, cuda)
+    x = torch.randn((64, 415), device=cuda) * 3000
+    want = trs.silk_upsample(x, h, 320)
+    out = torch.full_like(want, float("nan"))
+    trs.silk_upsample_launch(x, h, 320, out)
+    assert torch.equal(out, want)
+
+
+def test_silk_upsample_kernel_rejects_bad_arguments(cuda):
+    from audio_formats_torch.ops._kernels import KernelArgError
+
+    h = _silk_taps(4, cuda)
+    x = torch.zeros((4, 335), device=cuda)
+    out = torch.zeros((4, 960), device=cuda)
+    with pytest.raises(KernelArgError, match="W >= G"):
+        trs.silk_upsample(x, h, 241)
+    with pytest.raises(KernelArgError, match="96 taps"):
+        trs.silk_upsample(x, h[:, :95].contiguous(), 240)
+    with pytest.raises(KernelArgError, match="want"):
+        trs.silk_upsample_launch(x, h.cpu(), 240, out)
+    with pytest.raises(KernelArgError):
+        trs.silk_upsample(x.double(), h, 240)
+    with pytest.raises(KernelArgError, match="contiguous"):
+        trs.silk_upsample(torch.zeros((4, 670), device=cuda)[:, ::2], h, 240)
+    with pytest.raises(KernelArgError, match="want"):
+        trs.silk_upsample_launch(x, h, 240, out[:, :959])
+
+
+def test_silk_upsample_twin_refuses_tf32(cuda, monkeypatch):
+    from audio_formats_torch.ops._kernels import KernelError
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(KernelError, match="SILK upsample twin"):
+        trs.silk_upsample_torch(torch.zeros((2, 415), device=cuda),
+                                _silk_taps(3, cuda), 320)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 100, 960, 2000])
+@pytest.mark.parametrize("B", [1, 5, 512])
+def test_deemph_kernel_matches_twin(cuda, B, n):
+    """K12b (one launch) within 1e-6 of the peak of its twin, the
+    sequential recurrence, for n not a multiple of 32 and a single row;
+    three calls chained through m."""
+    rng = np.random.default_rng([B, n])
+    m = mt = torch.from_numpy(rng.uniform(-8000, 8000, B).astype(
+        np.float32)).to(cuda)
+    for _ in range(3):
+        x = torch.from_numpy(rng.uniform(-8000, 8000, (B, n)).astype(
+            np.float32)).to(cuda)
+        before = tcelt.DEEMPH_LAUNCHES
+        y, m = tcelt.deemphasis_scan(x, m)
+        yt, mt = tcelt.deemphasis_scan_torch(x, mt)
+        assert tcelt.DEEMPH_LAUNCHES - before == 1
+        assert y.shape == (B, n) and m.shape == (B,)
+        if n:
+            assert float((y - yt).abs().max()) / float(yt.abs().max()) < 1e-6
+        assert float((m - mt).abs().max()) / float(mt.abs().max()) < 1e-6
+
+
+def test_deemph_kernel_rejects_bad_arguments(cuda):
+    from audio_formats_torch.ops._kernels import KernelArgError
+
+    x = torch.zeros((4, 960), device=cuda)
+    m0 = torch.zeros(4, device=cuda)
+    with pytest.raises(KernelArgError, match="want"):
+        tcelt.deemphasis_scan(x, m0[:3])
+    with pytest.raises(KernelArgError, match="want"):
+        tcelt.deemphasis_scan(x, m0.cpu())
+    with pytest.raises(KernelArgError):
+        tcelt.deemphasis_scan(x.double(), m0)
+    with pytest.raises(KernelArgError, match="contiguous"):
+        tcelt.deemphasis_scan(torch.zeros((4, 1920), device=cuda)[:, ::2],
+                              m0)
+    with pytest.raises(KernelArgError, match=r"\[B, n\]"):
+        tcelt.deemphasis_scan(x[0], m0)
+
+
+def _speech_streams():
+    """Speech corpus lanes of the three groups: mono and stereo SILK, mono
+    and stereo hybrid, and 16 mode tours (the mixed group's device
+    path)."""
+    from golden import opus_ref
+
+    corpus = torch_opus_speech_cases.load()
+    kinds = torch_opus_speech_cases.kinds()
+
+    def lane(kind, k, n, ps):
+        mi = [i for i, kd in enumerate(kinds) if kd == kind][k]
+        return torch_opus_speech_cases.stream(opus_ref.build_ogg_opus,
+                                              corpus[mi], n, preskip=ps)
+
+    return ([lane("silk", k, 30 + 9 * k, (0, 312)[k % 2]) for k in range(5)]
+            + [lane("hybrid", k, 25 + 7 * k, (312, 0)[k % 2])
+               for k in range(5)]
+            + [lane("tour", k % 2, 30 + 2 * k, (0, 130, 312)[k % 3])
+               for k in range(16)])
+
+
+def test_batch_decoder_opus_groups_cuda_equals_cpu(cuda):
+    """The SILK, hybrid and mixed groups on the card (K13 once a SILK
+    step, K12a once a CELT bucket) within 1e-5 of the peak of the CPU
+    decode, every lane in its group, no demotion."""
+    streams = _speech_streams()
+    before = tcelt.OLA_LAUNCHES, trs.UPSAMPLE_LAUNCHES
+    dec = BatchDecoder(streams, device=cuda)
+    got = dec.decode_all(output="device").sync().to_numpy()
+    st = dec.stats
+    wbf = st["windows_by_format"]
+    assert tcelt.OLA_LAUNCHES - before[0] == wbf["opus"] > 0
+    assert trs.UPSAMPLE_LAUNCHES - before[1] == wbf["opus_silk"] > 0
+    assert st["group_demotions"] == 0
+    assert (st["opus_silk_lanes"], st["opus_hybrid_lanes"],
+            st["opus_mixed_lanes"]) == (5, 5, 16)
     want = BatchDecoder(streams, device="cpu").decode_all()
     for a, b in zip(got, want, strict=True):
         _close(torch.from_numpy(a), torch.from_numpy(b), tol=1e-5)

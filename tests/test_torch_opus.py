@@ -6,10 +6,11 @@ mode: the four real CELT packets of tests/test_opus_celt.py, the SILK
 packets of tests/test_opus_silk.py, the committed stereo corpus
 (tests/torch_opus_cases.py), DTX and silence lanes.  The batch decoder
 sends CELT-only mapping-0 lanes through its lockstep group (the IMDCT and
-K12a's twin a (blocks, blocksize) bucket a step) and every other Opus lane
-through the per-stream read; its output is held within TOL of the peak of
-JAX's facade and of JAX's batch (the bound tests/test_batch.py:489-490
-holds between JAX's batch and its facade).
+K12a's twin a (blocks, blocksize) bucket a step) and SILK-only lanes
+through theirs (K13's twin a packet step; the SILK, hybrid and mixed
+groups are held in tests/test_torch_opus_groups.py); its output is held
+within TOL of the peak of JAX's facade and of JAX's batch (the bound
+tests/test_batch.py:489-490 holds between JAX's batch and its facade).
 """
 
 import collections
@@ -191,8 +192,7 @@ def _batch_lanes():
     """Ragged CELT lanes: JAX's test_batch.py:476-490 pair, corpus
     prefixes of several lengths and preskips, a stereo-coded stream with a
     mono header (scale 0.5 beside the mono master's 1.0 in one bucket),
-    DTX and silence lanes, and a SILK lane that takes the per-stream
-    read."""
+    DTX and silence lanes, and a SILK lane that rides the SILK group."""
     return [
         _celt(4, 130), _celt(2, 0),
         _master(0, 40, 312), _master(1, 23, 0), _master(2, 57, 130),
@@ -231,17 +231,20 @@ def test_batch_matches_jax(output, monkeypatch):
     assert st["group_demotions"] == 0 and not st.get("lanes_demoted")
     silk = len(streams) - 1
     assert not tbatch.BatchDecoder._opus_eligible(tdec.decoders[silk])
+    assert st["opus_silk_lanes"] == 1
     for i, data in enumerate(streams):
         want = _facade(data)
         _close(got[i], want)
         _close(got[i], jgot[i])
-    np.testing.assert_array_equal(got[silk], _jax_read(streams[silk]))
     # one IMDCT and overlap-add a bucket a step; some steps hold two
-    # buckets (short and long blocks), and some bucket mixes scales
+    # buckets (short and long blocks), and some bucket mixes scales; the
+    # SILK lane's steps are K13's
     n_frames = [sum(len(topus.parse_packet(p)["frames"])
                     for p in d._lockstep_packets)
                 for d in tdec.decoders[:silk]]
-    assert len(calls) == st["windows_by_format"]["opus"] == st["windows"]
+    wbf = st["windows_by_format"]
+    assert len(calls) == wbf["opus"] == st["windows"] - wbf["opus_silk"]
+    assert wbf["opus_silk"] == 4
     assert len(calls) > max(n_frames)
     assert {(1, 960), (8, 120), (1, 480)} <= set(calls)
     assert {0.5, 1.0} in scales

@@ -17,11 +17,17 @@ BatchDecoder, its uninitialised host buffers zeroed: the same lane errors,
 and within 4e-6 of the peak where JAX's batch keeps to the facade; on the
 three mutations where it reads its zeroed rows instead, the port keeps to
 the facade and JAX's batch does not.  Each mutation of its Opus fixture
-(SILK packets) and of a CELT fixture (25 stereo packets of the committed
-corpus, tests/torch_opus_cases.py) goes through the port's batch decoder
-and is held to JAX's facade: a lane error where the facade errs at open,
-else within 1e-5 of the peak (JAX's own bound between its batch and its
-facade, tests/test_batch.py:489-490).
+(SILK packets, which unharmed ride the SILK group), of a CELT fixture (25
+stereo packets of the committed corpus, tests/torch_opus_cases.py) and of
+a hybrid fixture (25 packets of the speech corpus's first hybrid master,
+tests/torch_opus_speech_cases.py) goes through the port's batch decoder,
+into the Opus group JAX's eligibility tests choose, and is held to JAX's
+facade: a lane error where the facade errs at open, else within 1e-5 of
+the peak (JAX's own bound between its batch and its facade,
+tests/test_batch.py:489-490).  On the hybrid fixture's three splices,
+whose granule field runs past their packets, JAX's hybrid group drains
+its resampler rows past what the lane owes (486 samples more than its
+facade); the port's group drains what the per-stream read drains.
 
 The reference's per-lane demotion test runs on the port, on both FLAC wires:
 a fault injected at the wire's host seam for one lane of a 64-lane group
@@ -48,6 +54,7 @@ from golden import flac_ref, opus_ref
 
 import test_robustness
 import torch_opus_cases
+import torch_opus_speech_cases
 
 N_MUTATIONS = 14   # 3 truncations, 6 flips, a zeroed run, 3 splices, a prefix
 
@@ -79,10 +86,35 @@ def _celt_mutations():
                                             np.random.default_rng(0xCE17)))
 
 
+@functools.lru_cache(maxsize=None)
+def _hybrid_mutations():
+    """Mutations of a hybrid fixture (the first 25 packets of the speech
+    corpus's first hybrid master), drawn as the reference test draws
+    them."""
+    master = torch_opus_speech_cases.load()[
+        torch_opus_speech_cases.kinds().index("hybrid")]
+    data = torch_opus_speech_cases.stream(opus_ref.build_ogg_opus, master,
+                                          25)
+    return (data,) + tuple(test_robustness._mutations(
+        data, np.random.default_rng(0x4B1D)))
+
+
+def _opus_fixture(fixture):
+    """The unharmed Opus fixture and its mutations."""
+    if fixture == "silk":
+        return (test_robustness._opus_fixture(),) + _mutations("opus")
+    if fixture == "celt":
+        return (torch_opus_cases.stream(opus_ref.build_ogg_opus,
+                                        torch_opus_cases.load()[0], 25),) \
+            + _celt_mutations()
+    return _hybrid_mutations()
+
+
 def test_sweep_has_every_mutation():
     for fmt in ("qoa", "flac", "wav", "vorbis", "mp3", "opus"):
         assert len(_mutations(fmt)) == N_MUTATIONS
     assert len(_celt_mutations()) == N_MUTATIONS
+    assert len(_hybrid_mutations()) == N_MUTATIONS + 1
 
 
 def _matches_jax(streams, tol=None, **kw):
@@ -352,17 +384,51 @@ def test_mp3_sweep_overruns_are_the_known_ones(monkeypatch):
     assert differ == []
 
 
+def _opus_group(cls, d):
+    """The Opus group that the eligibility cascade of `cls` (the port's
+    BatchDecoder or JAX's) picks for decoder d, as both dispatch."""
+    if not hasattr(d, "_collect_packets"):
+        return None
+    for group, fn in (("celt", cls._opus_eligible),
+                      ("silk", cls._silk_eligible),
+                      ("hybrid", cls._hybrid_eligible),
+                      ("mixed", cls._opus_mixed_eligible)):
+        if fn(d):
+            return group
+    return None
+
+
+@pytest.mark.parametrize("fixture,group", [
+    ("silk", "silk"), ("celt", "celt"), ("hybrid", "hybrid")])
+def test_opus_fixture_rides_its_group(fixture, group):
+    """Each Opus fixture, unharmed, rides its lockstep group and keeps
+    within 1e-5 of the peak of JAX's facade."""
+    data = _opus_fixture(fixture)[0]
+    tdec = BatchDecoder([data], device="cpu")
+    got = tdec.decode_all()[0]
+    assert _opus_group(BatchDecoder, tdec.decoders[0]) == group
+    assert tdec.stats.get(f"opus_{group}_lanes", 1) == 1
+    assert tdec.stats["group_demotions"] == 0
+    s = AudioStream()
+    s.open_from_memory(data)
+    assert _rel(got, s.read_samples_float(10 ** 7)) < 1e-5
+
+
 @pytest.mark.parametrize("k", range(N_MUTATIONS))
-@pytest.mark.parametrize("fixture", ["silk", "celt"])
+@pytest.mark.parametrize("fixture", ["silk", "celt", "hybrid"])
 def test_opus_mutation_matches_jax_facade(fixture, k):
     """The port's batch decode of each Opus mutation against JAX's
     AudioStream facade: a lane error where the facade errs at open, else
-    within 1e-5 of the peak over the whole stream, with no demotion."""
-    data = (_mutations("opus") if fixture == "silk"
-            else _celt_mutations())[k]
+    within 1e-5 of the peak over the whole stream, with no demotion; the
+    lane takes the Opus group (or the per-stream read) that JAX's
+    eligibility tests give it."""
+    data = _opus_fixture(fixture)[1 + k]
     s = AudioStream()
     s.open_from_memory(data)
     tdec = BatchDecoder([data], device="cpu")
+    jdec = JaxBatchDecoder([data])
+    assert _opus_group(BatchDecoder, tdec.decoders[0]) == \
+        _opus_group(JaxBatchDecoder, jdec.decoders[0])
     got = tdec.decode_all()[0]
     assert tdec.stats["group_demotions"] == 0
     if s.is_error():
@@ -373,3 +439,24 @@ def test_opus_mutation_matches_jax_facade(fixture, k):
     assert tdec.errors == [None] and got.shape == want.shape
     if want.size:
         assert _rel(got, want) < 1e-5
+
+
+def test_hybrid_splices_are_the_known_jax_batch_drains():
+    """The hybrid mutations where JAX's batch leaves its facade are the
+    three splices (their granule field declares more than their packets
+    hold, and JAX's group drains up to its resampler rows' reach); on
+    them the port's batch keeps to the facade's length and samples."""
+    differ = []
+    for k, data in enumerate(_hybrid_mutations()[1:]):
+        s = AudioStream()
+        s.open_from_memory(data)
+        if s.is_error():
+            continue
+        want = s.read_samples_float(10 ** 7)
+        jgot = JaxBatchDecoder([data]).decode_all()[0]
+        got = BatchDecoder([data], device="cpu").decode_all()[0]
+        assert got.shape == want.shape
+        if jgot.shape != want.shape:
+            differ.append(k)
+            assert jgot.shape[0] == want.shape[0] + 486
+    assert differ == [9, 10, 11]
