@@ -28,8 +28,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: a library's flags beyond NVCC_FLAGS: K10's, K12a's and K12b's float
-#: steps must each round alone (the FMAs K10 and K12a need are written out
-#: as __fmaf_rn)
+#: steps must each round alone (the FMAs K10 and K12a need, K12a's IMDCT
+#: dot products among them, are written out as __fmaf_rn)
 EXTRA_FLAGS = {"pcm": ("-fmad=false",), "celt_ola": ("-fmad=false",),
                "celt_deemph": ("-fmad=false",)}
 
@@ -53,7 +53,9 @@ _ENTRIES = {
     "vorbis_win": (("af_vorbis_win", [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                       _V, _V, _V, _V, _V, _I, _I, _I, _I,
                                       _I, _V]),),
-    "celt_ola": (("af_celt_ola", [_V, _V, _V, _V, _V, _I, _I, _I, _V]),),
+    "celt_ola": (("af_celt_ola", [_V, _V, _V, _I, _I, _I, _V]),
+                 ("af_celt_imdct_ola", [_V, _V, _V, _V, _V, _I, _I,
+                                        ctypes.c_float, _V])),
     "celt_deemph": (("af_celt_deemph", [_V, _V, _V, _V, _I, _I,
                                         ctypes.c_float, _V]),),
     "silk_upsample": (("af_silk_upsample", [_V, _V, _V, _I, _I, _I, _I,

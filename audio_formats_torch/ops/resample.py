@@ -22,6 +22,7 @@ counts K13's launches.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -336,9 +337,7 @@ class BatchedFittedUpsampler:
         self.A = int(t["A"])
         self.rows = rows
         self.device = torch.device(device)
-        self._h_rev = torch.from_numpy(
-            np.ascontiguousarray(self.h[:, ::-1], np.float32)).to(
-                self.device)
+        self._taps = pack_taps(self.h[:, ::-1])
         self._hist = np.zeros((rows, self.L), np.float64)
         self._pending = np.zeros((rows, 0), np.float64)
         #: bytes uploaded and downloaded by ``process``
@@ -359,7 +358,7 @@ class BatchedFittedUpsampler:
                 buf[:, self.A + 1: self.A + 1 + n_groups + self.L - 1],
                 np.float32)
             xd = torch.from_numpy(win).to(self.device)
-            y = silk_upsample(xd, self._h_rev, n_groups).cpu().numpy()
+            y = silk_upsample(xd, self._taps, n_groups).cpu().numpy()
             self.h2d_bytes += win.nbytes
             self.d2h_bytes += y.nbytes
         else:
@@ -387,10 +386,10 @@ class BatchedFittedUpsampler:
 #: launches of K13 (af_silk_upsample) in this process
 UPSAMPLE_LAUNCHES = 0
 _launch_lock = threading.Lock()
-#: K13's limits: the fitted kernels' taps, and the largest phase count
-#: (NB's 8 kHz -> 48 kHz)
+#: K13's limits: the fitted kernels' taps, and the phase counts it is
+#: built for (NB's, MB's and WB's 8, 12 and 16 kHz -> 48 kHz)
 FIT_TAPS = 96
-MAX_DEN = 6
+DENS = (6, 4, 3)
 
 
 def silk_upsample_torch(x: torch.Tensor, h_rev: torch.Tensor,
@@ -410,50 +409,66 @@ def silk_upsample_torch(x: torch.Tensor, h_rev: torch.Tensor,
     return (win @ h_rev.T).reshape(rows, G * den)
 
 
-def silk_upsample(x: torch.Tensor, h_rev: torch.Tensor,
+def silk_upsample(x: torch.Tensor, taps: np.ndarray,
                   G: int) -> torch.Tensor:
-    """The polyphase upsample of ``silk_upsample_torch``: K13 on a CUDA
-    device (it raises where the kernel does not build or launch), the twin
-    on the CPU."""
+    """The polyphase upsample of ``silk_upsample_torch``, with the taps
+    h_rev as a host array (``pack_taps``): K13 on a CUDA device (it raises
+    where the kernel does not build or launch), the twin on the CPU."""
     dev = x.device
     if dev.type == "cpu":
-        return silk_upsample_torch(x, h_rev, G)
-    out = torch.empty((x.shape[0], G * h_rev.shape[0]), dtype=torch.float32,
+        return silk_upsample_torch(x, torch.as_tensor(taps), G)
+    out = torch.empty((x.shape[0], G * taps.shape[0]), dtype=torch.float32,
                       device=dev)
-    silk_upsample_launch(x, h_rev, G, out)
+    silk_upsample_launch(x, taps, G, out)
     return out
 
 
-def silk_upsample_launch(x, h_rev, G: int, out) -> None:
-    """K13 into a made output `out` [rows, G·den], on x's CUDA device."""
+def silk_upsample_launch(x, taps: np.ndarray, G: int, out) -> None:
+    """K13 into a made output `out` [rows, G·den], on x's CUDA device;
+    taps: the host array of ``pack_taps``, which the kernel takes by
+    value."""
     global UPSAMPLE_LAUNCHES
     dev = x.device
-    if x.dim() != 2 or h_rev.dim() != 2:
+    if not (isinstance(taps, np.ndarray) and taps.dtype == np.float32
+            and taps.flags.c_contiguous):
         raise _kernels.KernelArgError(
-            f"silk_upsample: x {list(x.shape)}, h_rev {list(h_rev.shape)}, "
+            "silk_upsample: taps must be a contiguous float32 host array "
+            "(pack_taps), want [den, L]")
+    if x.dim() != 2 or taps.ndim != 2:
+        raise _kernels.KernelArgError(
+            f"silk_upsample: x {list(x.shape)}, taps {list(taps.shape)}, "
             "want [rows, W] and [den, L]")
     rows, W = x.shape
-    den, L = h_rev.shape
-    if not (1 <= den <= MAX_DEN and L == FIT_TAPS and G >= 1
-            and W >= G + L - 1):
+    den, L = taps.shape
+    if not (den in DENS and L == FIT_TAPS and G >= 1 and W >= G + L - 1):
         raise _kernels.KernelArgError(
             f"silk_upsample: {G} groups of {den} phases from rows of {W} "
-            f"with {L} taps, want 1 <= den <= {MAX_DEN}, {FIT_TAPS} taps "
-            "and W >= G + L - 1")
+            f"with {L} taps, want den in {DENS}, {FIT_TAPS} taps and "
+            "W >= G + L - 1")
     f32 = (torch.float32,)
     _kernels.check_args("silk_upsample", dev, (
-        ("x", x, f32, (rows, W)), ("h_rev", h_rev, f32, (den, L)),
-        ("out", out, f32, (rows, G * den))))
+        ("x", x, f32, (rows, W)), ("out", out, f32, (rows, G * den))))
     if rows == 0:
         return
-    fn = _kernels.load("silk_upsample").af_silk_upsample
-    args = (x.data_ptr(), h_rev.data_ptr(), out.data_ptr(), rows, W, G, den)
+    args = (x.data_ptr(), taps.ctypes.data, out.data_ptr(), rows, W, G, den)
     if dev.index is None or dev.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = _entry()(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:
         with torch.cuda.device(dev):
-            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+            rc = _entry()(*args, torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_launch("silk_upsample", rc)
     with _launch_lock:
         UPSAMPLE_LAUNCHES += 1
 
+
+def pack_taps(h_rev: np.ndarray) -> np.ndarray:
+    """K13's by-value tap parameter: h_rev [den, FIT_TAPS] (the taps, tap
+    axis reversed) as a contiguous f32 host array; the kernel reads tap k
+    of phase p at p·FIT_TAPS + k."""
+    return np.ascontiguousarray(h_rev, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """K13's C entry."""
+    return _kernels.load("silk_upsample").af_silk_upsample

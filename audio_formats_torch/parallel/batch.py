@@ -22,8 +22,10 @@ IMDCT matmuls, then K11's lapped chain with the lap carried on the device)
 turns the whole group into PCM.  The PCM windows stay on the device with
 ``decode_all(output="device")``.  Ogg Opus, CELT-only lanes: the host runs
 the symbol stage of one frame a lane, and each (blocks, blocksize) bucket of
-the step crosses once, runs its IMDCT matmul and the overlap-add kernel
-K12a, and comes back once for the postfilter and deemphasis on the host; so
+the step crosses once, runs K12a (the IMDCT and the overlap-add: one fused
+kernel for blocks of 120, the IMDCT matmul and the window mix in place for
+long blocks), and comes back once for the postfilter and deemphasis on the
+host; so
 these lanes return host PCM for either output, as the JAX package's do.
 SILK-only lanes of one (config, stereo, frames) shape run their SILK
 synthesis on the host a packet a lane, and each packet step upsamples every
@@ -1918,8 +1920,9 @@ class BatchDecoder:
         a stereo-coded packet downmixes to a mono output,
         models/celt.py:1243-1246; a bucket of mixed scales has its rows
         pre-multiplied, exact for 0.5 and 1.0).  One upload of the spectra
-        and tails, the IMDCT matmul, K12a, and one download of both
-        outputs.  items: [(celt_decoder, params)] in row order.  Returns
+        and tails, K12a (with the IMDCT matmul in front of it for long
+        blocks), and one download of the packed [rows, frame + 60] output
+        and new tail.  items: [(celt_decoder, params)] in row order.  Returns
         (raw [rows, frame], newtail [rows, OVERLAP//2]) as numpy."""
         frame = blocks * bs
         half = celt_dsp.HALF
@@ -1944,12 +1947,12 @@ class BatchDecoder:
         nb = co.nbytes + tails.nbytes
         self._stat_add("h2d_bytes", nb)
         self._stat_add("h2d_bytes_by_format", nb, fmt="opus")
-        raw, newtail = celt_dsp.celt_imdct_ola(
+        buf = celt_dsp.celt_imdct_ola_packed(
             flat[: rows * frame].view(rows, frame),
             flat[rows * frame:].view(rows, half), blocks, bs, scale)
         self._note_window("opus")
         t0 = time.perf_counter()
-        packed = torch.cat([raw, newtail], dim=1).cpu().numpy()
+        packed = buf.cpu().numpy()
         self._stat_add("enq_opus_fetch_ms", (time.perf_counter() - t0) * 1e3)
         self._stat_add("d2h_bytes", packed.nbytes)
         return packed[:, :frame], packed[:, frame:]
@@ -2347,9 +2350,8 @@ class BatchDecoder:
         resampler flushes, redundancy fades and the hybrid delay FIFO are
         the per-stream read's by construction.  Only the full CELT
         syntheses are answered here: from OPUS_MIXED_DEVICE_MIN_LANES
-        lanes on, bucketed by (blocks, blocksize) across lanes, one IMDCT
-        matmul and one K12a launch a bucket a round
-        (``_celt_imdct_bucket``); in a smaller group, on the host by
+        lanes on, bucketed by (blocks, blocksize) across lanes, one K12a
+        launch a bucket a round (``_celt_imdct_bucket``); in a smaller group, on the host by
         ``CeltDecoder.synthesize``, the per-stream read's own IMDCT.
         Returns host PCM for either output."""
         B = len(decs)

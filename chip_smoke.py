@@ -99,14 +99,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    every stereo lane within 1e-5 of the peak of its master's per-stream
    read on the host (models/celt.py's f64 IMDCT, a path K12a is not on),
    the mono lane's spot samples and RMS (checked there against libopus)
-   within 1e-5, no demotion, one K12a launch a bucket a step; the
+   within 1e-5, no demotion, one K12a launch a bucket a step (the fused
+   kernel for blocks of 120, the in-place mix after the IMDCT matmul for
+   long blocks: launches held to the buckets counted by (blocks, bs)); the
    realtime factor and the host, upload, download and postfilter times;
-   then K12a at that slice's first bucket (kept by wrapping
-   ``ops.celt_dsp.celt_imdct_ola``) beside the bucket's IMDCT matmul, and
-   alone at 4,096 rows x 8 x 120 and 4,096 x 1 x 960 from random spectra,
-   each bit-equal to its twin and timed through its wrapper, alone, by its
-   device time and its host enqueue; then mixed Opus lanes (corpus stereo
-   and mono, the four CELT packets, a stereo-coded lane with a mono header,
+   then each route of K12a at that slice's first bucket of it (kept by
+   wrapping ``ops.celt_dsp.celt_imdct_ola_packed``) and alone at 4,096 rows x 8 x
+   120 (fused) and 4,096 x 1 x 960 (in place) from random spectra: the
+   fused route within 1e-6 of the peak of its twin, one kernel and no
+   matmul a call, beside the matmul it replaces; the in-place mix bit-equal
+   to its twin on the matmul's halves, with the kernels a call of the
+   route runs (no copy after the GEMM); each timed through its wrapper,
+   alone, by its device time and its host enqueue; then mixed Opus lanes
+   (corpus stereo and mono, the four CELT packets, a stereo-coded lane with a mono header,
    mono and stereo SILK and hybrid lanes and a mode tour in their groups,
    a DTX lane, a corrupt lane), each within 1e-5 of the peak of the port's
    CPU decode;
@@ -116,11 +121,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (the mixed group on its device path), packet prefixes of 2-4 s of the
    committed libopus speech corpus (tests/torch_opus_speech_cases.py),
    every lane within 1e-5 of the peak of the host per-stream read (made
-   once for each distinct lane), every lane in its group, no demotion;
+   once for each distinct lane), every lane in its group, no demotion,
+   K12a's launches by route held to the CELT buckets by (blocks, bs);
    then K13 at the SILK slice's first step (kept by wrapping
    ``ops.resample.silk_upsample``) and at 4,096 rows for den 6, 4 and 3,
-   within 1e-6 of the peak of its twin, beside a build with -fmad=false,
-   the twin and ``conv1d`` (cuDNN, TF32 off), timed as K12a is; K12b at
+   within 1e-6 of the peak of its twin (with the share of samples
+   bit-equal), beside the twin and ``conv1d`` (cuDNN, TF32 off), timed as
+   K12a is; K12b at
    [512, 960] and [4,096, 960] within 1e-6 of its twin, alone and chained
    after the IMDCT and K12a over 12 frames with the memory carried (the
    JAX bench's CELT chain); and the mixed group's host and device CELT
@@ -132,11 +139,18 @@ the card's name and power limit, and last ``{"ok": true, "device":
 before the result.
 
     python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode
-                                    flac_rice vorbis_win]
+                                    flac_rice vorbis_win silk_upsample
+                                    celt_ola]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
     python3 chip_smoke.py --wires                   # the card
     python3 chip_smoke.py --ring                    # the card
+    python3 chip_smoke.py --grid                    # the card
+
+``--grid`` (on the card) builds K12a's fused route with one block a tile
+beside the source's grid, capped at the blocks that fit on the card at
+once, holds the two bit-equal and times each launch by device time in
+turns at the GRID_PROBES shapes; it prints no result line.
 
 ``--wires`` decodes the FLAC slice's 512 lanes over the packed and the Rice
 wire in turns (packed, rice, rice, packed: each wall, realtime factor,
@@ -151,11 +165,16 @@ to this tree's K4 at the FLAC Rice slice's first dispatch and times it
 there alone and as one warp, in turns; it prints no result line.
 
 ``--ab`` (on the card) times the Huffman, LPC, QOA encode, QOA decode,
-frame-entropy and Vorbis window kernels of this tree (or those named)
-against those built from DIR/audio_formats_torch/csrc (an earlier commit's
-sources, e.g. from ``git archive``), parent / change / change / parent in
-one process, and the MP3, FLAC, QOA encode, QOA decode, FLAC Rice and
-Vorbis slices with either side's kernel; where DIR holds the earlier
+frame-entropy, Vorbis window, SILK upsample and CELT IMDCT and
+overlap-add kernels of this tree (or those named) against those built
+from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
+``git archive``), parent / change / change / parent in one process, each
+pair first held equal (K13 bit for bit at the SILK slice's first step
+and at 4,096 rows for den 6, 4, 3; K12a, against the parent's IMDCT
+matmul and K12a, within 1e-6 of the peak at the Opus slice's first
+bucket of each route and at both large shapes), and the MP3, FLAC, QOA
+encode, QOA decode, FLAC Rice and Vorbis slices with either side's
+kernel; where DIR holds the earlier
 commit's whole tree, its own K3 phase and MP3 slice (its wire and bytes to
 the card) run from DIR in a process of their own.  It prints no result
 line.  ``--divergence`` (CPU) counts the
@@ -170,8 +189,9 @@ step of K5's full-slice body by pipe, of one step of K2's chain loop by
 pipe with its dependent chain from one sample to the next and the tile
 loop's instructions outside it, of K4's sample loop: its shortest and
 longest paths that decode, by pipe, with their dependent chains and the
-loads on them, of one sample of K10's dithered s24 quantize, and of K11's
-PCM row loop a 16-byte vector.
+loads on them, of one sample of K10's dithered s24 quantize, of K11's
+PCM row loop a 16-byte vector, and K13's FFMAs with the shared loads and
+constant-bank operands that feed them.
 """
 
 import json
@@ -1122,6 +1142,7 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     pcm.DECODE_LAUNCHES = 0
     vorbis_win.WIN_LAUNCHES = 0
     celt_dsp.OLA_LAUNCHES = 0
+    celt_dsp.IMDCT_OLA_LAUNCHES = 0
     t0 = time.perf_counter()
     res = dec.decode_all(output="device")
     res.sync()
@@ -1133,6 +1154,7 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                 "pcm": pcm.DECODE_LAUNCHES,
                 "vorbis_win": vorbis_win.WIN_LAUNCHES,
                 "celt_ola": celt_dsp.OLA_LAUNCHES,
+                "celt_imdct_ola": celt_dsp.IMDCT_OLA_LAUNCHES,
                 "silk_upsample": resample.UPSAMPLE_LAUNCHES,
                 "celt_deemph": celt_dsp.DEEMPH_LAUNCHES}
     st = dec.stats
@@ -1144,8 +1166,8 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
         raise AssertionError(f"demotions: {st.get('group_exceptions')}")
     # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window, every Opus
     # CELT bucket and every SILK upsample step launches exactly one kernel
-    # (LPC, LMS, Huffman, PCM, lapped window, CELT overlap-add, SILK
-    # upsample), and a FLAC window of the Rice wire the frame entropy
+    # (LPC, LMS, Huffman, PCM, lapped window, one of K12a's two routes,
+    # SILK upsample), and a FLAC window of the Rice wire the frame entropy
     # kernel too; Layer I/II windows are synthesis only, and no decode path
     # runs the CELT deemphasis on the card
     wbf = st["windows_by_format"]
@@ -1159,7 +1181,9 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
                      "celt_ola": wbf.get("opus", 0),
                      "silk_upsample": wbf.get("opus_silk", 0),
                      "celt_deemph": 0}
-    if launches != want_launches:
+    got = dict(launches)
+    got["celt_ola"] += got.pop("celt_imdct_ola")
+    if got != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
     out = res.to_numpy()
@@ -2430,6 +2454,30 @@ def opus_read(data):
     return np.concatenate(chunks)
 
 
+def opus_streams(n_lanes=OPUS_LANES):
+    """The Opus slice's streams (``opus_corpus``), without the references:
+    (streams, each stereo lane's (master, preskip, end), the constants of
+    test_opus_celt.py)."""
+    import torch_opus_cases
+
+    ref = golden_opus_ref()
+    masters = [m for m in torch_opus_cases.load() if m[0] == 2]
+    streams, spans = [], []
+    for i in range(n_lanes):
+        mi = i % len(masters)
+        n = 100 + (37 * i) % 101
+        skip = (0, 130, 312)[i % 3]
+        streams.append(torch_opus_cases.stream(
+            ref.build_ogg_opus, masters[mi], n, preskip=skip))
+        spans.append((mi, skip, n * masters[mi][1]))
+    celt = read_constants("test_opus_celt", (
+        "PACKETS", "SAMPLE_IDX", "SAMPLES", "RMS"))
+    streams.append(ref.build_ogg_opus(
+        [(bytes.fromhex(h), 480) for h in celt["PACKETS"]], channels=1,
+        preskip=0))
+    return streams, spans, celt
+
+
 def opus_corpus(n_lanes=OPUS_LANES):
     """The Opus slice's lanes: packet prefixes of 2-4 s (100-200 packets of
     20 ms) of the committed corpus's four stereo masters
@@ -2444,19 +2492,7 @@ def opus_corpus(n_lanes=OPUS_LANES):
     masters = [m for m in torch_opus_cases.load() if m[0] == 2]
     full = [opus_read(torch_opus_cases.stream(ref.build_ogg_opus, m,
                                               preskip=0)) for m in masters]
-    streams, spans = [], []
-    for i in range(n_lanes):
-        mi = i % len(masters)
-        n = 100 + (37 * i) % 101
-        skip = (0, 130, 312)[i % 3]
-        streams.append(torch_opus_cases.stream(
-            ref.build_ogg_opus, masters[mi], n, preskip=skip))
-        spans.append((mi, skip, n * masters[mi][1]))
-    celt = read_constants("test_opus_celt", (
-        "PACKETS", "SAMPLE_IDX", "SAMPLES", "RMS"))
-    streams.append(ref.build_ogg_opus(
-        [(bytes.fromhex(h), 480) for h in celt["PACKETS"]], channels=1,
-        preskip=0))
+    streams, spans, celt = opus_streams(n_lanes)
 
     def expect(i):
         if i == n_lanes:
@@ -2467,28 +2503,57 @@ def opus_corpus(n_lanes=OPUS_LANES):
     return streams, expect, celt
 
 
+def keep_buckets(run):
+    """Run `run()` with ``ops.celt_dsp.celt_imdct_ola_packed`` wrapped: its
+    calls (the CELT buckets) counted by (blocks, bs), and the first call of
+    each of K12a's routes kept ("short": bs == 120, "long": bs >= 240).
+    Returns (run's result, {route: (args, kwargs)}, {(blocks, bs): calls})."""
+    import collections
+
+    from audio_formats_torch.ops import celt_dsp
+
+    kept, buckets = {}, collections.Counter()
+    imdct_ola = celt_dsp.celt_imdct_ola_packed
+
+    def counted(co, tail, blocks, bs, *args, **kw):
+        buckets[(blocks, bs)] += 1
+        kept.setdefault("short" if bs == celt_dsp.OVERLAP else "long",
+                        ((co, tail, blocks, bs, *args), kw))
+        return imdct_ola(co, tail, blocks, bs, *args, **kw)
+
+    celt_dsp.celt_imdct_ola_packed = counted
+    try:
+        res = run()
+    finally:
+        celt_dsp.celt_imdct_ola_packed = imdct_ola
+    return res, kept, dict(sorted(buckets.items()))
+
+
+def route_counts(label, launches, buckets):
+    """K12a's launches by route, held to the buckets by (blocks, bs): one
+    fused launch a bucket of 120-sample blocks, one in-place mix a bucket
+    of longer ones.  Returns the line's text."""
+    short = sum(n for (_, bs), n in buckets.items() if bs == 120)
+    long_ = sum(buckets.values()) - short
+    if (launches["celt_imdct_ola"], launches["celt_ola"]) != (short, long_):
+        raise AssertionError(f"{label}: K12a launches fused "
+                             f"{launches['celt_imdct_ola']}, in place "
+                             f"{launches['celt_ola']}; buckets {buckets}")
+    return (f"K12a launches {short} fused (bs 120) + {long_} in place (bs "
+            f">= 240), buckets by (blocks, bs) "
+            + ", ".join(f"{b}x{bs}: {n}" for (b, bs), n in buckets.items()))
+
+
 def opus_slice(card, streams, expect, celt):
     """The Opus slice on the card: every stereo lane within OPUS_TOL of the
     peak of its expected PCM; the lane of the four real CELT packets at its
     spot samples and RMS (tests/test_opus_celt.py, checked there against
-    libopus) within 1e-5, the stream's R128 gain undone; the arguments of
-    the first bucket's celt_imdct_ola call kept.  Returns (K12a's
-    launches, the kept arguments)."""
-    from audio_formats_torch.ops import celt_dsp
-
-    kept = {}
-    imdct_ola = celt_dsp.celt_imdct_ola
-
-    def first_call(*args, **kw):
-        kept.setdefault("args", (args, kw))
-        return imdct_ola(*args, **kw)
-
-    celt_dsp.celt_imdct_ola = first_call
-    try:
-        dec, wall, launches, out, err = decode_checked(
-            streams, expect, "cuda", tol=OPUS_TOL, rel=True)
-    finally:
-        celt_dsp.celt_imdct_ola = imdct_ola
+    libopus) within 1e-5, the stream's R128 gain undone; the first
+    celt_imdct_ola call of each of K12a's routes kept.  Returns (launches
+    by kernel, the kept arguments by route)."""
+    (dec, wall, launches, out, err), kept, buckets = keep_buckets(
+        lambda: decode_checked(streams, expect, "cuda", tol=OPUS_TOL,
+                               rel=True))
     pk = out[-1][:, 0] / np.float32(10.0 ** (-1024 / 5120.0))
     spot = max(abs(float(pk[i]) - v)
                for i, v in zip(celt["SAMPLE_IDX"], celt["SAMPLES"]))
@@ -2496,6 +2561,10 @@ def opus_slice(card, streams, expect, celt):
     if not (spot <= 1e-5 and rms <= 1e-5):
         raise AssertionError(f"CELT packets lane: spot samples off by "
                              f"{spot}, RMS by {rms}")
+    routes = route_counts("Opus slice", launches, buckets)
+    if not (launches["celt_imdct_ola"] and launches["celt_ola"]):
+        raise AssertionError(f"Opus slice: a K12a route never launched: "
+                             f"{routes}")
     st = dec.stats
     secs = st["decoded_seconds"]
     print(f"# Opus slice: {len(streams) - 1} stereo CELT lanes (packet "
@@ -2503,34 +2572,162 @@ def opus_slice(card, streams, expect, celt):
           f"{secs:.1f} s of audio in {wall:.3f} s wall = "
           f"{secs / wall:.1f}x realtime; within {err:.3g} of the peak of "
           f"the per-stream read; CELT packets lane spot samples within "
-          f"{spot:.3g}, RMS within {rms:.3g}; buckets "
-          f"{st['windows_by_format']['opus']}, "
-          f"K12a launches {launches['celt_ola']}, h2d_bytes "
+          f"{spot:.3g}, RMS within {rms:.3g}; {routes}; h2d_bytes "
           f"{st['h2d_bytes']}, d2h_bytes {st['d2h_bytes']}, host_ms "
           f"{st['host_ms']:.0f} (host_cpu_ms {st['host_cpu_ms']:.0f}), "
           f"enqueue_ms {st['enqueue_ms']:.0f} (upload "
-          f"{st['enq_opus_upload_ms']:.0f}, the wait for the matmul and "
-          f"K12a and the download {st['enq_opus_fetch_ms']:.0f}, "
-          f"postfilter and deemphasis {st['enq_opus_finish_ms']:.0f}) "
-          f"[{card}]")
-    return launches["celt_ola"], kept["args"]
+          f"{st['enq_opus_upload_ms']:.0f}, the wait for K12a (and the "
+          f"long blocks' matmul) and the download "
+          f"{st['enq_opus_fetch_ms']:.0f}, postfilter and deemphasis "
+          f"{st['enq_opus_finish_ms']:.0f}) [{card}]")
+    return launches, kept
 
 
-def celt_ola_work(rows, blocks, bs):
-    """(bytes) of K12a: the half-transforms and the tail read once, the
-    output and the new tail written once, the window read once."""
-    return 4 * (2 * rows * (blocks * bs + 60) + 120)
+K12A_TOL = 1e-6   # of the peak: the fused short-block route against its twin
 
 
-def time_celt_ola(card, label, halves, tail, imdct=None):
-    """K12a at one shape: bit-equal to its twin on the card, timed through
-    its wrapper, alone, by its device time and by its host enqueue, beside
-    its bound; `imdct` (the bucket's matmul) timed beside it."""
+def imdct_ola_work(rows, blocks, bs):
+    """(bytes, operations, dense multiply-adds) of celt_imdct_ola: the
+    spectra and the tail (and the basis and the window) read once, the
+    packed output written once; the float32 operations of a fast IMDCT
+    of every block (``fast_imdct_ops``: the least the function needs, since
+    the route is held to its twin within a tolerance, not to a summation
+    order), and the bs multiply-adds an IMDCT sample that the kernel's
+    dense product does."""
+    frame = blocks * bs
+    return (4 * (rows * frame + rows * 60 + rows * (frame + 60) + bs * bs
+                 + 120), rows * blocks * fast_imdct_ops(bs),
+            rows * frame * bs)
+
+
+def fast_imdct_ops(n):
+    """Float32 operations, a multiply-add counted as one, of an n-point
+    IMDCT half-transform (a DCT-IV of n points) by a fast algorithm, as
+    CELT computes it: n/2 complex twiddles before and after an n/2-point
+    complex FFT, 6 flops a twiddle and 5 (n/2) log2(n/2) flops the FFT,
+    halved as if every multiply fused into an add."""
+    m = n // 2
+    return (2 * 6 * m + 5 * m * np.log2(m)) / 2
+
+
+def celt_ola_work(rows, blocks):
+    """(bytes) of K12a's in-place mix: a block's 60 b1 samples, the tail
+    or the previous block's 60 raw samples and the window read once, a
+    block's 120 mixed samples written once."""
+    return 4 * (rows * blocks * (60 + 60 + 120) + 120)
+
+
+def kernel_names(fn, reps=10):
+    """The names of the kernels one call of `fn` runs on the card, each as
+    often as it runs: torch.profiler's device events of `reps` calls (as
+    ``device_ms`` reads them), their counts over `reps`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [evt.key for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            for _ in range(round(evt.count / reps))]
+
+
+def time_imdct_ola_short(card, label, co, tail, blocks, scale):
+    """K12a's fused route (bs == 120) at one shape: within K12A_TOL of the
+    peak of its twin (the matmul and the mix) on the card, one kernel and
+    no matmul a call, timed through its wrapper (celt_imdct_ola), alone,
+    by its device time and by its host enqueue, beside its bound, the
+    twin and the matmul it replaces (library_ms: imdct_halves, cuBLAS in
+    full float32)."""
     import torch
     from audio_formats_torch.ops import celt_dsp
 
-    rows, blocks, bs = halves.shape
-    got = celt_dsp.celt_ola(halves, tail)
+    rows = co.shape[0]
+    frame = blocks * 120
+    got = celt_dsp.celt_imdct_ola_packed(co, tail, blocks, 120, scale)
+    celt_dsp.celt_imdct_ola_packed_torch(co, tail, blocks, 120, scale)  # warm
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = time_cuda(lambda: want.append(
+        celt_dsp.celt_imdct_ola_packed_torch(co, tail, blocks, 120, scale)),
+        1)
+    want = want[0]
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max()) / peak
+    if not err <= K12A_TOL:
+        raise AssertionError(f"K12a fused at {label}: {err:.3g} of the peak "
+                             "from its twin")
+    names = kernel_names(lambda: celt_dsp.celt_imdct_ola(co, tail, blocks,
+                                                         120, scale))
+    if len(names) != 1 or "celt_imdct_ola" not in names[0]:
+        raise AssertionError(f"K12a fused at {label}: kernels {names}")
+
+    def wrapper():
+        return celt_dsp.celt_imdct_ola(co, tail, blocks, 120, scale)
+
+    def alone():
+        celt_dsp.imdct_ola_short_launch(co, tail, blocks, scale, got)
+
+    def matmul():
+        return celt_dsp.imdct_halves(co, blocks, 120, scale)
+
+    for _ in range(3):
+        wrapper()
+    ms = time_cuda(wrapper, 50)
+    kernel_ms = time_cuda(alone, 50)
+    dev_ms = device_ms(alone, "celt_imdct_ola")
+    host_ms = time_host(wrapper)
+    matmul()
+    library_ms = time_cuda(matmul, 50)
+    library_dev_ms = device_ms(matmul, "")
+    nbytes, ops, macs = imdct_ola_work(rows, blocks, 120)
+    b = bound(nbytes, 0, ops)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"# kernel celt_imdct_ola (K12a fused, bs 120), {label} ({rows} "
+          f"rows x {blocks} x 120, scale {scale}): {err:.3g} of the peak "
+          f"from its twin; one kernel a call ({names[0][:40]}); wrapper "
+          f"{ms:.4f} ms (its host enqueue {host_ms:.4f} ms), kernel alone "
+          f"{kernel_ms:.4f} ms, device time (torch.profiler) {dev_txt}, twin "
+          f"{plain_ms:.3f} ms, the matmul it replaces (imdct_halves) "
+          f"{library_ms:.4f} ms (device time "
+          + ("not measured" if library_dev_ms is None
+             else f"{library_dev_ms:.4f} ms")
+          + f"); {nbytes} bytes, {ops:.0f} float32 operations of a fast "
+          f"IMDCT ({macs} multiply-adds in the kernel's dense product), "
+          f"bound_ms {b['bound_ms']:.5f} ({b['bound_by']}), share "
+          f"{b['bound_ms'] / ms:.3f} through the wrapper, "
+          + ("not measured" if dev_ms is None
+             else f"{b['bound_ms'] / dev_ms:.3f}")
+          + f" of its device time [{card}]")
+    return {"max_abs_err": err * peak, "rel_err": err, "ms": ms,
+            "kernel_ms": kernel_ms, "device_ms": dev_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, **b, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms, "share": b["bound_ms"] / ms}
+
+
+def time_celt_ola(card, label, co, tail, blocks, bs, scale):
+    """K12a's in-place mix (bs >= 240) at one shape: bit-equal to its twin
+    (celt_ola_torch) on the half-transforms that the matmul writes into the
+    packed buffer; the route's kernels a call (the GEMM and the mix, no
+    copy); the mix timed through its wrapper (celt_ola, which allocates
+    nothing: the launch alone) and by its device time, the whole route
+    through celt_imdct_ola and by its host enqueue, beside the mix's bound,
+    the twin and the matmul in front of it.  No PyTorch call computes the
+    mix: library_ms is null."""
+    import torch
+    from audio_formats_torch.ops import celt_dsp
+
+    rows = co.shape[0]
+    frame = blocks * bs
+    buf = celt_dsp._packed_halves(co, blocks, bs, scale)
+    halves = buf[:, 60:].clone().unflatten(1, (blocks, bs))
+    celt_dsp.celt_ola(buf, tail, blocks)
+    got = (buf[:, :frame], buf[:, frame:])
+    celt_dsp.celt_ola_torch(halves, tail)  # warm
     torch.cuda.synchronize()
     want = []
     plain_ms = time_cuda(lambda: want.append(
@@ -2538,63 +2735,90 @@ def time_celt_ola(card, label, halves, tail, imdct=None):
     want = want[0]
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         d = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        raise AssertionError(f"K12a != twin at {label}: max abs diff {d}")
+        raise AssertionError(f"K12a in place != twin at {label}: max abs "
+                             f"diff {d}")
+    names = kernel_names(lambda: celt_dsp.celt_imdct_ola(co, tail, blocks,
+                                                         bs, scale))
+    extra = [n for n in names if "celt_ola" not in n and "gemm" not in
+             n.lower() and "sgemm" not in n.lower()]
+
+    def wrapper():
+        return celt_dsp.celt_imdct_ola(co, tail, blocks, bs, scale)
+
+    def alone():
+        celt_dsp.celt_ola(buf, tail, blocks)
+
+    def matmul():
+        return celt_dsp._packed_halves(co, blocks, bs, scale)
+
     for _ in range(3):
-        celt_dsp.celt_ola(halves, tail)
-    ms = time_cuda(lambda: celt_dsp.celt_ola(halves, tail), 50)
-    kernel_ms = time_cuda(lambda: celt_dsp.celt_ola_launch(
-        halves, tail, got), 50)
-    dev_ms = device_ms(lambda: celt_dsp.celt_ola_launch(halves, tail, got),
-                       "celt_ola")
-    host_ms = time_host(lambda: celt_dsp.celt_ola(halves, tail))
-    imdct_ms = None if imdct is None else time_cuda(imdct, 50)
-    b = bound(celt_ola_work(rows, blocks, bs), 0)
+        wrapper()
+    route_ms = time_cuda(wrapper, 50)
+    ms = time_cuda(alone, 50)
+    dev_ms = device_ms(alone, "celt_ola")
+    host_ms = time_host(wrapper)
+    matmul()
+    imdct_ms = time_cuda(matmul, 50)
+    b = bound(celt_ola_work(rows, blocks), 0)
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-    print(f"# kernel celt_ola, {label} ({rows} rows x {blocks} x {bs}): "
-          f"bit-equal to its twin; wrapper {ms:.4f} ms (its host enqueue "
-          f"{host_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms, device "
-          f"time (torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms"
-          + ("" if imdct_ms is None
-             else f"; the bucket's IMDCT matmul {imdct_ms:.4f} ms")
-          + f"; bound_ms {b['bound_ms']:.5f} ({b['bound_by']}), share "
-          f"{b['bound_ms'] / ms:.3f} through the wrapper, "
+    print(f"# kernel celt_ola (K12a in place, bs >= 240), {label} ({rows} "
+          f"rows x {blocks} x {bs}): bit-equal to its twin; a call of the "
+          f"route runs {len(names)} kernels "
+          f"{[n[:48] for n in names]}, "
+          + (f"of which neither GEMM nor the mix: {extra}" if extra
+             else "no copy after the GEMM")
+          + f"; the mix through its wrapper {ms:.4f} ms, its device time "
+          f"(torch.profiler) {dev_txt}, the route through celt_imdct_ola "
+          f"{route_ms:.4f} ms (its host enqueue {host_ms:.4f} ms), the "
+          f"matmul into the packed buffer {imdct_ms:.4f} ms, twin "
+          f"{plain_ms:.3f} ms; bound_ms {b['bound_ms']:.5f} "
+          f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} through the "
+          f"wrapper, "
           + ("not measured" if dev_ms is None
              else f"{b['bound_ms'] / dev_ms:.3f}")
           + f" of its device time [{card}]")
-    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+    return {"max_abs_err": 0.0, "ms": ms, "route_ms": route_ms,
             "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
             **b, "library_ms": None, "share": b["bound_ms"] / ms,
-            "imdct_ms": imdct_ms}
+            "imdct_ms": imdct_ms, "route_kernels": len(names),
+            "copy_kernels": extra}
 
 
 def phase_celt_kernel(card, kept):
-    """K12a at the Opus slice's first bucket (its arguments kept), beside
-    that bucket's IMDCT matmul, and at the two shapes where bytes, not the
-    launch, set its bound: 4,096 rows of 8 short blocks and of one long
-    block, from random spectra."""
+    """K12a's two routes at the Opus slice's first bucket of each (their
+    arguments kept) and at OPUS_BIG from random spectra: the fused
+    short-block kernel at 4,096 rows of 8 x 120, the in-place mix at 4,096
+    rows of one block of 960.  Returns ({route's kernel: result})."""
     import torch
-    from audio_formats_torch.ops import celt_dsp
 
-    args, kw = kept
-    co, tail, blocks, bs = args[:4]
-    scale = args[4] if len(args) > 4 else kw.get("scale", 1.0)
-    halves = celt_dsp.imdct_halves(co, blocks, bs, scale)
-    res = time_celt_ola(
-        card, "the Opus slice's first bucket", halves, tail,
-        imdct=lambda: celt_dsp.imdct_halves(co, blocks, bs, scale))
+    res = {}
+    for route, name in (("short", "celt_imdct_ola"), ("long", "celt_ola")):
+        args, kw = kept[route]
+        co, tail, blocks, bs = args[:4]
+        scale = args[4] if len(args) > 4 else kw.get("scale", 1.0)
+        label = "the Opus slice's first bucket"
+        res[name] = (time_imdct_ola_short(card, label, co, tail, blocks,
+                                          scale)
+                     if route == "short" else
+                     time_celt_ola(card, label, co, tail, blocks, bs, scale))
     rng = np.random.default_rng(12)
-    big = {}
     for rows, nb, nbs in OPUS_BIG:
         co = torch.from_numpy((rng.standard_normal((rows, nb * nbs))
                                * 400).astype(np.float32)).cuda()
         tl = torch.from_numpy((rng.standard_normal((rows, 60))
                                * 400).astype(np.float32)).cuda()
-        h = celt_dsp.imdct_halves(co, nb, nbs)
-        r = time_celt_ola(card, "random spectra", h, tl,
-                          imdct=lambda: celt_dsp.imdct_halves(co, nb, nbs))
-        big[f"{rows}x{nb}x{nbs}"] = {k: r[k] for k in (
-            "ms", "kernel_ms", "device_ms", "bound_ms", "imdct_ms")}
-    res["large"] = big
+        if nbs == 120:
+            name = "celt_imdct_ola"
+            r = time_imdct_ola_short(card, "random spectra", co, tl, nb, 1.0)
+            keys = ("ms", "kernel_ms", "device_ms", "bound_ms", "plain_ms",
+                    "library_ms", "library_device_ms", "rel_err")
+        else:
+            name = "celt_ola"
+            r = time_celt_ola(card, "random spectra", co, tl, nb, nbs, 1.0)
+            keys = ("ms", "route_ms", "device_ms", "bound_ms", "plain_ms",
+                    "imdct_ms")
+        res[name].setdefault("large", {})[f"{rows}x{nb}x{nbs}"] = {
+            k: r[k] for k in keys}
     return res
 
 
@@ -2687,7 +2911,7 @@ def phase_opus_mixed(card):
           f"frames, error {dec.errors[bad]!r}; lanes by group {groups}, "
           f"lanes demoted {st.get('lanes_demoted', 0)}, windows by format "
           f"{st['windows_by_format']}, K12a launches "
-          f"{launches['celt_ola']}, K13 launches "
+          f"{launches['celt_ola'] + launches['celt_imdct_ola']}, K13 launches "
           f"{launches['silk_upsample']} [{card}]")
 
 
@@ -2699,19 +2923,23 @@ def speech_corpus(kind, n_lanes):
     312, the distinct (master, packets, preskip) in turn.  Returns
     (streams, each lane's expected PCM): the port's per-stream read on the
     host, made once for each distinct lane."""
+    distinct = speech_distinct(kind)
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        refs = list(ex.map(opus_read, distinct))
+    streams = [distinct[i % len(distinct)] for i in range(n_lanes)]
+    return streams, lambda i: refs[i % len(distinct)]
+
+
+def speech_distinct(kind):
+    """The distinct lanes of a speech slice (``speech_corpus``): each mono
+    master of `kind`, cut at each of SPEECH_PACKETS, preskip 0 and 312."""
     import torch_opus_speech_cases as sc
 
     ref = golden_opus_ref()
     masters = [m for m, k in zip(sc.load(), sc.kinds())
                if k == kind and m[0] == 1]
-    specs = [(mi, n, skip) for mi in range(len(masters))
-             for n in SPEECH_PACKETS for skip in (0, 312)]
-    distinct = [sc.stream(ref.build_ogg_opus, masters[mi], n, preskip=skip)
-                for mi, n, skip in specs]
-    with ThreadPoolExecutor(max_workers=8) as ex:
-        refs = list(ex.map(opus_read, distinct))
-    streams = [distinct[i % len(specs)] for i in range(n_lanes)]
-    return streams, lambda i: refs[i % len(specs)]
+    return [sc.stream(ref.build_ogg_opus, m, n, preskip=skip)
+            for m in masters for n in SPEECH_PACKETS for skip in (0, 312)]
 
 
 def speech_slice(card, kind, n_lanes, group):
@@ -2733,10 +2961,12 @@ def speech_slice(card, kind, n_lanes, group):
 
     resample.silk_upsample = first_call
     try:
-        dec, wall, launches, _, err = decode_checked(
-            streams, expect, "cuda", tol=OPUS_TOL, rel=True)
+        (dec, wall, launches, _, err), _, buckets = keep_buckets(
+            lambda: decode_checked(streams, expect, "cuda", tol=OPUS_TOL,
+                                   rel=True))
     finally:
         resample.silk_upsample = upsample
+    routes = route_counts(f"{kind} slice", launches, buckets)
     st = dec.stats
     if st.get(f"opus_{group}_lanes") != n_lanes:
         raise AssertionError(f"{kind} slice: {st.get(f'opus_{group}_lanes')} "
@@ -2752,28 +2982,10 @@ def speech_slice(card, kind, n_lanes, group):
           f"{st['host_ms']:.0f} (host_cpu_ms {st['host_cpu_ms']:.0f}), "
           f"enqueue_ms {st['enqueue_ms']:.0f}, h2d_bytes {st['h2d_bytes']}, "
           f"d2h_bytes {st['d2h_bytes']}, windows {st['windows_by_format']}, "
-          f"K13 launches {launches['silk_upsample']}, K12a launches "
-          f"{launches['celt_ola']}, mixed host rounds "
+          f"K13 launches {launches['silk_upsample']}, {routes}, mixed "
+          f"host rounds "
           f"{st.get('opus_mixed_host_rounds', 0)} [{card}]")
     return launches, kept.get("args")
-
-
-def build_fmad_off(name="silk_upsample"):
-    """csrc/<name>.cu built again with -fmad=false (each product and sum
-    rounded alone) beside the package's build: its C entry."""
-    import ctypes
-    from audio_formats_torch.ops import _kernels
-
-    src = os.path.join(_kernels.CSRC_DIR, name + ".cu")
-    out = os.path.join(_kernels.BUILD_DIR, name + "-fmad-off.so")
-    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-fmad=false",
-                    "-o", out, src], check=True, capture_output=True,
-                   timeout=600)
-    ((fn_name, argtypes),) = _kernels._ENTRIES[name]
-    fn = getattr(ctypes.CDLL(out), fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
 
 
 def silk_upsample_work(rows, W, G, den):
@@ -2782,19 +2994,20 @@ def silk_upsample_work(rows, W, G, den):
     return 4 * (rows * W + den * 96 + rows * G * den), rows * G * den * 96
 
 
-def time_silk_upsample(card, label, x, h_rev, G, fmad_off):
+def time_silk_upsample(card, label, x, taps, G):
     """K13 at one shape: within K13_TOL of the peak of its twin on the
-    card (the twin a full-float32 matmul), and the -fmad=false build
-    against the twin; timed through its wrapper, alone, by its device
-    time and by its host enqueue, beside its bound, the twin and
+    card (the twin a full-float32 matmul), with the share of its samples
+    bit-equal to the twin's; timed through its wrapper, alone, by its
+    device time and by its host enqueue, beside its bound, the twin and
     torch.nn.functional.conv1d (cuDNN, TF32 off: the library yardstick,
     which the port never calls)."""
     import torch
     from audio_formats_torch.ops import resample
 
     rows, W = x.shape
-    den = h_rev.shape[0]
-    got = resample.silk_upsample(x, h_rev, G)
+    den = taps.shape[0]
+    h_rev = torch.from_numpy(taps).to(x.device)
+    got = resample.silk_upsample(x, taps, G)
     torch.cuda.synchronize()
     want = []
     plain_ms = time_cuda(lambda: want.append(
@@ -2805,23 +3018,15 @@ def time_silk_upsample(card, label, x, h_rev, G, fmad_off):
     if not err <= K13_TOL:
         raise AssertionError(f"K13 at {label}: {err:.3g} of the peak from "
                              "its twin")
-    off = torch.empty_like(got)
-    rc = fmad_off(x.data_ptr(), h_rev.data_ptr(), off.data_ptr(), rows, W,
-                  G, den, torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    if rc != 0:
-        raise AssertionError(f"K13 -fmad=false: CUDA error {rc}")
-    off_err = float((off - want).abs().max()) / peak
-    off_equal = float((off == want).float().mean())
     equal = float((got == want).float().mean())
     for _ in range(3):
-        resample.silk_upsample(x, h_rev, G)
-    ms = time_cuda(lambda: resample.silk_upsample(x, h_rev, G), 50)
+        resample.silk_upsample(x, taps, G)
+    ms = time_cuda(lambda: resample.silk_upsample(x, taps, G), 50)
     kernel_ms = time_cuda(lambda: resample.silk_upsample_launch(
-        x, h_rev, G, got), 50)
+        x, taps, G, got), 50)
     dev_ms = device_ms(lambda: resample.silk_upsample_launch(
-        x, h_rev, G, got), "silk_upsample")
-    host_ms = time_host(lambda: resample.silk_upsample(x, h_rev, G))
+        x, taps, G, got), "silk_upsample")
+    host_ms = time_host(lambda: resample.silk_upsample(x, taps, G))
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -2836,8 +3041,7 @@ def time_silk_upsample(card, label, x, h_rev, G, fmad_off):
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
     print(f"# kernel silk_upsample, {label} ({rows} rows x {W} -> {G} x "
           f"{den}): {err:.3g} of the peak from its twin ({equal:.3f} of "
-          f"samples bit-equal); built -fmad=false: {off_err:.3g} "
-          f"({off_equal:.3f} bit-equal); wrapper {ms:.4f} ms (its host "
+          f"samples bit-equal); wrapper {ms:.4f} ms (its host "
           f"enqueue {host_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms, "
           f"device time (torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms, "
           f"conv1d (cuDNN, TF32 off) {library_ms:.4f} ms; {nbytes} bytes, "
@@ -2850,35 +3054,32 @@ def time_silk_upsample(card, label, x, h_rev, G, fmad_off):
     return {"max_abs_err": err * peak, "rel_err": err, "ms": ms,
             "kernel_ms": kernel_ms, "device_ms": dev_ms, "host_ms": host_ms,
             "plain_ms": plain_ms, **b, "library_ms": library_ms,
-            "share": b["bound_ms"] / ms, "fmad_off_rel_err": off_err,
-            "fmad_off_bit_equal": off_equal == 1.0}
+            "share": b["bound_ms"] / ms, "bit_equal": equal == 1.0}
 
 
-def phase_silk_kernel(card, kept, fmad_off):
+def phase_silk_kernel(card, kept):
     """K13 at the SILK slice's first step (its arguments kept) and at
     SILK_BIG_ROWS random rows of a 20 ms step for each of den 6, 4, 3."""
     import torch
     from audio_formats_torch.ops import resample
 
     args, kw = kept
-    x, h_rev, G = args[:3]
-    res = time_silk_upsample(card, "the SILK slice's first step", x, h_rev,
-                             G, fmad_off)
+    x, taps, G = args[:3]
+    res = time_silk_upsample(card, "the SILK slice's first step", x, taps,
+                             G)
     rng = np.random.default_rng(13)
     t = resample._fit_tables()
     big = {}
     for bw, key in enumerate(("h_nb", "h_mb", "h_wb")):
-        h = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(t[key], np.float64)[:, ::-1], np.float32)).cuda()
+        h = resample.pack_taps(np.asarray(t[key], np.float64)[:, ::-1])
         den = h.shape[0]
         G = 960 // den
         xb = torch.from_numpy((rng.standard_normal(
             (SILK_BIG_ROWS, G + 95)) * 3000).astype(np.float32)).cuda()
-        r = time_silk_upsample(card, f"random rows, den {den}", xb, h, G,
-                               fmad_off)
+        r = time_silk_upsample(card, f"random rows, den {den}", xb, h, G)
         big[f"{SILK_BIG_ROWS}x{G}x{den}"] = {k: r[k] for k in (
             "ms", "kernel_ms", "device_ms", "bound_ms", "plain_ms",
-            "library_ms", "rel_err")}
+            "library_ms", "rel_err", "bit_equal")}
     res["large"] = big
     return res
 
@@ -2941,10 +3142,11 @@ def time_deemph(card, B, n, rng):
 def deemph_chain(card, rows, rng):
     """The JAX bench's device CELT synthesis (bench.py:800-810): for
     DEEMPH_FRAMES frames of random long-block spectra, celt_imdct_ola (the
-    IMDCT matmul, then K12a) and deemphasis_scan (K12b), the tail and the
-    memory m carried from frame to frame, counted from 0 just before the
-    run; then the same chain with the twins, held within DEEMPH_TOL of the
-    peak.  Returns (K12b's launches in the kernel chain, ms a frame)."""
+    IMDCT matmul into the packed buffer, then K12a in place) and
+    deemphasis_scan (K12b), the tail and the memory m carried from frame
+    to frame (each copied out of the packed buffer), counted from 0 just
+    before the run; then the same chain with the twins, held within
+    DEEMPH_TOL of the peak.  Returns (K12b's launches in the kernel chain, ms a frame)."""
     import torch
     from audio_formats_torch.ops import celt_dsp
 
@@ -2954,10 +3156,13 @@ def deemph_chain(card, rows, rng):
     m0 = torch.zeros(rows, device="cuda")
 
     def chain(imdct_ola, deemph):
+        # raw and the new tail are views of one packed buffer: K12b and
+        # K12a take contiguous rows
         tail, m, ys = tail0, m0, []
         for k in range(DEEMPH_FRAMES):
             raw, tail = imdct_ola(X[k], tail, 1, 960)
-            y, m = deemph(raw, m)
+            y, m = deemph(raw.contiguous(), m)
+            tail = tail.contiguous()
             ys.append(y)
         return torch.stack(ys), m
 
@@ -3082,10 +3287,8 @@ def main():
             mp_context=multiprocessing.get_context("spawn")) as pool:
         mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
         vorbis_masters = pool.map(vorbis_master, range(VORBIS_MASTERS))
-        with ThreadPoolExecutor(max_workers=len(names) + 1) as ex:
-            fmad_off = ex.submit(build_fmad_off)
+        with ThreadPoolExecutor(max_workers=len(names)) as ex:
             list(ex.map(_kernels.build, names))
-            fmad_off = fmad_off.result()
         for name in names:
             _kernels.load(name)
         print(f"# nvcc builds of {', '.join(names)}: "
@@ -3099,7 +3302,7 @@ def main():
         print(f"#   {name}: nvcc {secs:.2f} s")
         for line in log.strip().splitlines():
             print(f"#   {name}: {line.strip()}")
-    run_phases(card, mp3_masters, vorbis_masters, fmad_off)
+    run_phases(card, mp3_masters, vorbis_masters)
 
 
 def flac_slice(streams, pcms):
@@ -3155,7 +3358,7 @@ def rice_slice(streams, pcms):
     return dec, wall, launches, kept
 
 
-def run_phases(card, mp3_masters, vorbis_masters, fmad_off):
+def run_phases(card, mp3_masters, vorbis_masters):
     import torch
 
     # 3. kernels vs twins
@@ -3289,8 +3492,8 @@ def run_phases(card, mp3_masters, vorbis_masters, fmad_off):
     vres = phase_vorbis_kernel(card, kept)
     del kept
 
-    # 13. Opus, K12a at its first bucket and alone at two large shapes, and
-    # mixed Opus lanes
+    # 13. Opus, K12a's two routes at their first buckets and alone at two
+    # large shapes, and mixed Opus lanes
     t0 = time.perf_counter()
     o_streams, o_expect, o_celt = opus_corpus()
     print(f"# Opus corpus: {len(o_streams)} lanes, "
@@ -3306,7 +3509,7 @@ def run_phases(card, mp3_masters, vorbis_masters, fmad_off):
     # SILK slice's first step and alone, K12b alone and chained after
     # K12a, and the mixed group's host and device paths by lane count
     silk_l, kept = speech_slice(card, "silk", SPEECH_LANES, "silk")
-    sres = phase_silk_kernel(card, kept, fmad_off)
+    sres = phase_silk_kernel(card, kept)
     del kept
     speech_slice(card, "hybrid", SPEECH_LANES, "hybrid")
     speech_slice(card, "tour", TOUR_LANES, "mixed")
@@ -3353,10 +3556,18 @@ def run_phases(card, mp3_masters, vorbis_masters, fmad_off):
          "source": "audio_formats_torch/csrc/vorbis_win.cu",
          "replaces": "audio_formats_tpu/ops/vorbis_win.py:62",
          "launches": vorbis_launches, **vres},
+        {"name": "celt_imdct_ola", "route": "cuda",
+         "source": "audio_formats_torch/csrc/celt_ola.cu",
+         "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
+         "path": "K12a's fused route: blocks of 120 (short blocks, LM0)",
+         "launches": opus_launches["celt_imdct_ola"],
+         **ores["celt_imdct_ola"]},
         {"name": "celt_ola", "route": "cuda",
          "source": "audio_formats_torch/csrc/celt_ola.cu",
          "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
-         "launches": opus_launches, **ores},
+         "path": "K12a's in-place route: a long block after the IMDCT "
+                 "matmul",
+         "launches": opus_launches["celt_ola"], **ores["celt_ola"]},
         {"name": "silk_upsample", "route": "cuda",
          "source": "audio_formats_torch/csrc/silk_upsample.cu",
          "replaces": "audio_formats_tpu/ops/resample.py:358",
@@ -3746,9 +3957,31 @@ def k11_sass(funcs):
     return sum(ops.values()), wide(ops, "STG"), ops
 
 
+def k13_sass(funcs):
+    """K13's multiply-adds and what feeds them: for each silk_upsample
+    kernel (one a den in this tree), over the whole function, its FFMAs,
+    those of them whose tap comes from the constant bank (a c[] operand,
+    or a uniform register that a ULDC loaded from it), its ULDCs and its
+    shared loads.  Returns {function: (FFMA, FFMA with a constant tap,
+    ULDC, LDS)}."""
+    import re
+
+    out = {}
+    for name, body in funcs.items():
+        if "silk_upsample_kernel" not in name:
+            continue
+        ops = [(_opcode(i).split(".")[0], i) for _, i in body]
+        ffma = [i for o, i in ops if o == "FFMA"]
+        out[name] = (len(ffma),
+                     sum(bool(re.search(r"c\[|\bUR\d", i)) for i in ffma),
+                     sum(o == "ULDC" for o, _ in ops),
+                     sum(o == "LDS" for o, _ in ops))
+    return out
+
+
 def print_sass(trees):
-    """--sass [DIR ...]: K5's, K2's, K4's, K10's and K11's SASS counts,
-    this tree's and each DIR's."""
+    """--sass [DIR ...]: K5's, K2's, K4's, K10's, K11's and K13's SASS
+    counts, this tree's and each DIR's."""
     for tree in (ROOT, *trees):
         funcs = kernel_sass(tree)
         per_step, ops = k5_sass(funcs)
@@ -3787,15 +4020,25 @@ def print_sass(trees):
                   f"instructions, {vecs} 16-byte vectors stored a trip = "
                   f"{n / max(vecs, 1):.2f} instructions a vector; "
                   f"{dict(ops.most_common())}")
+        if os.path.exists(os.path.join(tree, "audio_formats_torch", "csrc",
+                                       "silk_upsample.cu")):
+            for fn, (ffma, const, uldc, lds) in k13_sass(
+                    kernel_sass(tree, "silk_upsample")).items():
+                print(f"# K13 SASS, {tree}, {fn}: {ffma} FFMA, {const} of "
+                      f"them with the tap from the constant bank, {uldc} "
+                      f"ULDC, {lds} shared loads: {lds / max(ffma, 1):.3f} "
+                      f"shared loads and {const / max(ffma, 1):.3f} "
+                      f"constant taps an FFMA")
 
 
 AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode",
-              "flac_rice", "vorbis_win")
+              "flac_rice", "vorbis_win", "silk_upsample", "celt_ola")
 
 
 def ab_compare(parent, names=AB_KERNELS):
-    """--ab PARENT [NAME ...]: K3, K1, K5, K2, K4 and K11 of this tree (or
-    those NAMEd) against the kernels built from
+    """--ab PARENT [NAME ...]: K3, K1, K5, K2, K4, K11, K13 and K12a of this
+    tree (or those NAMEd; K13 and K12a in ``ab_silk_upsample`` and
+    ``ab_celt_ola``) against the kernels built from
     PARENT/audio_formats_torch/csrc (an earlier commit's sources, called
     through the C entries and wrappers they had then), in one process on
     one card, in turns parent / change / change / parent: K3's wrapper and
@@ -3841,18 +4084,24 @@ def ab_compare(parent, names=AB_KERNELS):
                                   [V, I, V, V, V, V, V, V, I, V]),
                    "qoa_decode": ("af_qoa_decode", [V] * 6 + [I, I, V]),
                    "flac_rice": ("af_flac_rice",
-                                 [V, I, V, V, V, V, I, I, I] + [V] * 6)}
+                                 [V, I, V, V, V, V, I, I, I] + [V] * 6),
+                   "silk_upsample": ("af_silk_upsample", [V] * 3 + [I] * 4
+                                     + [V]),
+                   "celt_ola": ("af_celt_ola", [V] * 5 + [I] * 3 + [V])}
     sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
                "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms",
-               "flac_rice": "flac_rice", "vorbis_win": "vorbis_win"}
+               "flac_rice": "flac_rice", "vorbis_win": "vorbis_win",
+               "silk_upsample": "silk_upsample", "celt_ola": "celt_ola"}
 
     def build_parent(name):
         src = os.path.join(parent, "audio_formats_torch", "csrc",
                            sources[name] + ".cu")
         out = os.path.join(os.path.abspath(parent), "build", name + ".so")
         os.makedirs(os.path.dirname(out), exist_ok=True)
-        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", out,
-                        src], check=True, capture_output=True, timeout=600)
+        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS,
+                        *_kernels.EXTRA_FLAGS.get(sources[name], ()), "-o",
+                        out, src], check=True, capture_output=True,
+                       timeout=600)
         fn = getattr(ctypes.CDLL(out), old_entries[name][0])
         fn.argtypes, fn.restype = old_entries[name][1], ctypes.c_int
         return fn
@@ -4088,6 +4337,11 @@ def ab_compare(parent, names=AB_KERNELS):
         slices.append(("Vorbis slice", vorbis_win, "lap_chain", win_old,
                        lambda: decode_realtime(v_streams)))
 
+    if "silk_upsample" in names:
+        ab_silk_upsample(olds["silk_upsample"], card, turns, stream)
+    if "celt_ola" in names:
+        ab_celt_ola(olds["celt_ola"], card, turns, stream)
+
     if "flac_lpc" in names or "flac_rice" in names:
         streams, pcms = build_corpus()
     if "flac_lpc" in names:
@@ -4268,6 +4522,132 @@ def ab_compare(parent, names=AB_KERNELS):
     print(card)
 
 
+def ab_silk_upsample(old_fn, card, turns, stream):
+    """--ab for K13: the parent's kernel (its C entry: the taps by device
+    pointer) against this tree's (the taps a host array, by value) at the SILK slice's first step (its
+    arguments kept from one decode of the slice's lanes) and at
+    SILK_BIG_ROWS random rows of a 20 ms step for den 6, 4 and 3: the
+    largest difference (it must be 0: both are one FMA chain an output, k
+    in order), then the wrapper, the launch alone and the device time, in
+    turns."""
+    import torch
+    from audio_formats_torch.ops import _kernels, resample
+
+    distinct = speech_distinct("silk")
+    _, (args, _) = first_call_of(resample, "silk_upsample", lambda: (
+        decode_realtime([distinct[i % len(distinct)]
+                         for i in range(SPEECH_LANES)])))
+    x, h, G = args[:3]
+    shapes = [("the SILK slice's first step", x, h, G)]
+    rng = np.random.default_rng(13)
+    t = resample._fit_tables()
+    for key in ("h_nb", "h_mb", "h_wb"):
+        hb = resample.pack_taps(np.asarray(t[key], np.float64)[:, ::-1])
+        Gb = 960 // hb.shape[0]
+        xb = torch.from_numpy((rng.standard_normal(
+            (SILK_BIG_ROWS, Gb + 95)) * 3000).astype(np.float32)).cuda()
+        shapes.append((f"random rows, den {hb.shape[0]}", xb, hb, Gb))
+
+    # the parent's taps: a tensor on the card
+    on_card = {id(h): torch.from_numpy(h).to(x.device)
+               for _, x, h, _ in shapes}
+
+    def old(x, h, G, out=None):
+        out = torch.empty((x.shape[0], G * h.shape[0]), device=x.device) \
+            if out is None else out
+        _kernels.check_launch("old silk_upsample", old_fn(
+            x.data_ptr(), on_card[id(h)].data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[1], G, h.shape[0], stream()))
+        return out
+
+    for label, x, h, G in shapes:
+        label = f"{label} ({x.shape[0]} rows x {G} x {h.shape[0]})"
+        got_old, got_new = old(x, h, G), resample.silk_upsample(x, h, G)
+        torch.cuda.synchronize()
+        diff = float((got_old - got_new).abs().max())
+        if diff != 0.0:
+            raise AssertionError(f"K13 at {label}: parent and change differ "
+                                 f"by {diff}")
+        print(f"# ab silk_upsample, {label}: largest difference between "
+              f"parent and change {diff} [{card}]")
+        turns(f"silk_upsample wrapper, {label}", lambda: old(x, h, G),
+              lambda: resample.silk_upsample(x, h, G))
+        turns(f"silk_upsample kernel alone, {label}",
+              lambda: old(x, h, G, got_old),
+              lambda: resample.silk_upsample_launch(x, h, G, got_new))
+        alone = (lambda: old(x, h, G, got_old),
+                 lambda: resample.silk_upsample_launch(x, h, G, got_new))
+        d = [device_ms(fn, "silk_upsample") for fn in alone + alone[::-1]]
+        print(f"# ab silk_upsample device time (torch.profiler), {label}: "
+              "parent, change, change, parent: "
+              + ", ".join("not measured" if v is None else f"{v:.4f} ms"
+                          for v in d) + f" [{card}]")
+
+
+def ab_celt_ola(old_fn, card, turns, stream):
+    """--ab for K12a: the parent's stage (the IMDCT matmul, imdct_halves,
+    then its K12a out of place, and the concatenation into one tensor that
+    its batch downloaded) against this tree's celt_imdct_ola (the fused
+    kernel for blocks of 120; the matmul into the packed buffer and the
+    in-place mix for long blocks), at the Opus slice's first bucket of
+    each route (their arguments kept from one decode of the slice's lanes)
+    and at OPUS_BIG from random spectra: the largest difference, then the
+    stage's time and its device time (every kernel of a call), in turns."""
+    import torch
+    from audio_formats_torch.ops import _kernels, celt_dsp
+
+    _, kept, _ = keep_buckets(lambda: decode_realtime(opus_streams()[0]))
+    shapes = []
+    for route in ("short", "long"):
+        args, kw = kept[route]
+        scale = args[4] if len(args) > 4 else kw.get("scale", 1.0)
+        shapes.append(("the Opus slice's first bucket", *args[:4], scale))
+    rng = np.random.default_rng(12)
+    for rows, nb, nbs in OPUS_BIG:
+        shapes.append(("random spectra", torch.from_numpy((
+            rng.standard_normal((rows, nb * nbs)) * 400).astype(
+                np.float32)).cuda(), torch.from_numpy((rng.standard_normal(
+                    (rows, 60)) * 400).astype(np.float32)).cuda(), nb, nbs,
+            1.0))
+    win = celt_dsp.device_const(celt_dsp.WINDOW_F32, torch.device("cuda"))
+
+    def old(co, tail, blocks, bs, scale):
+        halves = celt_dsp.imdct_halves(co, blocks, bs, scale)
+        out = (torch.empty((co.shape[0], blocks * bs), device=co.device),
+               torch.empty((co.shape[0], 60), device=co.device))
+        _kernels.check_launch("old celt_ola", old_fn(
+            halves.data_ptr(), tail.data_ptr(), win.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), co.shape[0], blocks, bs,
+            stream()))
+        return torch.cat(out, dim=1)
+
+    def new(co, tail, blocks, bs, scale):
+        return celt_dsp.celt_imdct_ola_packed(co, tail, blocks, bs, scale)
+
+    for label, co, tail, blocks, bs, scale in shapes:
+        label = (f"{label} ({co.shape[0]} rows x {blocks} x {bs}, scale "
+                 f"{scale})")
+        a, b = old(co, tail, blocks, bs, scale), new(co, tail, blocks, bs,
+                                                     scale)
+        torch.cuda.synchronize()
+        diff = float((a - b).abs().max())
+        peak = float(a.abs().max())
+        if not diff <= K12A_TOL * peak:
+            raise AssertionError(f"K12a at {label}: parent and change differ "
+                                 f"by {diff} (peak {peak})")
+        print(f"# ab celt_ola, {label}: largest difference between the "
+              f"parent's stage and the change's {diff:.6g} (peak "
+              f"{peak:.6g}) [{card}]")
+        sides = (lambda: old(co, tail, blocks, bs, scale),
+                 lambda: new(co, tail, blocks, bs, scale))
+        turns(f"celt_imdct_ola stage, {label}", *sides)
+        d = [device_ms(fn, "") for fn in sides + sides[::-1]]
+        print(f"# ab celt_imdct_ola stage device time (torch.profiler, every "
+              f"kernel of a call), {label}: parent, change, change, parent: "
+              + ", ".join("not measured" if v is None else f"{v:.4f} ms"
+                          for v in d) + f" [{card}]")
+
+
 def parent_package(parent):
     """The earlier commit's whole package, where PARENT holds it (``git
     archive <commit> | tar -x -C PARENT``), imported beside this tree's as
@@ -4434,6 +4814,89 @@ def ring_probe():
     print(card)
 
 
+#: (rows, blocks) of 120 at which --grid times K12a's fused route
+GRID_PROBES = ((512, 8), (4096, 1), (4096, 4), (4096, 8), (16384, 8))
+GRID_CAP = "*grid = ntiles < fit[dev] ? ntiles : fit[dev];"
+
+
+def grid_probe():
+    """--grid (on the card): K12a's fused route (af_celt_imdct_ola) as the
+    source has it, its grid capped at the blocks that fit on the card at
+    once (each block loops over tiles), against the same source with one
+    block a tile, at each GRID_PROBES shape from random spectra: the two
+    held bit-equal (a tile's sums do not depend on the grid), then each
+    launch's device time (torch.profiler) in turns, capped, one a tile,
+    one a tile, capped.  Prints one line a shape and the card; no result
+    line."""
+    import ctypes
+    import tempfile
+
+    import torch
+    from audio_formats_torch.ops import _kernels, celt_dsp
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: --grid runs on the card")
+    card = card_line()
+    print(card)
+    with open(os.path.join(ROOT, "audio_formats_torch", "csrc",
+                           "celt_ola.cu")) as f:
+        src = f.read()
+    if GRID_CAP not in src:
+        raise RuntimeError("celt_ola.cu: no grid cap to vary")
+    tmp = tempfile.mkdtemp(prefix="k12grid", dir=os.path.join(
+        ROOT, "_checkout") if os.path.isdir(os.path.join(ROOT, "_checkout"))
+        else None)
+    var = os.path.join(tmp, "celt_ola_tile.cu")
+    with open(var, "w") as f:
+        f.write(src.replace(GRID_CAP, "*grid = ntiles;"))
+    flags = _kernels.NVCC_FLAGS + _kernels.EXTRA_FLAGS["celt_ola"]
+
+    def build_var():
+        subprocess.run([_kernels._nvcc(), *flags, "-o", var[:-3] + ".so",
+                        var], check=True, capture_output=True, timeout=600)
+        fn = ctypes.CDLL(var[:-3] + ".so").af_celt_imdct_ola
+        fn.argtypes = _kernels._ENTRIES["celt_ola"][1][1]
+        fn.restype = ctypes.c_int
+        return fn
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fut = ex.submit(build_var)
+        capped = _kernels.load("celt_ola").af_celt_imdct_ola
+        tiled = fut.result()
+    dev = torch.device("cuda")
+    _, _, win, basis_t = celt_dsp._entry(dev)
+    rng = np.random.default_rng(12)
+    for rows, nb in GRID_PROBES:
+        co = torch.from_numpy((rng.standard_normal((rows, nb * 120))
+                               * 400).astype(np.float32)).cuda()
+        tl = torch.from_numpy((rng.standard_normal((rows, 60))
+                               * 400).astype(np.float32)).cuda()
+        outs = [torch.empty((rows, nb * 120 + 60), device=dev)
+                for _ in range(2)]
+
+        def launch(fn, out):
+            _kernels.check_launch("grid probe", fn(
+                co.data_ptr(), tl.data_ptr(), basis_t, win, out.data_ptr(),
+                rows, nb, 1.0, torch.cuda.current_stream().cuda_stream))
+
+        launch(capped, outs[0])
+        launch(tiled, outs[1])
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"grid probe {rows}x{nb}x120: the two "
+                                 "grids differ")
+        runs = [(capped, 0), (tiled, 1), (tiled, 1), (capped, 0)]
+        d = [device_ms(lambda: launch(fn, outs[i]), "celt_imdct_ola",
+                       reps=50) for fn, i in runs]
+        tiles = (rows + 32 // nb - 1) // (32 // nb)
+        print(f"# grid {rows} rows x {nb} x 120 ({tiles} tiles of 32 "
+              f"blocks): device time (torch.profiler), capped, one block a "
+              f"tile, one block a tile, capped: "
+              + ", ".join("not measured" if v is None else f"{v:.5f} ms"
+                          for v in d) + f" [{card}]")
+    print(card)
+
+
 def decode_realtime(streams, **kw):
     """Audio seconds over wall seconds of one decode_all(output="device")
     of the streams on the card, synced; kw: BatchDecoder's options."""
@@ -4513,6 +4976,8 @@ if __name__ == "__main__":
         divergence()
     elif sys.argv[1:] == ["--ring"]:
         ring_probe()
+    elif sys.argv[1:] == ["--grid"]:
+        grid_probe()
     elif sys.argv[1:] == ["--wires"]:
         wire_compare()
     elif sys.argv[1:2] == ["--sass"]:

@@ -1,9 +1,9 @@
 """The port's CELT device stages against the JAX package's
 ``ops/celt_dsp.celt_imdct_ola`` and ``deemphasis_scan``, on the CPU.
 
-The IMDCT basis is JAX's bit for bit.  The overlap-add twin (K12a's twin),
-fed the half-transforms that JAX's einsum computes, gives JAX's output bit
-for bit: on the CPU XLA contracts the reference's window mix into
+The IMDCT basis is JAX's bit for bit.  The window mix (``celt_ola_torch``,
+and K12a's in-place twin), fed the half-transforms that JAX's einsum
+computes, gives JAX's output bit for bit: on the CPU XLA contracts the reference's window mix into
 ``lo = fma(b0, w[119-u], -(b1·w[u]))`` and ``hi = fma(b1, w[119-u],
 b0·w[u])``, and the twin rounds those FMAs exactly.  The whole twin, whose
 IMDCT is a torch matmul, cannot give XLA's einsum bits; it is held within
@@ -53,26 +53,46 @@ def _jax_halves(co, blocks, bs, scale):
 @pytest.mark.parametrize("B", [1, 7, 64])
 @pytest.mark.parametrize("blocks,bs", SHAPES)
 def test_twin_matches_jax(blocks, bs, B, scale):
+    """celt_imdct_ola_packed's [B, frame + 60] result (out, then the new
+    tail: JAX's buf[:, :frame + 60]) within TOL of the peak of JAX's (out,
+    tail), and celt_imdct_ola its two column slices; on a CPU tensor both
+    routes are the twin.  The mix alone, fed
+    JAX's own half-transforms, gives JAX's bits, out of place
+    (celt_ola_torch) and in place in the packed buffer (celt_ola, whose
+    CPU route is celt_ola_inplace_torch)."""
     rng = np.random.default_rng([blocks, bs, B, int(scale * 2)])
     frame = blocks * bs
     co = (rng.standard_normal((B, frame)) * 400).astype(np.float32)
     tail = (rng.standard_normal((B, tdsp.HALF)) * 400).astype(np.float32)
     want = [np.asarray(a) for a in jdsp.celt_imdct_ola(
         co, tail, blocks, bs, scale=scale)]
-    got = [a.numpy() for a in tdsp.celt_imdct_ola(
-        torch.from_numpy(co), torch.from_numpy(tail), blocks, bs, scale)]
-    twin = [a.numpy() for a in tdsp.celt_imdct_ola_torch(
-        torch.from_numpy(co), torch.from_numpy(tail), blocks, bs, scale)]
+    args = (torch.from_numpy(co), torch.from_numpy(tail), blocks, bs, scale)
+    buf = tdsp.celt_imdct_ola_packed(*args)
+    got = tdsp.celt_imdct_ola(*args)
+    packed = buf.numpy()
+    assert packed.shape == (B, frame + 60) and packed.dtype == np.float32
+    assert torch.equal(buf[:, :frame], got[0])
+    assert torch.equal(buf[:, frame:], got[1])
+    np.testing.assert_array_equal(
+        packed, tdsp.celt_imdct_ola_packed_torch(*args).numpy())
+    twin = tdsp.celt_imdct_ola_torch(*args)
+    assert torch.equal(twin[0], got[0]) and torch.equal(twin[1], got[1])
+    for g, w, shape in zip(got, want, [(B, frame), (B, 60)]):
+        assert tuple(g.shape) == w.shape == shape
     peak = np.abs(want[0]).max()
-    for g, t, w, shape in zip(got, twin, want, [(B, frame), (B, 60)]):
-        assert g.shape == w.shape == shape and g.dtype == np.float32
-        np.testing.assert_array_equal(g, t)   # the CPU dispatch is the twin
-        assert np.abs(g - w).max() / peak < TOL
-    # the overlap-add alone, on JAX's own half-transforms: JAX's bits
+    assert np.abs(packed - np.concatenate(want, axis=1)).max() / peak < TOL
+    # the mix alone, on JAX's own half-transforms: JAX's bits
     halves = _jax_halves(co, blocks, bs, scale)
-    ola = tdsp.celt_ola(torch.from_numpy(halves), torch.from_numpy(tail))
+    ola = tdsp.celt_ola_torch(torch.from_numpy(halves),
+                              torch.from_numpy(tail))
     np.testing.assert_array_equal(ola[0].numpy(), want[0])
     np.testing.assert_array_equal(ola[1].numpy(), want[1])
+    buf = torch.full((B, frame + 60), float("nan"))
+    buf[:, 60:] = torch.from_numpy(halves.reshape(B, frame))
+    assert tdsp.celt_ola(buf, torch.from_numpy(tail), blocks) is buf
+    np.testing.assert_array_equal(buf.numpy(), np.concatenate(want, axis=1))
+    assert torch.equal(buf[:, :frame], ola[0])
+    assert torch.equal(buf[:, frame:], ola[1])
 
 
 def test_ola_is_not_the_plain_f32_sum():
@@ -89,22 +109,28 @@ def test_ola_is_not_the_plain_f32_sum():
     plain = tail * w[119 - u] - b1 * w[u]
     assert (plain != want[:, :60]).any()
     np.testing.assert_array_equal(
-        tdsp.celt_ola(torch.from_numpy(h[:, None]),
-                      torch.from_numpy(tail))[0].numpy()[:, :60],
+        tdsp.celt_ola_torch(torch.from_numpy(h[:, None]),
+                            torch.from_numpy(tail))[0].numpy()[:, :60],
         want[:, :60])
 
 
 def test_ola_rejects_what_it_cannot_take():
-    """A tensor on no CPU and no CUDA device, or blocks shorter than the
-    overlap, raise KernelArgError (a ValueError)."""
-    meta = torch.empty((2, 1, 960), device="meta")
+    """A tensor on no CPU and no CUDA device, blocks shorter than the
+    overlap, or short blocks other than 1, 2, 4 or 8 raise KernelArgError
+    (a ValueError)."""
+    tail = torch.empty((2, 60), device="meta")
     with pytest.raises(_kernels.KernelArgError, match="CUDA"):
-        tdsp.celt_ola(meta, torch.empty((2, 60), device="meta"))
+        tdsp.celt_ola(torch.empty((2, 1020), device="meta"), tail)
     with pytest.raises(_kernels.KernelArgError, match="at least 120"):
-        tdsp.celt_ola_launch(
-            torch.empty((2, 1, 60), device="meta"),
-            torch.empty((2, 60), device="meta"),
-            (torch.empty((2, 60)), torch.empty((2, 60))))
+        tdsp.celt_ola(torch.empty((2, 120), device="meta"), tail)
+    with pytest.raises(_kernels.KernelArgError, match="at least 120"):
+        tdsp.celt_ola(torch.empty((2, 260), device="meta"), tail, 2)
+    with pytest.raises(_kernels.KernelArgError, match="CUDA"):
+        tdsp.imdct_ola_short(torch.empty((2, 960), device="meta"), tail, 8)
+    with pytest.raises(_kernels.KernelArgError, match="blocks in"):
+        tdsp.imdct_ola_short_launch(
+            torch.empty((2, 360), device="meta"), tail, 3, 1.0,
+            torch.empty((2, 420), device="meta"))
 
 
 # ------------------------------------------------- K12b, the deemphasis

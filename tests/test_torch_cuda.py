@@ -1174,59 +1174,99 @@ CELT_SHAPES = [(1, 120), (1, 240), (2, 120), (1, 480), (4, 120), (1, 960),
                (8, 120)]
 
 
+def _celt_inputs(rng, rows, frame, cuda):
+    """Random spectra (or half-transforms) [rows, frame] and tails."""
+    return (torch.from_numpy((rng.standard_normal((rows, frame)) * 400)
+                             .astype(np.float32)).to(cuda),
+            torch.from_numpy((rng.standard_normal((rows, 60)) * 400)
+                             .astype(np.float32)).to(cuda))
+
+
 @pytest.mark.parametrize("rows", [1, 7, 257])
 @pytest.mark.parametrize("blocks,bs", CELT_SHAPES)
 def test_celt_ola_kernel_matches_twin(cuda, blocks, bs, rows):
-    """K12a bit-equal to its twin on the card, on random half-transforms
-    and on the matmul's own (the whole celt_imdct_ola against
-    celt_imdct_ola_torch)."""
+    """K12a's in-place mix (one launch) bit-equal to celt_ola_torch on the
+    same half-transforms, at every bucket shape; for long blocks the whole
+    celt_imdct_ola (the matmul into the packed buffer, then the mix) is
+    celt_imdct_ola_torch bit for bit."""
     rng = np.random.default_rng([blocks, bs, rows])
-    halves = torch.from_numpy(
-        (rng.standard_normal((rows, blocks, bs)) * 400).astype(np.float32)
-    ).to(cuda)
-    tail = torch.from_numpy(
-        (rng.standard_normal((rows, 60)) * 400).astype(np.float32)).to(cuda)
+    frame = blocks * bs
+    halves, tail = _celt_inputs(rng, rows, frame, cuda)
+    buf = torch.full((rows, frame + 60), float("nan"), device=cuda)
+    buf[:, 60:] = halves
     before = tcelt.OLA_LAUNCHES
-    got = tcelt.celt_ola(halves, tail)
-    want = tcelt.celt_ola_torch(halves, tail)
+    assert tcelt.celt_ola(buf, tail, blocks) is buf
+    want = tcelt.celt_ola_torch(halves.reshape(rows, blocks, bs), tail)
     assert tcelt.OLA_LAUNCHES - before == 1
-    for g, w in zip(got, want):
+    for g, w in zip((buf[:, :frame], buf[:, frame:]), want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
-    co = halves.reshape(rows, blocks * bs)
+    if bs == 120:
+        return
     for scale in (1.0, 0.5):
-        got = tcelt.celt_imdct_ola(co, tail, blocks, bs, scale)
-        want = tcelt.celt_imdct_ola_torch(co, tail, blocks, bs, scale)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        before = tcelt.OLA_LAUNCHES, tcelt.IMDCT_OLA_LAUNCHES
+        got = tcelt.celt_imdct_ola_packed(halves, tail, blocks, bs, scale)
+        assert (tcelt.OLA_LAUNCHES - before[0],
+                tcelt.IMDCT_OLA_LAUNCHES - before[1]) == (1, 0)
+        assert torch.equal(got, tcelt.celt_imdct_ola_packed_torch(
+            halves, tail, blocks, bs, scale))
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+@pytest.mark.parametrize("rows", [1, 7, 512, 4096])
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+def test_celt_imdct_ola_short_matches_twin(cuda, blocks, rows, scale):
+    """Blocks of 120: celt_imdct_ola_packed is one launch of K12a's fused
+    kernel (no matmul) into the packed [rows, frame + 60] output, within
+    1e-6 of the peak of its twin (its dot products sum in another order
+    than cuBLAS's)."""
+    rng = np.random.default_rng([blocks, rows, int(scale * 2)])
+    co, tail = _celt_inputs(rng, rows, blocks * 120, cuda)
+    before = tcelt.OLA_LAUNCHES, tcelt.IMDCT_OLA_LAUNCHES
+    got = tcelt.celt_imdct_ola_packed(co, tail, blocks, 120, scale)
+    assert (tcelt.OLA_LAUNCHES - before[0],
+            tcelt.IMDCT_OLA_LAUNCHES - before[1]) == (0, 1)
+    want = tcelt.celt_imdct_ola_packed_torch(co, tail, blocks, 120, scale)
+    assert got.shape == want.shape == (rows, blocks * 120 + 60)
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 1e-6
 
 
 def test_celt_ola_launch_alone_matches_wrapper(cuda):
-    rng = np.random.default_rng(12)
-    halves = torch.from_numpy(rng.standard_normal(
-        (64, 8, 120)).astype(np.float32)).to(cuda)
-    tail = torch.from_numpy(rng.standard_normal(
-        (64, 60)).astype(np.float32)).to(cuda)
-    want = tcelt.celt_ola(halves, tail)
-    out = (torch.full((64, 960), float("nan"), device=cuda),
-           torch.full((64, 60), float("nan"), device=cuda))
-    tcelt.celt_ola_launch(halves, tail, out)
-    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    """K12a's fused kernel into a made output equals its wrapper's, bit
+    for bit, and writes every sample."""
+    co, tail = _celt_inputs(np.random.default_rng(12), 64, 960, cuda)
+    want = tcelt.imdct_ola_short(co, tail, 8)
+    out = torch.full((64, 1020), float("nan"), device=cuda)
+    tcelt.imdct_ola_short_launch(co, tail, 8, 1.0, out)
+    assert torch.equal(out, want)
 
 
 def test_celt_ola_kernel_rejects_bad_arguments(cuda):
-    halves = torch.zeros((4, 1, 960), device=cuda)
+    buf = torch.zeros((4, 1020), device=cuda)
     tail = torch.zeros((4, 60), device=cuda)
+    for bad in ((buf, tail[:3]), (buf, tail.cpu()), (buf.double(), tail),
+                (torch.zeros((4, 120), device=cuda), tail),
+                (torch.zeros((4, 2040), device=cuda)[:, ::2], tail),
+                (buf, torch.zeros((4, 120), device=cuda)[:, ::2])):
+        with pytest.raises(ValueError):
+            tcelt.celt_ola(*bad)
     with pytest.raises(ValueError):
-        tcelt.celt_ola(halves, tail[:3])
-    with pytest.raises(ValueError):
-        tcelt.celt_ola(halves, tail.cpu())
-    with pytest.raises(ValueError):
-        tcelt.celt_ola(halves.double(), tail)
-    with pytest.raises(ValueError):
-        tcelt.celt_ola(torch.zeros((4, 1, 60), device=cuda), tail)
-    with pytest.raises(ValueError):
-        tcelt.celt_ola(halves[:, :, ::2], tail)
+        tcelt.celt_ola(buf, tail, 7)
+    co = torch.zeros((4, 960), device=cuda)
+    out = torch.zeros((4, 1020), device=cuda)
+    for args in ((co, tail[:3], 8), (co, tail.cpu(), 8),
+                 (co.double(), tail, 8), (co[:, ::2], tail, 4),
+                 (co, tail, 3), (co[:, :840], tail, 7),
+                 (torch.zeros((4, 1920), device=cuda)[:, ::2], tail, 8),
+                 (torch.zeros(4 * 960 + 1, device=cuda)[1:].view(4, 960),
+                  tail, 8)):
+        with pytest.raises(ValueError):
+            tcelt.imdct_ola_short(*args)
+    for bad_out in (out[:, :1000], out.cpu(), out.double(),
+                    torch.zeros((4, 2040), device=cuda)[:, ::2]):
+        with pytest.raises(ValueError):
+            tcelt.imdct_ola_short_launch(co, tail, 8, 1.0, bad_out)
 
 
 def test_celt_imdct_refuses_tf32(cuda, monkeypatch):
@@ -1262,11 +1302,13 @@ def test_batch_decoder_opus_cuda_equals_cpu(cuda):
     of the peak of the CPU decode (the IMDCT matmuls differ in their
     sums)."""
     streams = _opus_streams()
-    before = tcelt.OLA_LAUNCHES, trs.UPSAMPLE_LAUNCHES
+    before = (tcelt.OLA_LAUNCHES + tcelt.IMDCT_OLA_LAUNCHES,
+              trs.UPSAMPLE_LAUNCHES)
     dec = BatchDecoder(streams, device=cuda)
     got = dec.decode_all(output="device").sync().to_numpy()
     wbf = dec.stats["windows_by_format"]
-    assert tcelt.OLA_LAUNCHES - before[0] == wbf["opus"] > 0
+    assert (tcelt.OLA_LAUNCHES + tcelt.IMDCT_OLA_LAUNCHES - before[0]
+            == wbf["opus"] > 0)
     assert trs.UPSAMPLE_LAUNCHES - before[1] == wbf["opus_silk"] > 0
     assert dec.stats["group_demotions"] == 0
     want = BatchDecoder(streams, device="cpu").decode_all()
@@ -1274,35 +1316,56 @@ def test_batch_decoder_opus_cuda_equals_cpu(cuda):
         _close(torch.from_numpy(a), torch.from_numpy(b), tol=1e-5)
 
 
-def _silk_taps(den, cuda):
+def _silk_taps(den):
+    """The reversed taps of phase count den as K13's host array."""
     t = trs._fit_tables()
     h = np.asarray(t[{6: "h_nb", 4: "h_mb", 3: "h_wb"}[den]], np.float64)
-    return torch.from_numpy(np.ascontiguousarray(h[:, ::-1],
-                                                 np.float32)).to(cuda)
+    return trs.pack_taps(h[:, ::-1])
 
 
-@pytest.mark.parametrize("rows", [1, 3, 257])
-@pytest.mark.parametrize("G", [1, 7, 65, 140, 320])
+def _fma_chain(x, h, G):
+    """K13's own arithmetic in plain PyTorch: each output one f32 FMA
+    chain over the taps, k = 0..95 in order from 0, each FMA rounded once
+    (``ops.pcm._fma_f32``)."""
+    rows, den = x.shape[0], h.shape[0]
+    acc = torch.zeros((rows, G, den), dtype=torch.float32, device=x.device)
+    for k in range(h.shape[1]):
+        acc = tpcm._fma_f32(x[:, k: k + G, None], h[:, k], acc)
+    return acc.reshape(rows, G * den)
+
+
+@pytest.mark.parametrize("rows", [1, 31, 33, 256, 4096])
+@pytest.mark.parametrize("G", [1, 7, 63, 65, 300, 320, 960])
 @pytest.mark.parametrize("den", [6, 4, 3])
 def test_silk_upsample_kernel_matches_twin(cuda, den, G, rows):
-    """K13 (one launch) within 1e-6 of the peak of its twin, a
-    full-float32 matmul, at every phase count, ragged group counts and a
-    single row; rows wider than G + 95 are read only as far as needed."""
+    """K13 (one launch) at every phase count, ragged group counts (a tile
+    is 4 x 24 / den groups) and row counts (a tile is 32 rows), and a
+    single row; rows wider than G + 95 are read only as far as needed.
+    It is bit for bit one FMA chain an output, k in order from 0, and
+    within 1e-6 of the peak of its twin, a cuBLAS
+    full-float32 matmul.  cuBLAS sums in that order only where the kernel
+    it picks for the shape does: for the groups' shapes (256 rows and
+    more, 60 groups a row and more), not for a few rows or groups; the
+    twin's bits are asserted there."""
     rng = np.random.default_rng([den, G, rows])
-    h = _silk_taps(den, cuda)
+    taps = _silk_taps(den)
+    h = torch.from_numpy(taps).to(cuda)
     x = torch.from_numpy((rng.standard_normal((rows, G + 95 + G % 3))
                           * 3000).astype(np.float32)).to(cuda)
     before = trs.UPSAMPLE_LAUNCHES
-    got = trs.silk_upsample(x, h, G)
+    got = trs.silk_upsample(x, taps, G)
     want = trs.silk_upsample_torch(x, h, G)
     assert trs.UPSAMPLE_LAUNCHES - before == 1
     assert got.shape == want.shape == (rows, G * den)
     assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got, _fma_chain(x, h, G))
     assert float((got - want).abs().max()) / float(want.abs().max()) < 1e-6
+    if rows >= 256 and G >= 63:
+        assert torch.equal(got, want)
 
 
 def test_silk_upsample_launch_alone_matches_wrapper(cuda):
-    h = _silk_taps(3, cuda)
+    h = _silk_taps(3)
     x = torch.randn((64, 415), device=cuda) * 3000
     want = trs.silk_upsample(x, h, 320)
     out = torch.full_like(want, float("nan"))
@@ -1313,15 +1376,19 @@ def test_silk_upsample_launch_alone_matches_wrapper(cuda):
 def test_silk_upsample_kernel_rejects_bad_arguments(cuda):
     from audio_formats_torch.ops._kernels import KernelArgError
 
-    h = _silk_taps(4, cuda)
+    h = _silk_taps(4)
     x = torch.zeros((4, 335), device=cuda)
     out = torch.zeros((4, 960), device=cuda)
     with pytest.raises(KernelArgError, match="W >= G"):
         trs.silk_upsample(x, h, 241)
     with pytest.raises(KernelArgError, match="96 taps"):
-        trs.silk_upsample(x, h[:, :95].contiguous(), 240)
-    with pytest.raises(KernelArgError, match="want"):
-        trs.silk_upsample_launch(x, h.cpu(), 240, out)
+        trs.silk_upsample(x, np.ascontiguousarray(h[:, :95]), 240)
+    with pytest.raises(KernelArgError, match="float32 host array"):
+        trs.silk_upsample_launch(x, torch.from_numpy(h).to(cuda), 240, out)
+    with pytest.raises(KernelArgError, match="den in"):
+        trs.silk_upsample_launch(x, np.zeros((2, 96), np.float32), 480, out)
+    with pytest.raises(KernelArgError, match="on cpu"):
+        trs.silk_upsample_launch(x, h, 240, out.cpu())
     with pytest.raises(KernelArgError):
         trs.silk_upsample(x.double(), h, 240)
     with pytest.raises(KernelArgError, match="contiguous"):
@@ -1336,7 +1403,8 @@ def test_silk_upsample_twin_refuses_tf32(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(KernelError, match="SILK upsample twin"):
         trs.silk_upsample_torch(torch.zeros((2, 415), device=cuda),
-                                _silk_taps(3, cuda), 320)
+                                torch.from_numpy(_silk_taps(3)).to(cuda),
+                                320)
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 100, 960, 2000])
@@ -1405,12 +1473,14 @@ def test_batch_decoder_opus_groups_cuda_equals_cpu(cuda):
     step, K12a once a CELT bucket) within 1e-5 of the peak of the CPU
     decode, every lane in its group, no demotion."""
     streams = _speech_streams()
-    before = tcelt.OLA_LAUNCHES, trs.UPSAMPLE_LAUNCHES
+    before = (tcelt.OLA_LAUNCHES + tcelt.IMDCT_OLA_LAUNCHES,
+              trs.UPSAMPLE_LAUNCHES)
     dec = BatchDecoder(streams, device=cuda)
     got = dec.decode_all(output="device").sync().to_numpy()
     st = dec.stats
     wbf = st["windows_by_format"]
-    assert tcelt.OLA_LAUNCHES - before[0] == wbf["opus"] > 0
+    assert (tcelt.OLA_LAUNCHES + tcelt.IMDCT_OLA_LAUNCHES - before[0]
+            == wbf["opus"] > 0)
     assert trs.UPSAMPLE_LAUNCHES - before[1] == wbf["opus_silk"] > 0
     assert st["group_demotions"] == 0
     assert (st["opus_silk_lanes"], st["opus_hybrid_lanes"],

@@ -207,7 +207,7 @@ def _batch_lanes():
 def test_batch_matches_jax(output, monkeypatch):
     streams = _batch_lanes()
     calls, scales = [], []
-    imdct_ola = celt_dsp.celt_imdct_ola
+    imdct_ola = celt_dsp.celt_imdct_ola_packed
     bucket = tbatch.BatchDecoder._celt_imdct_bucket
 
     def counted(*a, **kw):
@@ -218,7 +218,7 @@ def test_batch_matches_jax(output, monkeypatch):
         scales.append({float(p["imdct_scale"]) for _, p in items})
         return bucket(self, items, blocks, bs)
 
-    monkeypatch.setattr(celt_dsp, "celt_imdct_ola", counted)
+    monkeypatch.setattr(celt_dsp, "celt_imdct_ola_packed", counted)
     monkeypatch.setattr(tbatch.BatchDecoder, "_celt_imdct_bucket", watched)
     tdec = BatchDecoder(streams, device="cpu")
     got = tdec.decode_all(output=output)
@@ -308,7 +308,8 @@ def test_kernel_error_is_not_demoted(monkeypatch):
     def fail(*args, **kwargs):
         raise KernelError("celt_ola kernel launch failed: CUDA error 700")
 
-    monkeypatch.setattr(celt_dsp, "celt_ola", fail)
+    monkeypatch.setattr(celt_dsp, "celt_ola", fail)   # K12a, long blocks
+    monkeypatch.setattr(celt_dsp, "imdct_ola_short", fail)   # short blocks
     dec = BatchDecoder([_celt(), _master(0, 5)], device="cpu")
     with pytest.raises(KernelError, match="CUDA error 700"):
         dec.decode_all()

@@ -336,7 +336,8 @@ def test_k12a_kernel_error_is_not_demoted(group, monkeypatch):
     def fail(*args, **kwargs):
         raise KernelError("celt_ola kernel launch failed: CUDA error 700")
 
-    monkeypatch.setattr(celt_dsp, "celt_ola", fail)
+    monkeypatch.setattr(celt_dsp, "celt_ola", fail)   # K12a, long blocks
+    monkeypatch.setattr(celt_dsp, "imdct_ola_short", fail)   # short blocks
     streams = ([_speech("hybrid", 0, 8)] if group == "hybrid"
                else _tour_lanes(16))
     dec = BatchDecoder(streams + [_silk_packets()], device="cpu")

@@ -55,7 +55,7 @@ def test_twin_equals_jax_poly_conv(bw, G, rows):
     want = np.asarray(jrs._poly_conv_rows(x, h, G=G))
     twin = trs.silk_upsample_torch(torch.from_numpy(x), torch.from_numpy(h),
                                    G).numpy()
-    got = trs.silk_upsample(torch.from_numpy(x), torch.from_numpy(h),
+    got = trs.silk_upsample(torch.from_numpy(x), trs.pack_taps(h),
                             G).numpy()
     assert want.shape == (rows, G * h.shape[0]) and twin.dtype == np.float32
     np.testing.assert_array_equal(twin, want)
@@ -89,13 +89,24 @@ def test_batched_upsampler_equals_jax(bw, feed):
     """Five steps of ragged native blocks (a short first block, as a 10 ms
     step, then 20 ms ones) through the port's and JAX's batched
     upsamplers, a row flushed mid-batch, then two more steps: every step's
-    output and the flushed tail are JAX's bits, and so is the state."""
+    output and the flushed tail are JAX's bits, and so is the state.  The
+    taps K13 takes by value (``pack_taps`` of the reversed taps, which the
+    upsampler keeps on the host) are JAX's taps, reversed, as f32: entry
+    p·96 + k is h[p, 95 - k]."""
     rows = 6
     rate = [8, 12, 16][bw]
     rng = np.random.default_rng([bw, feed])
     t = trs.BatchedFittedUpsampler(bw, rows, feed=feed, device="cpu")
     j = jrs.BatchedFittedUpsampler(bw, rows, feed=feed)
     assert (t.den, t.L, t.A) == (j.den, j.L, j.A)
+    packed = t._taps
+    assert packed.dtype == np.float32 and packed.shape == (t.den, TAPS)
+    assert packed.flags.c_contiguous
+    np.testing.assert_array_equal(packed, _taps(bw))
+    np.testing.assert_array_equal(trs.pack_taps(_taps(bw)), packed)
+    p, k = np.divmod(np.arange(t.den * TAPS), TAPS)
+    np.testing.assert_array_equal(packed.reshape(-1), np.asarray(
+        j.h, np.float64)[p, TAPS - 1 - k].astype(np.float32))
     for step in range(7):
         T = rate * (10 if step == 0 else 20)
         x = (rng.standard_normal((rows, T)) * 2000).astype(np.float32)
@@ -130,17 +141,23 @@ def test_flush_row_equals_the_streaming_upsampler():
 
 
 def test_wrapper_rejects_what_it_cannot_take():
-    """A tensor on no CPU and no CUDA device, a tap count other than 96,
-    too many phases or rows too short raise KernelArgError (a
+    """A tensor on no CPU and no CUDA device, taps that are not a
+    contiguous float32 host array, a tap count other than 96, a phase
+    count other than 6, 4 or 3, or rows too short raise KernelArgError (a
     ValueError)."""
     meta = torch.empty((2, 415), device="meta")
-    h = torch.empty((3, TAPS), device="meta")
+    h = np.zeros((3, TAPS), np.float32)
     with pytest.raises(_kernels.KernelArgError, match="CUDA"):
         trs.silk_upsample(meta, h, 320)
     out = torch.empty((2, 960), device="meta")
     for x, hh, G, msg in (
-            (meta, torch.empty((3, 95), device="meta"), 320, "96 taps"),
-            (meta, torch.empty((7, TAPS), device="meta"), 320, "den <= 6"),
+            (meta, np.zeros((3, 95), np.float32), 320, "96 taps"),
+            (meta, np.zeros((7, TAPS), np.float32), 320, "den in"),
+            (meta, np.zeros((5, TAPS), np.float32), 320, "den in"),
+            (meta, np.zeros((3, TAPS)), 320, "float32 host array"),
+            (meta, np.zeros((TAPS, 3), np.float32).T, 320,
+             "float32 host array"),
+            (meta, torch.zeros((3, TAPS)), 320, "float32 host array"),
             (meta, h, 321, "W >= G"),
             (meta[0], h, 320, r"\[rows, W\]")):
         with pytest.raises(_kernels.KernelArgError, match=msg):
