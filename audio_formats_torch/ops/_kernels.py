@@ -35,6 +35,7 @@ EXTRA_FLAGS = {"pcm": ("-fmad=false",), "celt_ola": ("-fmad=false",),
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signatures of every kernel library's entries: ((name, argtypes), ...)
 _ENTRIES = {
     "flac_lpc": (("af_flac_lpc", [_V, _V, _V, _V, _V, _V, _V, _I, _I, _V]),
@@ -56,7 +57,7 @@ _ENTRIES = {
     "celt_ola": (("af_celt_ola", [_V, _V, _V, _I, _I, _I, _V]),
                  ("af_celt_imdct_ola", [_V, _V, _V, _V, _V, _I, _I,
                                         ctypes.c_float, _V])),
-    "celt_deemph": (("af_celt_deemph", [_V, _V, _V, _V, _I, _I,
+    "celt_deemph": (("af_celt_deemph", [_V, _L, _V, _V, _L, _V, _I, _I,
                                         ctypes.c_float, _V]),),
     "silk_upsample": (("af_silk_upsample", [_V, _V, _V, _I, _I, _I, _I,
                                             _V]),),
@@ -121,11 +122,13 @@ def build(name: str) -> str:
     return so
 
 
-def check_args(fn: str, dev, want) -> None:
+def check_args(fn: str, dev, want, rows=()) -> None:
     """Raise KernelArgError (a ValueError) unless every (name, tensor,
     dtypes, shape) in `want` lies contiguous on the CUDA device `dev` with
-    one of the dtypes and the shape: what a kernel's wrapper checks before
-    it passes pointers.  A tensor's device is read as (is_cuda,
+    one of the dtypes and the shape (a tensor named in `rows` in any
+    layout: one its kernel takes by row stride, whose rows the wrapper
+    checks itself): what a kernel's wrapper checks before it passes
+    pointers.  A tensor's device is read as (is_cuda,
     get_device()), cheaper than building its torch.device; the message is
     made only for a tensor that fails."""
     if dev.type != "cuda":
@@ -133,7 +136,8 @@ def check_args(fn: str, dev, want) -> None:
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     for name, t, dtypes, shape in want:
         if not (t.is_cuda and t.get_device() == idx and t.dtype in dtypes
-                and t.size() == shape and t.is_contiguous()):
+                and t.size() == shape and (t.is_contiguous()
+                                           or name in rows)):
             if not (t.is_cuda and t.get_device() == idx):
                 raise KernelArgError(f"{fn}: {name} on {t.device}, want "
                                      f"{dev} (a CUDA device)")

@@ -62,6 +62,8 @@ DEEMPH_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 HALF = OVERLAP // 2
+#: DEEMPH_COEFF rounded to f32, as K12b takes it
+_DEEMPH_C = float(np.float32(DEEMPH_COEFF))
 #: the CELT window, f32 [OVERLAP]
 WINDOW_F32 = CT.WINDOW.astype(np.float32)
 #: the short blocks of ``imdct_ola_short``: 1, 2, 4 or 8 of OVERLAP
@@ -323,31 +325,54 @@ def deemphasis_scan_torch(x: torch.Tensor, m0: torch.Tensor):
 def deemphasis_scan(x: torch.Tensor, m0: torch.Tensor):
     """The deemphasis of ``deemphasis_scan_torch``: K12b on a CUDA device
     (it raises where the kernel does not build or launch), the twin on the
-    CPU."""
+    CPU.  x may be a column slice of a wider buffer (rows by stride, as
+    ``deemphasis_launch`` takes them); y comes back contiguous."""
     if x.device.type == "cpu":
         return deemphasis_scan_torch(x, m0)
-    out = (torch.empty_like(x), torch.empty_like(m0))
+    out = (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+           torch.empty_like(m0))
     deemphasis_launch(x, m0, out)
     return out
 
 
+def _refuse_rows(x, y) -> None:
+    """Raise KernelArgError for the row layout ``deemphasis_launch``
+    refuses: samples not side by side in a row of x or y, or rows of y
+    that overlap."""
+    for name, t in (("x", x), ("y", y)):
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise _kernels.KernelArgError(
+                f"celt_deemph: {name} has element stride {t.stride(1)}, "
+                "want its rows contiguous")
+    raise _kernels.KernelArgError(f"celt_deemph: y's rows overlap (row "
+                                  f"stride {y.stride(0)} < {y.shape[1]})")
+
+
 def deemphasis_launch(x, m0, out) -> None:
-    """K12b into made outputs out = (y [B, n], m [B]), on x's CUDA
-    device."""
+    """K12b into made outputs out = (y [B, n], m [B]), on x's CUDA device.
+    x and y are taken by rows: each row's samples contiguous, the rows at
+    any stride (y's far enough apart not to overlap), so that x can be
+    ``celt_imdct_ola``'s output, a column slice of its packed buffer."""
     global DEEMPH_LAUNCHES
     dev = x.device
+    y, m = out
     if x.dim() != 2:
         raise _kernels.KernelArgError(f"celt_deemph: x has shape "
                                       f"{list(x.shape)}, want [B, n]")
     B, n = x.shape
+    # the rows K12b takes (check_args leaves x's and y's layout to this)
+    if n and y.shape == x.shape and not (
+            (n == 1 or x.stride(1) == y.stride(1) == 1)
+            and (B < 2 or y.stride(0) >= n)):
+        _refuse_rows(x, y)
     f32 = (torch.float32,)
     _kernels.check_args("celt_deemph", dev, (
         ("x", x, f32, (B, n)), ("m0", m0, f32, (B,)),
-        ("y", out[0], f32, (B, n)), ("m", out[1], f32, (B,))))
+        ("y", y, f32, (B, n)), ("m", m, f32, (B,))), rows=("x", "y"))
     if B == 0:
         return
     _run(dev, _kernels.load("celt_deemph").af_celt_deemph, "celt_deemph",
-         (x.data_ptr(), m0.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-          B, n, float(np.float32(DEEMPH_COEFF))))
+         (x.data_ptr(), x.stride(0), m0.data_ptr(), y.data_ptr(),
+          y.stride(0), m.data_ptr(), B, n, _DEEMPH_C))
     with _launch_lock:
         DEEMPH_LAUNCHES += 1

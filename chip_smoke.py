@@ -130,8 +130,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    K12a is; K12b at
    [512, 960] and [4,096, 960] within 1e-6 of its twin, alone and chained
    after the IMDCT and K12a over 12 frames with the memory carried (the
-   JAX bench's CELT chain); and the mixed group's host and device CELT
-   answers at 8, 16 and 32 lanes, in turns.
+   JAX bench's CELT chain; K12b reads K12a's packed buffer by row stride,
+   and one frame's device work runs no copy between K12a and K12b); and
+   the mixed group's host and device CELT answers at 8, 16 and 32 lanes,
+   in turns.
 
 Prints a JSON line with the kernels' launches, errors, times and bounds,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -140,7 +142,7 @@ before the result.
 
     python3 chip_smoke.py --ab DIR [mp3_huff flac_lpc qoa_encode qoa_decode
                                     flac_rice vorbis_win silk_upsample
-                                    celt_ola]
+                                    celt_ola celt_deemph]
     python3 chip_smoke.py --divergence                            # CPU
     python3 chip_smoke.py --sass [DIR ...]          # nvcc and cuobjdump
     python3 chip_smoke.py --wires                   # the card
@@ -165,14 +167,16 @@ to this tree's K4 at the FLAC Rice slice's first dispatch and times it
 there alone and as one warp, in turns; it prints no result line.
 
 ``--ab`` (on the card) times the Huffman, LPC, QOA encode, QOA decode,
-frame-entropy, Vorbis window, SILK upsample and CELT IMDCT and
-overlap-add kernels of this tree (or those named) against those built
-from DIR/audio_formats_torch/csrc (an earlier commit's sources, e.g. from
-``git archive``), parent / change / change / parent in one process, each
-pair first held equal (K13 bit for bit at the SILK slice's first step
-and at 4,096 rows for den 6, 4, 3; K12a, against the parent's IMDCT
-matmul and K12a, within 1e-6 of the peak at the Opus slice's first
-bucket of each route and at both large shapes), and the MP3, FLAC, QOA
+frame-entropy, Vorbis window, SILK upsample, CELT IMDCT and
+overlap-add and CELT deemphasis kernels of this tree (or those named)
+against those built from DIR/audio_formats_torch/csrc (an earlier
+commit's sources, e.g. from ``git archive``), parent / change / change /
+parent in one process, each pair first held equal (K13 bit for bit at
+the SILK slice's first step and at 4,096 rows for den 6, 4, 3; K12a,
+against the parent's IMDCT matmul and K12a, within 1e-6 of the peak at
+the Opus slice's first bucket of each route and at both large shapes;
+K12b, each side within 1e-6 of the peak of the twin at both
+DEEMPH_SHAPES, by device time), and the MP3, FLAC, QOA
 encode, QOA decode, FLAC Rice and Vorbis slices with either side's
 kernel; where DIR holds the earlier
 commit's whole tree, its own K3 phase and MP3 slice (its wire and bytes to
@@ -190,8 +194,9 @@ pipe with its dependent chain from one sample to the next and the tile
 loop's instructions outside it, of K4's sample loop: its shortest and
 longest paths that decode, by pipe, with their dependent chains and the
 loads on them, of one sample of K10's dithered s24 quantize, of K11's
-PCM row loop a 16-byte vector, and K13's FFMAs with the shared loads and
-constant-bank operands that feed them.
+PCM row loop a 16-byte vector, K13's FFMAs with the shared loads and
+constant-bank operands that feed them, and K12b's loops that read x:
+their instructions a sample and their global loads and stores by width.
 """
 
 import json
@@ -640,12 +645,18 @@ def time_host(fn, reps=20):
     return t
 
 
-def device_ms(fn, kernel, reps=20):
-    """The card's own time, in ms a call, that `reps` calls of `fn` spend
-    in kernels whose name holds `kernel`: torch.profiler's CUPTI trace of
-    those calls.  None where the trace shows no device time for it."""
+# Late in a long run (after the Opus speech slices) a trace can miss the
+# card's records of some launches: of the port's kernels from 2 of 20 to
+# all of them, at random, of torch's own kernels in the same trace fewer.
+# ``device_ms(..., per_launch=True)`` and ``deemph_chain`` read what a
+# trace holds and trace again where it holds too little.
+TRACE_TRIES = 3
+
+
+def traced(fn, reps):
+    """torch.profiler's CUPTI trace of `reps` calls of `fn` (one call
+    before it, untraced)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -654,12 +665,48 @@ def device_ms(fn, kernel, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
-            t = getattr(evt, "self_device_time_total", None)
-            us += evt.self_cuda_time_total if t is None else t
-    return us / reps / 1e3 if us > 0 else None
+    return prof
+
+
+def device_ms(fn, kernel, reps=20, per_launch=False):
+    """The card's own time, in ms a call, that `reps` calls of `fn` spend
+    in kernels whose name holds `kernel`: torch.profiler's CUPTI trace of
+    those calls (``traced``).  With `per_launch` (for an `fn` that
+    launches such a kernel once), the mean of the launches the trace
+    holds, which a record missing from the trace does not lower, traced
+    again (TRACE_TRIES in all) while it holds fewer than half of them.
+    None where the trace shows no device time for it."""
+    from torch.autograd import DeviceType
+
+    for _ in range(TRACE_TRIES if per_launch else 1):
+        us, count = 0.0, 0
+        for evt in traced(fn, reps).key_averages():
+            if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+                t = getattr(evt, "self_device_time_total", None)
+                us += evt.self_cuda_time_total if t is None else t
+                count += evt.count
+        if 2 * count >= reps:
+            break
+    return us / (count if per_launch else reps) / 1e3 if us > 0 else None
+
+
+_FLUSH = []
+
+
+def l2_flush():
+    """Read a 128 MB buffer on the card (more than its 50 MB L2), so that
+    what the next kernel reads comes from device memory."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.ones(1 << 25, device="cuda"))
+    _FLUSH[0].sum()
+
+
+def cold_device_ms(fn, kernel, reps=20, per_launch=False):
+    """``device_ms`` of `fn` with the L2 flushed (``l2_flush``, a kernel of
+    another name) before each call."""
+    return device_ms(lambda: (l2_flush(), fn()), kernel, reps, per_launch)
 
 
 # The least time the card could take for a kernel's work: the larger of its
@@ -2621,16 +2668,9 @@ def kernel_names(fn, reps=10):
     """The names of the kernels one call of `fn` runs on the card, each as
     often as it runs: torch.profiler's device events of `reps` calls (as
     ``device_ms`` reads them), their counts over `reps`."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = traced(fn, reps)
     return [evt.key for evt in prof.key_averages()
             if evt.device_type == DeviceType.CUDA
             for _ in range(round(evt.count / reps))]
@@ -3118,35 +3158,58 @@ def time_deemph(card, B, n, rng):
     ms = time_cuda(lambda: celt_dsp.deemphasis_scan(x, m0), 50)
     kernel_ms = time_cuda(lambda: celt_dsp.deemphasis_launch(
         x, m0, (y, m)), 50)
-    dev_ms = device_ms(lambda: celt_dsp.deemphasis_launch(x, m0, (y, m)),
-                       "celt_deemph")
+
+    def alone():
+        celt_dsp.deemphasis_launch(x, m0, (y, m))
+
+    dev_ms = device_ms(alone, "celt_deemph", per_launch=True)
+    cold_ms = cold_device_ms(alone, "celt_deemph", per_launch=True)
     host_ms = time_host(lambda: celt_dsp.deemphasis_scan(x, m0))
     b = bound(deemph_work(B, n), 0, 2 * B * n)
-    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+
+    def shares(t):
+        return ("not measured" if t is None else
+                f"{t:.4f} ms, share {b['bound_ms'] / t:.3f}")
+
     print(f"# kernel celt_deemph, [{B}, {n}] random x (amplitude 8000) and "
           f"m0: {err:.3g} of the peak from its twin ({equal:.3f} of samples "
           f"bit-equal); wrapper {ms:.4f} ms (its host enqueue {host_ms:.4f} "
           f"ms), kernel alone {kernel_ms:.4f} ms, device time "
-          f"(torch.profiler) {dev_txt}, twin {plain_ms:.3f} ms; bound_ms "
+          f"(torch.profiler) {shares(dev_ms)} (x still in L2 from the last "
+          f"launch), with the L2 flushed before each launch "
+          f"{shares(cold_ms)}; twin {plain_ms:.3f} ms; bound_ms "
           f"{b['bound_ms']:.5f} ({b['bound_by']}), share "
-          f"{b['bound_ms'] / ms:.3f} through the wrapper, "
-          + ("not measured" if dev_ms is None
-             else f"{b['bound_ms'] / dev_ms:.3f}")
-          + f" of its device time [{card}]")
+          f"{b['bound_ms'] / ms:.3f} through the wrapper [{card}]")
     return {"max_abs_err": err * float(wy.abs().max()), "rel_err": err,
             "ms": ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
-            "host_ms": host_ms, "plain_ms": plain_ms, **b,
-            "library_ms": None, "share": b["bound_ms"] / ms}
+            "cold_device_ms": cold_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, **b, "library_ms": None,
+            "share": b["bound_ms"] / ms}
+
+
+def kernel_sequence(fn, reps=5):
+    """The names of the kernels and device copies that `reps` calls of
+    `fn` run on the card, in the order they started: torch.profiler's
+    device events of those calls (``traced``)."""
+    from torch.autograd import DeviceType
+
+    evts = [e for e in traced(fn, reps).events()
+            if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(evts, key=lambda e: e.time_range.start)]
 
 
 def deemph_chain(card, rows, rng):
     """The JAX bench's device CELT synthesis (bench.py:800-810): for
     DEEMPH_FRAMES frames of random long-block spectra, celt_imdct_ola (the
     IMDCT matmul into the packed buffer, then K12a in place) and
-    deemphasis_scan (K12b), the tail and the memory m carried from frame
-    to frame (each copied out of the packed buffer), counted from 0 just
-    before the run; then the same chain with the twins, held within
-    DEEMPH_TOL of the peak.  Returns (K12b's launches in the kernel chain, ms a frame)."""
+    deemphasis_scan (K12b, which reads the output columns of the packed
+    buffer by row stride), the tail and the memory m carried from frame to
+    frame (the tail copied out of the packed buffer after K12b), counted
+    from 0 just before the run; then the same chain with the twins, held
+    within DEEMPH_TOL of the peak.  One frame's kernels, in order, must
+    run K12b right after K12a, with no copy between.  Returns (K12b's
+    launches in the kernel chain, ms a frame (the median of five chains),
+    that frame's kernels, the card's work a frame by torch.profiler)."""
     import torch
     from audio_formats_torch.ops import celt_dsp
 
@@ -3155,26 +3218,49 @@ def deemph_chain(card, rows, rng):
     tail0 = torch.zeros((rows, 60), device="cuda")
     m0 = torch.zeros(rows, device="cuda")
 
+    def frame(imdct_ola, deemph, k, tail, m):
+        # raw and the new tail are column slices of one packed buffer:
+        # K12b takes raw's rows by stride, K12a a contiguous tail
+        raw, tail = imdct_ola(X[k], tail, 1, 960)
+        y, m = deemph(raw, m)
+        return y, tail.contiguous(), m
+
     def chain(imdct_ola, deemph):
-        # raw and the new tail are views of one packed buffer: K12b and
-        # K12a take contiguous rows
         tail, m, ys = tail0, m0, []
         for k in range(DEEMPH_FRAMES):
-            raw, tail = imdct_ola(X[k], tail, 1, 960)
-            y, m = deemph(raw.contiguous(), m)
-            tail = tail.contiguous()
+            y, tail, m = frame(imdct_ola, deemph, k, tail, m)
             ys.append(y)
         return torch.stack(ys), m
 
+    # frames in a row, each from a K12a to the next: in every frame whose
+    # K12b the trace holds (TRACE_TRIES traces until one holds a frame),
+    # K12b must be the kernel right after K12a
+    for _ in range(TRACE_TRIES):
+        seq = kernel_sequence(lambda: frame(
+            celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan, 0, tail0,
+            m0))
+        at = [i for i, name in enumerate(seq) if "celt_ola_kernel" in name]
+        frames = [seq[a:b] for a, b in zip(at, at[1:])
+                  if any("celt_deemph" in name for name in seq[a:b])]
+        if frames:
+            break
+    if not frames or any("celt_deemph" not in f[1] for f in frames):
+        raise AssertionError(f"chain frames at {rows} rows do not run K12b "
+                             f"right after K12a: {seq}")
+    seq = frames[0]
     chain(celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan)
     torch.cuda.synchronize()
     celt_dsp.DEEMPH_LAUNCHES = 0
     celt_dsp.OLA_LAUNCHES = 0
-    got = []
-    ms = time_cuda(lambda: got.append(chain(
-        celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan)), 1)
+    got = [chain(celt_dsp.celt_imdct_ola, celt_dsp.deemphasis_scan)]
     launches = celt_dsp.DEEMPH_LAUNCHES
     ola = celt_dsp.OLA_LAUNCHES
+    runs = [time_cuda(lambda: chain(celt_dsp.celt_imdct_ola,
+                                    celt_dsp.deemphasis_scan), 1)
+            for _ in range(5)]
+    ms = float(np.median(runs))
+    dev = device_ms(lambda: chain(celt_dsp.celt_imdct_ola,
+                                  celt_dsp.deemphasis_scan), "", 3)
     want = []
     plain_ms = time_cuda(lambda: want.append(chain(
         celt_dsp.celt_imdct_ola_torch, celt_dsp.deemphasis_scan_torch)), 1)
@@ -3189,10 +3275,19 @@ def deemph_chain(card, rows, rng):
     print(f"# CELT synthesis chain (bench.py:800-810), {rows} rows x "
           f"{DEEMPH_FRAMES} frames of 960 (random spectra): IMDCT matmul, "
           f"K12a and K12b a frame, tail and m carried; {err:.3g} of the peak "
-          f"from the twins' chain; {ms / DEEMPH_FRAMES:.4f} ms a frame, the "
-          f"twins' chain {plain_ms / DEEMPH_FRAMES:.3f} ms a frame; K12b "
-          f"launches {launches}, K12a {ola} [{card}]")
-    return launches, ms / DEEMPH_FRAMES
+          f"from the twins' chain; {ms / DEEMPH_FRAMES:.4f} ms a frame (the "
+          f"median of five chains: "
+          f"{[round(r / DEEMPH_FRAMES, 4) for r in runs]}), the card's "
+          f"work (torch.profiler, every kernel and copy of three chains) "
+          + ("not measured" if dev is None
+             else f"{dev / DEEMPH_FRAMES:.4f} ms a frame")
+          + f", the twins' chain {plain_ms / DEEMPH_FRAMES:.3f} ms a frame; "
+          f"K12b launches {launches}, K12a {ola}; a frame's device work "
+          f"in order from K12a "
+          f"{[name[:40] for name in seq]}, no copy between K12a and K12b "
+          f"[{card}]")
+    return (launches, ms / DEEMPH_FRAMES, seq,
+            None if dev is None else dev / DEEMPH_FRAMES)
 
 
 def phase_deemph_kernel(card):
@@ -3208,10 +3303,12 @@ def phase_deemph_kernel(card):
             res = r
         else:
             res.setdefault("large", {})[f"{B}x{n}"] = {k: r[k] for k in (
-                "ms", "kernel_ms", "device_ms", "bound_ms", "plain_ms",
-                "rel_err")}
+                "ms", "kernel_ms", "device_ms", "cold_device_ms", "bound_ms",
+                "plain_ms", "rel_err")}
         chains[B] = deemph_chain(card, B, rng)
     res["chain_ms_a_frame"] = {str(B): c[1] for B, c in chains.items()}
+    res["chain_device_ms_a_frame"] = {str(B): c[3]
+                                      for B, c in chains.items()}
     return res, chains[DEEMPH_SHAPES[0][0]][0]
 
 
@@ -3979,9 +4076,42 @@ def k13_sass(funcs):
     return out
 
 
+def k12b_sass(funcs):
+    """K12b's loops that read x (celt_deemph_kernel's outermost loops
+    that hold a global load): for each, its instructions (static, nested
+    loops included), the samples a thread steps a trip (4 a 16-byte load
+    where the loop has them: the tile's vector path; else one a 4-byte
+    load) and its global loads and stores by width.  Returns
+    [(instructions, samples, {"LDG128": count, ...})]."""
+    import collections
+    import re
+
+    body = next(v for k, v in funcs.items() if "celt_deemph_kernel" in k)
+    at = {a: k for k, (a, _) in enumerate(body)}
+    loops = []
+    for k, (a, i) in enumerate(body):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)",
+                      re.sub(r"^@!?U?P\w+\s+", "", i))
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], k))
+    out = []
+    for lo, hi in sorted(loops):
+        if any(o != (lo, hi) and o[0] <= lo and hi <= o[1] for o in loops):
+            continue
+        ops = [_opcode(body[k][1]) for k in range(lo, hi + 1)]
+        mem = collections.Counter(
+            o.split(".")[0] + ("128" if ".128" in o else "64" if ".64" in o
+                               else "32")
+            for o in ops if o.startswith(("LDG", "STG")))
+        if any(k.startswith("LDG") for k in mem):
+            samples = 4 * mem["LDG128"] or mem["LDG32"] + 2 * mem["LDG64"]
+            out.append((len(ops), samples, dict(mem)))
+    return out
+
+
 def print_sass(trees):
-    """--sass [DIR ...]: K5's, K2's, K4's, K10's, K11's and K13's SASS
-    counts, this tree's and each DIR's."""
+    """--sass [DIR ...]: K5's, K2's, K4's, K10's, K11's, K13's and K12b's
+    SASS counts, this tree's and each DIR's."""
     for tree in (ROOT, *trees):
         funcs = kernel_sass(tree)
         per_step, ops = k5_sass(funcs)
@@ -4029,16 +4159,32 @@ def print_sass(trees):
                       f"ULDC, {lds} shared loads: {lds / max(ffma, 1):.3f} "
                       f"shared loads and {const / max(ffma, 1):.3f} "
                       f"constant taps an FFMA")
+        if os.path.exists(os.path.join(tree, "audio_formats_torch", "csrc",
+                                       "celt_deemph.cu")):
+            for ins, samples, mem in k12b_sass(kernel_sass(tree,
+                                                           "celt_deemph")):
+                w = "128" if mem.get("LDG128") else "32"
+                vecs = samples / 4
+                print(f"# K12b SASS, {tree}: a loop that reads x, {ins} "
+                      f"instructions (static: nested loops and the ragged "
+                      f"path's code included) for {samples} samples a "
+                      f"thread a trip = {ins / max(samples, 1):.2f} a "
+                      f"sample; global loads and stores {mem}: on its "
+                      f"{w}-bit path {mem.get('LDG' + w, 0) / vecs:.2f} "
+                      f"loads and {mem.get('STG' + w, 0) / vecs:.2f} stores "
+                      f"per 16 bytes")
 
 
 AB_KERNELS = ("mp3_huff", "flac_lpc", "qoa_encode", "qoa_decode",
-              "flac_rice", "vorbis_win", "silk_upsample", "celt_ola")
+              "flac_rice", "vorbis_win", "silk_upsample", "celt_ola",
+              "celt_deemph")
 
 
 def ab_compare(parent, names=AB_KERNELS):
-    """--ab PARENT [NAME ...]: K3, K1, K5, K2, K4, K11, K13 and K12a of this
-    tree (or those NAMEd; K13 and K12a in ``ab_silk_upsample`` and
-    ``ab_celt_ola``) against the kernels built from
+    """--ab PARENT [NAME ...]: K3, K1, K5, K2, K4, K11, K13, K12a and K12b
+    of this tree (or those NAMEd; K13, K12a and K12b in
+    ``ab_silk_upsample``, ``ab_celt_ola`` and ``ab_celt_deemph``) against
+    the kernels built from
     PARENT/audio_formats_torch/csrc (an earlier commit's sources, called
     through the C entries and wrappers they had then), in one process on
     one card, in turns parent / change / change / parent: K3's wrapper and
@@ -4087,11 +4233,14 @@ def ab_compare(parent, names=AB_KERNELS):
                                  [V, I, V, V, V, V, I, I, I] + [V] * 6),
                    "silk_upsample": ("af_silk_upsample", [V] * 3 + [I] * 4
                                      + [V]),
-                   "celt_ola": ("af_celt_ola", [V] * 5 + [I] * 3 + [V])}
+                   "celt_ola": ("af_celt_ola", [V] * 5 + [I] * 3 + [V]),
+                   "celt_deemph": ("af_celt_deemph", [V] * 4 + [
+                       I, I, ctypes.c_float, V])}
     sources = {"flac_lpc": "flac_lpc", "mp3_huff": "mp3_huff",
                "qoa_encode": "qoa_lms", "qoa_decode": "qoa_lms",
                "flac_rice": "flac_rice", "vorbis_win": "vorbis_win",
-               "silk_upsample": "silk_upsample", "celt_ola": "celt_ola"}
+               "silk_upsample": "silk_upsample", "celt_ola": "celt_ola",
+               "celt_deemph": "celt_deemph"}
 
     def build_parent(name):
         src = os.path.join(parent, "audio_formats_torch", "csrc",
@@ -4341,6 +4490,8 @@ def ab_compare(parent, names=AB_KERNELS):
         ab_silk_upsample(olds["silk_upsample"], card, turns, stream)
     if "celt_ola" in names:
         ab_celt_ola(olds["celt_ola"], card, turns, stream)
+    if "celt_deemph" in names:
+        ab_celt_deemph(olds["celt_deemph"], card, turns, stream, parent)
 
     if "flac_lpc" in names or "flac_rice" in names:
         streams, pcms = build_corpus()
@@ -4646,6 +4797,111 @@ def ab_celt_ola(old_fn, card, turns, stream):
               f"kernel of a call), {label}: parent, change, change, parent: "
               + ", ".join("not measured" if v is None else f"{v:.4f} ms"
                           for v in d) + f" [{card}]")
+
+
+def ab_celt_deemph(old_fn, card, turns, stream, parent):
+    """--ab for K12b: the parent's kernel against this tree's at
+    DEEMPH_SHAPES from random x and m0 (amplitude 8000), each through its
+    own tree's wrappers where PARENT holds the whole earlier tree (else
+    the parent's C entry, contiguous rows, called bare): each side within
+    DEEMPH_TOL of the peak of the twin (the two need not be bit-equal:
+    their scans round the entry carries each their own way), then the
+    wrapper, the launch alone and the device time, warm and with the L2
+    flushed before each launch, in turns.  Then the CELT synthesis chain
+    of ``deemph_chain`` at each row count with either side's K12b (the
+    parent's on a contiguous copy of K12a's output columns, as its chain
+    ran), each within DEEMPH_TOL of the peak of the twins' chain: its
+    wall and the card's work (every kernel and copy), in turns."""
+    import torch
+    from audio_formats_torch.ops import _kernels, celt_dsp
+
+    c = float(np.float32(celt_dsp.DEEMPH_COEFF))
+    pkg = parent_package(parent)
+    rng = np.random.default_rng(15)
+
+    def old(x, m0, out=None):
+        if pkg is not None:
+            if out is None:
+                return pkg.ops.celt_dsp.deemphasis_scan(x, m0)
+            return pkg.ops.celt_dsp.deemphasis_launch(x, m0, out)
+        out = out or (torch.empty_like(x), torch.empty_like(m0))
+        _kernels.check_launch("old celt_deemph", old_fn(
+            x.data_ptr(), m0.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), x.shape[0], x.shape[1], c, stream()))
+        return out
+
+    for B, n in DEEMPH_SHAPES:
+        x = torch.from_numpy(rng.uniform(-8000, 8000, (B, n)).astype(
+            np.float32)).cuda()
+        m0 = torch.from_numpy(rng.uniform(-8000, 8000, B).astype(
+            np.float32)).cuda()
+        got = {"parent": old(x, m0),
+               "change": celt_dsp.deemphasis_scan(x, m0)}
+        wy, wm = celt_dsp.deemphasis_scan_torch(x, m0)
+        torch.cuda.synchronize()
+        errs = {who: max(float((y - wy).abs().max()) / float(wy.abs().max()),
+                         float((m - wm).abs().max()) / float(wm.abs().max()))
+                for who, (y, m) in got.items()}
+        if not all(e <= DEEMPH_TOL for e in errs.values()):
+            raise AssertionError(f"K12b at [{B}, {n}]: of the peak from the "
+                                 f"twin {errs}")
+        label = f"[{B}, {n}]"
+        print(f"# ab celt_deemph, {label}: of the peak from the twin, parent "
+              f"{errs['parent']:.3g}, change {errs['change']:.3g}; the "
+              f"parent through "
+              + ("its own wrappers" if pkg is not None
+                 else "its C entry, called bare") + f" [{card}]")
+        turns(f"celt_deemph wrapper, {label}", lambda: old(x, m0),
+              lambda: celt_dsp.deemphasis_scan(x, m0))
+        alone = (lambda: old(x, m0, got["parent"]),
+                 lambda: celt_dsp.deemphasis_launch(x, m0, got["change"]))
+        turns(f"celt_deemph kernel alone, {label}", *alone)
+        for how, timer in (("", device_ms),
+                           (", the L2 flushed before each launch",
+                            cold_device_ms)):
+            d = [timer(fn, "celt_deemph", per_launch=True)
+                 for fn in alone + alone[::-1]]
+            print(f"# ab celt_deemph device time (torch.profiler){how}, "
+                  f"{label}: parent, change, change, parent: "
+                  + ", ".join("not measured" if v is None else f"{v:.4f} ms"
+                              for v in d) + f" [{card}]")
+
+    for rows in sorted({B for B, _ in DEEMPH_SHAPES}):
+        X = torch.from_numpy((rng.standard_normal((DEEMPH_FRAMES, rows, 960))
+                              * 400).astype(np.float32)).cuda()
+        zeros = torch.zeros((rows, 60), device="cuda")
+
+        def chain(imdct_ola, deemph):
+            tail, m, ys = zeros, zeros[:, 0].contiguous(), []
+            for k in range(DEEMPH_FRAMES):
+                raw, tail = imdct_ola(X[k], tail, 1, 960)
+                y, m = deemph(raw, m)
+                tail = tail.contiguous()
+                ys.append(y)
+            return torch.stack(ys), m
+
+        sides = (lambda: chain(celt_dsp.celt_imdct_ola,
+                               lambda r, m: old(r.contiguous(), m)),
+                 lambda: chain(celt_dsp.celt_imdct_ola,
+                               celt_dsp.deemphasis_scan))
+        wy, wm = chain(celt_dsp.celt_imdct_ola_torch,
+                       celt_dsp.deemphasis_scan_torch)
+        for who, fn in zip(("parent", "change"), sides):
+            gy, gm = fn()
+            err = max(float((gy - wy).abs().max()) / float(wy.abs().max()),
+                      float((gm - wm).abs().max()) / float(wm.abs().max()))
+            if not err <= DEEMPH_TOL:
+                raise AssertionError(f"the {who}'s chain at {rows} rows: "
+                                     f"{err:.3g} of the peak from the twins'")
+        label = f"CELT synthesis chain, {rows} rows x {DEEMPH_FRAMES} frames"
+        turns(label + " (wall a chain)", *sides, reps=5)
+        d = [device_ms(fn, "", 3) for fn in sides + sides[::-1]]
+        print(f"# ab celt_deemph {label}, the card's work a frame "
+              f"(torch.profiler, every kernel and copy): parent, change, "
+              "change, parent: "
+              + ", ".join("not measured" if v is None
+                          else f"{v / DEEMPH_FRAMES:.4f} ms" for v in d)
+              + f" [{card}]")
 
 
 def parent_package(parent):

@@ -178,6 +178,113 @@ def test_deemphasis_twin_is_the_recurrence():
     assert m[0].item() == v
 
 
+@pytest.mark.parametrize("width,start", [(1020, 0), (1021, 1)])
+def test_deemphasis_takes_rows_by_stride(width, start):
+    """On the CPU, deemphasis_scan of a [:, start:start + 960] view of a
+    [B, width] buffer (K12a's packed output, and a view off the 16-byte
+    boundary) equals it on the view made contiguous, bit for bit."""
+    rng = np.random.default_rng([width, start])
+    buf = torch.from_numpy(rng.uniform(-8000, 8000, (6, width)).astype(
+        np.float32))
+    m0 = torch.from_numpy(rng.uniform(-8000, 8000, 6).astype(np.float32))
+    x = buf[:, start:start + 960]
+    assert not x.is_contiguous()
+    y, m = tdsp.deemphasis_scan(x, m0)
+    yc, mc = tdsp.deemphasis_scan(x.contiguous(), m0)
+    assert torch.equal(y, yc) and torch.equal(m, mc)
+
+
+def test_deemphasis_launch_takes_rows_by_stride_only():
+    """deemphasis_launch's layout checks come before its device check: on
+    meta tensors a row-strided x (and y) gets as far as the refusal of a
+    device that is not CUDA, an element stride of 2 or rows of y that
+    overlap are refused for themselves."""
+    m0 = torch.empty((4,), device="meta")
+    wide = torch.empty((4, 1020), device="meta")
+    out = (torch.empty((4, 960), device="meta"), m0)
+    with pytest.raises(_kernels.KernelArgError, match="CUDA"):
+        tdsp.deemphasis_launch(wide[:, :960], m0, out)
+    with pytest.raises(_kernels.KernelArgError, match="CUDA"):
+        tdsp.deemphasis_launch(wide[:, 1:961], m0, (wide[:, 60:], m0))
+    with pytest.raises(_kernels.KernelArgError, match="contiguous"):
+        tdsp.deemphasis_launch(torch.empty((4, 1920), device="meta")[:, ::2],
+                               m0, out)
+    with pytest.raises(_kernels.KernelArgError, match="contiguous"):
+        tdsp.deemphasis_launch(out[0], m0, (torch.empty(
+            (4, 1920), device="meta")[:, ::2], m0))
+    with pytest.raises(_kernels.KernelArgError, match="overlap"):
+        tdsp.deemphasis_launch(out[0], m0, (wide.as_strided(
+            (4, 960), (480, 1)), m0))
+
+
+def _k12b_order(x, m0):
+    """K12b's arithmetic in its own order (``csrc/celt_deemph.cu``), in
+    numpy f32 over the rows at once: tiles of 1,024; warp w's two sets of
+    32 chunks of 4 at 256 w + 128 s + 4 l; each chunk's transfer from a
+    zero carry; an inclusive Hillis-Steele scan over the lanes; the
+    warps' set totals applied to the tile's carry in turn; the lane's
+    exclusive transfer applied to that; the chunk stepped again; the
+    tile's last carry handed on."""
+    f = np.float32
+    c = f(tdsp.DEEMPH_COEFF)
+    B, n = x.shape
+    y = np.empty_like(x)
+    carry = m0.astype(f)
+    for t0 in range(0, n, 1024):
+        start = t0 + np.arange(4)[:, None, None] * 256 \
+            + np.arange(2)[None, :, None] * 128 + np.arange(32) * 4
+        k = np.clip(n - start, 0, 4)
+        a = np.ones((B, 4, 2, 32), f)
+        b = np.zeros((B, 4, 2, 32), f)
+        for i in range(4):
+            on = i < k
+            xi = x[:, np.minimum(start + i, n - 1)]
+            b = np.where(on, c * (xi + b), b)
+            a = np.where(on, a * c, a)
+        for d in (1, 2, 4, 8, 16):
+            a, b = (np.concatenate([a[..., :d], a[..., :-d] * a[..., d:]], -1),
+                    np.concatenate([b[..., :d], b[..., :-d] * a[..., d:]
+                                    + b[..., d:]], -1))
+        last = min(n, t0 + 1024) - 1
+        for w in range(4):
+            uw = carry   # the carry into warp w: the warps before, in turn
+            for w2 in range(w):
+                for s_ in range(2):
+                    uw = a[:, w2, s_, 31] * uw + b[:, w2, s_, 31]
+            for s_, base in ((0, uw), (1, a[:, w, 0, 31] * uw
+                                      + b[:, w, 0, 31])):
+                for lane in range(32):
+                    st, kk = start[w, s_, lane], k[w, s_, lane]
+                    v = base if lane == 0 else (a[:, w, s_, lane - 1] * base
+                                                + b[:, w, s_, lane - 1])
+                    for i in range(kk):
+                        yi = x[:, st + i] + v
+                        y[:, st + i] = yi * f(1 / 32768)
+                        v = c * yi
+                    if kk and st <= last < st + 4:
+                        exit_carry = v
+        carry = exit_carry
+    return y, carry
+
+
+@pytest.mark.parametrize("n", [1, 33, 960, 1021, 5000])
+def test_k12b_order_within_tolerance_of_twin(n):
+    """K12b's order of operations (``_k12b_order``: 120 chunks' entry
+    carries from a scan at n = 960, where the twin steps a sample at a
+    time) stays within the card tests' 1e-6 of the twin's peak, three
+    calls chained through m, amplitude 8000 (1.8e-7 to 2.5e-7 of it at
+    n = 960, 1,021 and 5,000)."""
+    rng = np.random.default_rng([n, 15])
+    m = mt = rng.uniform(-8000, 8000, 16).astype(np.float32)
+    for _ in range(3):
+        x = rng.uniform(-8000, 8000, (16, n)).astype(np.float32)
+        y, m = _k12b_order(x, m)
+        yt, mt = (a.numpy() for a in tdsp.deemphasis_scan_torch(
+            torch.from_numpy(x), torch.from_numpy(mt)))
+        assert np.abs(y - yt).max() / np.abs(yt).max() < 1e-6
+        assert np.abs(m - mt).max() / np.abs(mt).max() < 1e-6
+
+
 def test_deemphasis_rejects_what_it_cannot_take():
     meta = torch.empty((2, 960), device="meta")
     with pytest.raises(_kernels.KernelArgError, match="CUDA"):

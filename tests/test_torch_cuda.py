@@ -1407,12 +1407,13 @@ def test_silk_upsample_twin_refuses_tf32(cuda, monkeypatch):
                                 320)
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 33, 100, 960, 2000])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 100, 960, 1021, 2000, 5000])
 @pytest.mark.parametrize("B", [1, 5, 512])
 def test_deemph_kernel_matches_twin(cuda, B, n):
     """K12b (one launch) within 1e-6 of the peak of its twin, the
-    sequential recurrence, for n not a multiple of 32 and a single row;
-    three calls chained through m."""
+    sequential recurrence, for n not a multiple of 4 (1,021: a ragged
+    chunk at the row's end), rows of several 1,024-sample tiles (2,000 and
+    5,000) and a single row; three calls chained through m."""
     rng = np.random.default_rng([B, n])
     m = mt = torch.from_numpy(rng.uniform(-8000, 8000, B).astype(
         np.float32)).to(cuda)
@@ -1427,6 +1428,36 @@ def test_deemph_kernel_matches_twin(cuda, B, n):
         if n:
             assert float((y - yt).abs().max()) / float(yt.abs().max()) < 1e-6
         assert float((m - mt).abs().max()) / float(mt.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("width,start", [(1020, 0), (1021, 1)])
+@pytest.mark.parametrize("B", [5, 512])
+def test_deemph_kernel_takes_rows_by_stride(cuda, B, width, start):
+    """K12b on x = the [:, start:start + 960] view of a [B, width] buffer:
+    K12a's packed output (width 1,020, every row on a 16-byte boundary)
+    and a view whose rows mostly start off one (width 1,021, start 1: the
+    kernel's scalar path for those rows), into y the same view of another
+    buffer and into a contiguous y, within 1e-6 of the peak of the twin on
+    the same values made contiguous; the buffers' other columns are left
+    as they were."""
+    rng = np.random.default_rng([B, width])
+    buf = torch.from_numpy(rng.uniform(-8000, 8000, (B, width)).astype(
+        np.float32)).to(cuda)
+    m0 = torch.from_numpy(rng.uniform(-8000, 8000, B).astype(
+        np.float32)).to(cuda)
+    x = buf[:, start:start + 960]
+    assert x.stride() == (width, 1)
+    yt, mt = tcelt.deemphasis_scan_torch(x.contiguous(), m0)
+    ybuf = torch.full((B, width), 7.0, device=cuda)
+    outs = [tcelt.deemphasis_scan(x, m0),
+            (ybuf[:, start:start + 960], torch.empty_like(m0))]
+    tcelt.deemphasis_launch(x, m0, outs[1])
+    for y, m in outs:
+        assert float((y - yt).abs().max()) / float(yt.abs().max()) < 1e-6
+        assert float((m - mt).abs().max()) / float(mt.abs().max()) < 1e-6
+    assert outs[0][0].is_contiguous()
+    assert bool((ybuf[:, :start] == 7.0).all())
+    assert bool((ybuf[:, start + 960:] == 7.0).all())
 
 
 def test_deemph_kernel_rejects_bad_arguments(cuda):
@@ -1445,6 +1476,9 @@ def test_deemph_kernel_rejects_bad_arguments(cuda):
                               m0)
     with pytest.raises(KernelArgError, match=r"\[B, n\]"):
         tcelt.deemphasis_scan(x[0], m0)
+    with pytest.raises(KernelArgError, match="overlap"):
+        tcelt.deemphasis_launch(x, m0, (torch.zeros(
+            (8, 960), device=cuda).as_strided((4, 960), (480, 1)), m0))
 
 
 def _speech_streams():
