@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the audio_formats_torch FLAC, QOA, MP3, WAV, Vorbis and Opus slices
-once on one CUDA GPU.
+and the single-stream facade of all eight formats once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -133,10 +133,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    JAX bench's CELT chain; K12b reads K12a's packed buffer by row stride,
    and one frame's device work runs no copy between K12a and K12b); and
    the mixed group's host and device CELT answers at 8, 16 and 32 lanes,
-   in turns.
+   in turns;
+15. facade — one track a format through
+   ``AudioStream(device="cuda").open_from_memory``, read to the end in
+   1,024-frame chunks (examples/transcode.py's), the launch counters set to
+   0 just before each: FLAC (flac_master's coding, its frames built in
+   pieces by the process pool while nvcc builds), WAV s16 and QOA (encoded
+   on the card) of the same 180 s of stereo PCM; MP3, 10 masters of 18 s
+   (mp3_master) in one stream; 78.7 s of Vorbis of the golden builder;
+   the 16 s of the four stereo masters of the libopus corpus in turn; a
+   MOD and an XM song of 8 patterns of 64 rows (61.4 s).  Each is held to
+   the port's facade on the CPU (a process pool: the first 20 s of FLAC
+   and QOA, whose twins take ~0.5 s a second of audio on one core, three
+   20 s pieces of MP3 from seeks, the whole of the others) and to an
+   independent reference over the whole track (FLAC, WAV,
+   QOA: bit-equal to the source or numpy-decoded PCM; MP3 within 1e-4 of
+   mp3_ref), passes transcode.py's seek check (16 windows after
+   seek_position, frame-exact for FLAC, WAV and QOA; Opus windows, which
+   decode from a pre-roll as the reference's do, against the CPU's after
+   the same seek), and K1, K2 and K10 launch on FLAC, QOA and WAV.  The
+   FLAC track's card decode is encoded on the card as dithered s24 WAV
+   (its first 20 s byte-equal to the CPU's) and as QOA (K5; its first 4
+   frames byte-equal to the CPU's), ``to_wav`` of its first 20 s on both
+   (byte-equal), and the four examples of
+   examples_torch/ run on the card as subprocesses: transcode
+   --check-seeking on the FLAC and MP3 tracks, dump_patterns on the XM,
+   batch_decode on a file of each format, midi2wav on a small MIDI file.
 
-Prints a JSON line with the kernels' launches, errors, times and bounds,
-the card's name and power limit, and last ``{"ok": true, "device":
+Prints a JSON line with the kernels' launches (and the facade's launches
+of K1, K2, K5 and K10), errors, times and bounds, the card's name and power
+limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of the JAX package, and checks so
 before the result.
 
@@ -252,6 +278,23 @@ DEEMPH_FRAMES = 12    # K12a then K12b, m carried (bench.py:800-810)
 DEEMPH_TOL = 1e-6     # of the peak: K12b against its twin
 K13_TOL = 1e-6        # of the peak: K13 against its twin
 MIXED_PROBE = (8, 16, 32)  # mixed group lanes timed on host and device
+FACADE_CHUNK = 1024   # examples/transcode.py's CHUNK: the facade's reads
+FACADE_MP3_PIECES = 10  # the MP3 track: 10 masters of 18 s concatenated
+FACADE_FLAC_PIECES = 24  # the FLAC track's frames, encoded by the pool
+FACADE_VORBIS_PACKETS = 3876  # 78.7 s: long blocks, a short pair every 12
+FACADE_ORDERS = 8     # MOD and XM: 8 patterns x 64 rows, speed 6, 125 BPM
+FACADE_SEEKS = 16     # transcode.py --check-seeking's windows
+FACADE_CPU_SECONDS = 20  # the CPU facade's share of the FLAC, QOA and
+                      # MP3 reads and of the WAV encodes (its twins take
+                      # 0.35-0.55 s a second of audio on one core)
+FACADE_QOA_CPU_FRAMES = 4  # the CPU's QOA encode: its first frames only
+FACADE_WORKERS = 6    # processes of the CPU facade's reads and encodes
+FACADE_FORMATS = ("flac", "wav", "qoa", "mp3", "vorbis", "opus", "mod",
+                  "xm")
+#: the card's facade PCM against the CPU facade's: max abs (MP3) or of the
+#: peak (Vorbis, Opus); the others bit-equal
+FACADE_TOL = {"mp3": (MP3_TOL, False), "vorbis": (VORBIS_TOL, True),
+              "opus": (OPUS_TOL, True)}
 F32_RECIP = np.float32(1.0) / np.float32(32767.0)  # QOA's s16 -> float
 
 _GOLDEN = {}
@@ -341,6 +384,14 @@ def flac_master(seed: int, seconds: float):
     (the FLAC half of the repo's benchmark corpus).  Returns (bytes, pcm)."""
     from golden import flac_ref
 
+    x = flac_master_pcm(seed, seconds)
+    data = flac_ref.build_flac(x, SR, 16, block_size=BLOCK,
+                               stereo_mode="mid_side", modes=["lpc8", "lpc8"])
+    return data, x
+
+
+def flac_master_pcm(seed: int, seconds: float):
+    """The s16 PCM [frames, 2] int64 of flac_master(seed, seconds)."""
     rng = np.random.default_rng([7, seed])
     frames = int(seconds * SR)
     t = np.arange(frames)[:, None]
@@ -355,9 +406,32 @@ def flac_master(seed: int, seconds: float):
         ),
         -32768, 32767,
     ).astype(np.int64)
-    data = flac_ref.build_flac(x, SR, 16, block_size=BLOCK,
-                               stereo_mode="mid_side", modes=["lpc8", "lpc8"])
-    return data, x
+    return x
+
+
+def flac_frames(pcm, first: int) -> bytes:
+    """flac_master's frames of `pcm` ([n, 2] s16, n a multiple of BLOCK
+    but for the last piece), numbered from frame `first`."""
+    from golden import flac_ref
+
+    pcm = pcm.astype(np.int64)
+    return b"".join(flac_ref.encode_frame(
+        pcm[k: k + BLOCK], first + k // BLOCK, SR, 16, "mid_side",
+        ["lpc8", "lpc8"]) for k in range(0, len(pcm), BLOCK))
+
+
+def flac_header(n_samples: int) -> bytes:
+    """The metadata flac_master's stream of `n_samples` stereo frames
+    starts with (build_flac's): STREAMINFO and a padding block."""
+    from golden import flac_ref
+
+    si = flac_ref._BW()
+    for value, bits in ((BLOCK, 16), (BLOCK, 16), (0, 24), (0, 24),
+                        (SR, 20), (1, 3), (15, 5), (n_samples, 36)):
+        si.w(value, bits)
+    info = bytes(si.bytes) + b"\0" * 16
+    return (b"fLaC" + bytes([0]) + len(info).to_bytes(3, "big") + info
+            + bytes([0x81]) + (16).to_bytes(3, "big") + b"\0" * 16)
 
 
 def frame_offsets(data: bytes):
@@ -3355,6 +3429,466 @@ def phase_mixed_threshold(card):
     return walls
 
 
+# --------------------------------------------------------------- facade
+def facade_vorbis(packets):
+    """The facade phase's Vorbis track: a stereo coupled stream (block
+    sizes 512/2048) of the golden builder, `packets` packets."""
+    import torch_stream_cases
+
+    return torch_stream_cases.vorbis_stream(golden_vorbis_ref(), 0, packets)
+
+
+def facade_submit(pool):
+    """Start the facade phase's slow tracks in the pool: the MP3 masters,
+    the Vorbis track and the FLAC track's frames in pieces.  Returns the
+    futures (facade_tracks takes them)."""
+    pcm = flac_master_pcm(0, MP3_SECONDS * FACADE_MP3_PIECES)
+    n_blocks = -(-len(pcm) // BLOCK)
+    step = -(-n_blocks // FACADE_FLAC_PIECES)
+    return {
+        "mp3": pool.map(mp3_master, range(100, 100 + FACADE_MP3_PIECES),
+                        [MP3_SECONDS] * FACADE_MP3_PIECES),
+        "vorbis": pool.submit(facade_vorbis, FACADE_VORBIS_PACKETS),
+        "flac": [pool.submit(flac_frames, pcm[b * BLOCK:
+                                               (b + step) * BLOCK]
+                             .astype(np.int16), b)
+                 for b in range(0, n_blocks, step)],
+        "pcm": pcm,
+    }
+
+
+def facade_tracks(futures):
+    """The facade phase's tracks: {format: (bytes, the independent
+    reference or None)}.  FLAC and WAV: flac_master's 180 s (its frames
+    from the pool) and its PCM as the reference; MP3: 10 masters of 18 s
+    (Layer III frames with no reservoir concatenate into one stream), the
+    reference mp3_ref.decode_mono's, each master's first two granules
+    decoded again after the last two of the one before; Vorbis: the
+    golden builder's stream; Opus: the packets of the four stereo masters
+    of the committed libopus corpus in turn; MOD and XM: songs of
+    tests/torch_stream_cases.py (QOA is encoded on the card by
+    phase_facade)."""
+    import torch_pcm_cases
+    import torch_opus_cases
+    import torch_stream_cases
+
+    from golden import wav_ref
+
+    pcm = futures["pcm"]
+    flac = flac_header(len(pcm)) + b"".join(
+        f.result() for f in futures["flac"])
+    wav = wav_ref.build_wav(pcm.astype("<i2").tobytes(), fmt_tag=1,
+                            channels=2, sample_rate=SR, bits=16)
+    mp3_ref = golden_mp3_ref()
+    masters = list(futures["mp3"])
+    refs = [masters[0][3]]
+    for prev, cur in zip(masters, masters[1:]):
+        warm = mp3_ref.decode_mono(
+            list(np.concatenate([prev[1][-2:], cur[1][:2]]).astype(
+                np.int64)), global_gain=MP3_GAIN,
+            block_types=[int(b) for b in np.concatenate([prev[2][-2:],
+                                                         cur[2][:2]])])
+        refs.append(np.concatenate([warm[2 * 576:], cur[3][2 * 576:]]))
+    mono = np.concatenate(refs)
+    opus_ref = golden_opus_ref()
+    stereo = [m for m in torch_opus_cases.load() if m[0] == 2]
+    opus = torch_opus_cases.stream(
+        opus_ref.build_ogg_opus,
+        (2, stereo[0][1], [p for m in stereo for p in m[2]]))
+    return {
+        "flac": (flac, expected_f32(pcm, 16)),
+        "wav": (wav, torch_pcm_cases.int_pcm_to_float_np(
+            pcm.reshape(-1), "s16").reshape(-1, 2)),
+        "mp3": (b"".join(m[0] for m in masters),
+                np.stack([mono, mono], axis=1)),
+        "vorbis": (futures["vorbis"].result(), None),
+        "opus": (opus, None),
+        "mod": (torch_stream_cases.mod_song(0, FACADE_ORDERS), None),
+        "xm": (torch_stream_cases.xm_song(0, FACADE_ORDERS), None),
+    }
+
+
+def facade_read(stream, frames=None):
+    """`frames` frames of an open AudioStream (every frame when None), read
+    in FACADE_CHUNK chunks; raises on its sticky error."""
+    parts, got = [], 0
+    while frames is None or got < frames:
+        c = stream.read_samples_float(
+            FACADE_CHUNK if frames is None else min(FACADE_CHUNK,
+                                                    frames - got))
+        if c.shape[0] == 0:
+            break
+        parts.append(c)
+        got += c.shape[0]
+    if stream.is_error():
+        raise AssertionError(f"facade read: {stream.error_message()}")
+    return np.concatenate(parts)
+
+
+def facade_cpu(job, *args):
+    """`job(*args)` on the CPU on one thread, in the phase's process pool.
+    Returns (its result, its seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    return job(*args), time.perf_counter() - t0
+
+
+def facade_cpu_read(data, start=0, frames=None):
+    """The port's facade on the CPU, AudioStream(device="cpu"): `frames`
+    frames from frame `start` (a seek_position there), read in
+    FACADE_CHUNK chunks."""
+    from audio_formats_torch import AudioStream
+
+    s = AudioStream("cpu").open_from_memory(data)
+    if s.is_error() or (start and not s.seek_position(start)):
+        raise AssertionError(f"CPU facade open/seek: {s.error_message()}")
+    return facade_read(s, frames)
+
+
+def facade_encode(device, pcm, fmt, options):
+    """AudioStream(device).open_to_buffer(fmt, ...) fed `pcm` in
+    FACADE_CHUNK writes, as transcode does; the encoded bytes."""
+    from audio_formats_torch import AudioStream
+
+    s = AudioStream(device).open_to_buffer(fmt, SR, pcm.shape[1], options)
+    for k in range(0, len(pcm), FACADE_CHUNK):
+        if s.write_samples_float(pcm[k: k + FACADE_CHUNK]) == 0:
+            raise AssertionError(f"{fmt} encode: {s.error_message()}")
+    out = s.finalize_and_get_encoded_result()
+    if out is None:
+        raise AssertionError(f"{fmt} encode: {s.error_message()}")
+    return out
+
+
+def facade_to_wav(device, pcm):
+    """to_wav(pcm) on `device`, as s16 with TPDF dither (K10 on the card)."""
+    from audio_formats_torch import AudioSampleFormat, EncodingOptions, to_wav
+
+    return to_wav(pcm, SR, pcm.shape[1], EncodingOptions(
+        sample_format=AudioSampleFormat.s16, enable_dither=True),
+        device=device)
+
+
+def facade_s24():
+    from audio_formats_torch import AudioSampleFormat, EncodingOptions
+
+    return EncodingOptions(sample_format=AudioSampleFormat.s24,
+                           enable_dither=True)
+
+
+def facade_cpu_jobs(pool, tracks, card_pcm):
+    """The CPU facade's reads and encodes, submitted to `pool`: every
+    track of Vorbis, Opus, WAV, MOD and XM; the first FACADE_CPU_SECONDS
+    of FLAC and QOA; MP3 in three pieces of FACADE_CPU_SECONDS from seeks
+    at a third and two thirds; the first FACADE_CPU_SECONDS of the FLAC
+    track's card decode as dithered s24 WAV and by to_wav, and its first
+    FACADE_QOA_CPU_FRAMES frames as QOA.  Returns {key: [(start, future)]}
+    (start: the first frame of the card's PCM a read holds)."""
+    n = FACADE_CPU_SECONDS * SR // FACADE_CHUNK * FACADE_CHUNK
+    head = card_pcm["flac"][:n]
+    jobs = {
+        "wav_s24": [(0, pool.submit(facade_cpu, facade_encode, "cpu", head,
+                                    "wav", facade_s24()))],
+        "to_wav": [(0, pool.submit(facade_cpu, facade_to_wav, "cpu",
+                                   head))],
+        "qoa_enc": [(0, pool.submit(
+            facade_cpu, facade_encode, "cpu",
+            head[:FACADE_QOA_CPU_FRAMES * QOA_FRAME], "qoa", None))],
+    }
+    for fmt in FACADE_FORMATS:
+        data = tracks[fmt][0]
+        if fmt in ("flac", "qoa"):
+            starts = [0]
+        elif fmt == "mp3":
+            total = len(card_pcm[fmt])
+            starts = [0, total // 3, 2 * total // 3]
+        else:
+            jobs[fmt] = [(0, pool.submit(facade_cpu, facade_cpu_read,
+                                         data))]
+            continue
+        jobs[fmt] = [(a, pool.submit(facade_cpu, facade_cpu_read, data, a,
+                                     n)) for a in starts]
+    return jobs
+
+
+def facade_error(fmt, got, want):
+    """The card's facade PCM against `want`: 0.0 where bit-equal, else the
+    max abs (over the peak where FACADE_TOL says so); raises past the
+    format's bound."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"facade {fmt}: PCM {got.shape}, want "
+                             f"{want.shape}")
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    tol, rel = FACADE_TOL.get(fmt, (0.0, False))
+    if rel:
+        err /= float(np.abs(want).max()) + 1e-12
+    if not err <= tol:
+        raise AssertionError(f"facade {fmt}: {err:.3g} from the reference "
+                             f"(bound {tol:g})")
+    return err
+
+
+def facade_launches():
+    """K1, K2, K5 and K10's counts (decode and encode)."""
+    from audio_formats_torch.ops import lms, lpc, pcm
+
+    return {"flac_lpc": lpc.KERNEL_LAUNCHES,
+            "qoa_decode": lms.DECODE_LAUNCHES,
+            "qoa_encode": lms.ENCODE_LAUNCHES,
+            "pcm": pcm.DECODE_LAUNCHES, "pcm_encode": pcm.ENCODE_LAUNCHES}
+
+
+def facade_reset():
+    from audio_formats_torch.ops import lms, lpc, pcm
+
+    lpc.KERNEL_LAUNCHES = lms.DECODE_LAUNCHES = lms.ENCODE_LAUNCHES = 0
+    pcm.DECODE_LAUNCHES = pcm.ENCODE_LAUNCHES = 0
+
+
+#: the kernel each format's facade read runs on the card
+FACADE_KERNEL = {"flac": "flac_lpc", "wav": "pcm", "qoa": "qoa_decode"}
+
+
+def facade_seek_check(fmt, stream, linear, data):
+    """transcode.py's seek check on the card's stream: FACADE_SEEKS
+    windows of FACADE_CHUNK at random frames re-read after seek_position,
+    each equal to the linear decode (frame-exact for FLAC, WAV and QOA;
+    within 1e-6, transcode's bound, for MP3 and Vorbis).  An Opus seek
+    decodes from its pre-roll, which the reference does too and which is
+    not the linear decode (up to 0.13 on this track, in both packages):
+    there each window is held to the CPU facade's window after the same
+    seek, within OPUS_TOL of the peak.  Returns the largest distance of a
+    window from the linear decode."""
+    from audio_formats_torch import AudioStream
+
+    cpu = AudioStream("cpu").open_from_memory(data) if fmt == "opus" \
+        else None
+    rng = np.random.default_rng(1234)
+    total = len(linear)
+    far = 0.0
+    for _ in range(FACADE_SEEKS):
+        pos = int(rng.integers(0, max(1, total - FACADE_CHUNK)))
+        n = min(FACADE_CHUNK, total - pos)
+        if not stream.seek_position(pos):
+            raise AssertionError(f"facade {fmt}: seek to {pos} refused")
+        win = stream.read_samples_float(n)
+        want = linear[pos: pos + n]
+        if win.shape != want.shape:
+            raise AssertionError(f"facade {fmt}: {win.shape} after a seek")
+        far = max(far, float(np.abs(win - want).max()))
+        if fmt in ("flac", "wav", "qoa"):
+            ok = np.array_equal(win, want)
+        elif cpu is None:
+            ok = np.allclose(win, want, atol=1e-6)
+        else:
+            cpu.seek_position(pos)
+            ref = cpu.read_samples_float(n)
+            ok = ref.shape == win.shape and float(np.abs(win - ref).max()) \
+                <= OPUS_TOL * (float(np.abs(ref).max()) + 1e-12)
+        if not ok:
+            raise AssertionError(f"facade {fmt}: the window at {pos} "
+                                 "differs")
+    return far
+
+
+def facade_midi(path):
+    """A small format-0 MIDI file: an arpeggio and a chord."""
+    import struct
+
+    trk = bytearray(b"\x00\xff\x51\x03" + (500000).to_bytes(3, "big"))
+    for k, note in enumerate((60, 64, 67, 72, 76)):
+        trk += bytes([0 if k == 0 else 48, 0x90, note, 100, 96, note, 0])
+    trk += b"\x00\x90\x3c\x5a\x00\x40\x5a\x81\x00\x80\x3c\x00\x00\x80\x40" \
+        b"\x00\x00\xff\x2f\x00"
+    with open(path, "wb") as f:
+        f.write(b"MThd" + struct.pack(">IHHH", 6, 0, 1, 96) + b"MTrk"
+                + struct.pack(">I", len(trk)) + bytes(trk))
+
+
+def facade_examples(card, tracks, tmp):
+    """The four ported examples on the card, as subprocesses started
+    together over files written under `tmp`: transcode --check-seeking on
+    the FLAC and MP3 tracks, dump_patterns on the XM, batch_decode on one
+    file of each format, midi2wav on a small MIDI file.  Each must exit 0;
+    every process is gone when this returns."""
+    paths = {}
+    for fmt, (data, _) in tracks.items():
+        paths[fmt] = os.path.join(tmp, f"track.{fmt}")
+        with open(paths[fmt], "wb") as f:
+            f.write(data)
+    facade_midi(os.path.join(tmp, "song.mid"))
+    ex = os.path.join(ROOT, "examples_torch")
+    runs = {
+        "transcode flac": ["transcode.py", paths["flac"],
+                           os.path.join(tmp, "flac.wav"), "--check-seeking"],
+        "transcode mp3": ["transcode.py", paths["mp3"],
+                          os.path.join(tmp, "mp3.wav"), "--check-seeking"],
+        "dump_patterns xm": ["dump_patterns.py", paths["xm"],
+                             os.path.join(tmp, "xm")],
+        "batch_decode": ["batch_decode.py",
+                         *(paths[f] for f in FACADE_FORMATS)],
+        "midi2wav": ["midi2wav.py", os.path.join(tmp, "song.mid"),
+                     os.path.join(tmp, "midi.wav")],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ex, argv[0]), *argv[1:],
+         "--device", "cuda"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=tmp)
+        for name, argv in runs.items()}
+    failed = []
+    try:
+        for name, p in procs.items():
+            out, _ = p.communicate(timeout=600)
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            print(f"#   example {name}: exit {p.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s; {last}")
+            if p.returncode != 0:
+                failed.append((name, out[-2000:]))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    n_dumped = len([f for f in os.listdir(tmp) if f.startswith("xm-")])
+    if n_dumped != FACADE_ORDERS:
+        raise AssertionError(f"dump_patterns wrote {n_dumped} files")
+    print(f"# facade examples: transcode --check-seeking (FLAC, MP3), "
+          f"dump_patterns (XM, {n_dumped} patterns), batch_decode (8 "
+          f"files), midi2wav: all exit 0 in {time.perf_counter() - t0:.1f} "
+          f"s [{card}]")
+
+
+def phase_facade(card, futures):
+    """The single-stream facade on the card, at the size a user's file has:
+    one track a format through AudioStream(device="cuda").open_from_memory,
+    read to the end in FACADE_CHUNK chunks with the launch counters set to
+    0 just before; held to the CPU facade (a process pool, on the frames
+    facade_cpu_jobs names) and to an independent reference; the seek check
+    of transcode.py; the FLAC track's card decode encoded as dithered s24
+    WAV, as QOA and by to_wav on the card, byte-equal to the CPU's where
+    the CPU encodes; the four examples.  Returns the facade's launches by
+    kernel."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from audio_formats_torch import AudioSampleFormat, AudioStream, \
+        EncodingOptions, encode_qoa_batch
+
+    t_phase = time.perf_counter()
+    tracks = facade_tracks(futures)
+    flac_pcm = futures["pcm"]
+    # QOA: the FLAC track's PCM as float, encoded on the card (frames
+    # held to the golden encoder in the QOA encode phase); the reference
+    # an independent numpy decode
+    qoa = encode_qoa_batch([(flac_pcm / 32768.0).astype(np.float32)], SR,
+                           device="cuda")[0]
+    tracks["qoa"] = (qoa, numpy_qoa_decode([qoa])[0].astype(np.float32)
+                     * F32_RECIP)
+    print(f"# facade tracks: {', '.join(f'{k} {len(v[0]) / 1e6:.1f} MB' for k, v in tracks.items())}; "
+          f"assembled in {time.perf_counter() - t_phase:.1f} s")
+
+    launches, card_pcm, rows = {}, {}, {}
+    for fmt in FACADE_FORMATS:
+        data, ref = tracks[fmt]
+        facade_reset()
+        t0 = time.perf_counter()
+        s = AudioStream("cuda").open_from_memory(data)
+        if s.is_error() or s.get_format().value != \
+                {"vorbis": "ogg"}.get(fmt, fmt):
+            raise AssertionError(f"facade {fmt}: {s.error_message()}")
+        pcm = facade_read(s)
+        wall = time.perf_counter() - t0
+        launches[fmt] = facade_launches()
+        kernel = FACADE_KERNEL.get(fmt)
+        if kernel and not launches[fmt][kernel]:
+            raise AssertionError(f"facade {fmt}: {kernel} never launched")
+        others = {k: v for k, v in launches[fmt].items()
+                  if v and k != kernel}
+        if others:
+            raise AssertionError(f"facade {fmt}: launched {others}")
+        card_pcm[fmt] = pcm
+        ref_err = None if ref is None else facade_error(fmt, pcm, ref)
+        seek_far = None if fmt in ("mod", "xm") else \
+            facade_seek_check(fmt, s, pcm, data)
+        secs = len(pcm) / s.get_samplerate()
+        s.close()
+        rows[fmt] = [secs, wall, ref_err, seek_far]
+        print(f"#   facade {fmt}: {secs:.1f} s of audio read in {wall:.3f} "
+              f"s on the card")
+
+    with ProcessPoolExecutor(
+            max_workers=FACADE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        t0 = time.perf_counter()
+        jobs = facade_cpu_jobs(pool, tracks, card_pcm)
+        # meanwhile on the card: the encodes of the FLAC track's decode,
+        # then the examples
+        facade_reset()
+        head = card_pcm["flac"][:FACADE_CPU_SECONDS * SR // FACADE_CHUNK
+                                * FACADE_CHUNK]
+        t1 = time.perf_counter()
+        s24 = facade_encode("cuda", card_pcm["flac"], "wav", facade_s24())
+        wav_wall = time.perf_counter() - t1
+        tw = facade_to_wav("cuda", head)
+        t1 = time.perf_counter()
+        qenc = facade_encode("cuda", card_pcm["flac"], "qoa", None)
+        qoa_wall = time.perf_counter() - t1
+        enc_launches = facade_launches()
+        if not (enc_launches["pcm_encode"] and enc_launches["qoa_encode"]):
+            raise AssertionError(f"facade encodes: launches {enc_launches}")
+        with tempfile.TemporaryDirectory() as tmp:
+            facade_examples(card, tracks, tmp)
+        cpu = {k: [(a, f.result()) for a, f in v] for k, v in jobs.items()}
+        cpu_wall = time.perf_counter() - t0
+    print(f"# facade CPU reads and encodes: {cpu_wall:.1f} s in "
+          f"{FACADE_WORKERS} processes; each job's seconds: "
+          + ", ".join(f"{k} " + "/".join(f"{r[1]:.1f}" for _, r in v)
+                      for k, v in cpu.items()))
+
+    for fmt in FACADE_FORMATS:
+        err = 0.0
+        for a, (got, _) in cpu[fmt]:
+            err = max(err, facade_error(fmt, card_pcm[fmt][a: a + len(got)],
+                                        got))
+        secs, wall, ref_err, seek_far = rows[fmt]
+        k = launches[fmt]
+        held = sum(len(r[0]) for _, r in cpu[fmt])
+        print(f"# facade {fmt}: {secs:.1f} s of audio, wall {wall:.3f} s = "
+              f"{secs / wall:.1f}x realtime, launches "
+              f"{ {n: v for n, v in k.items() if v} }, largest error "
+              f"{err:.3g} against the CPU facade (on "
+              f"{held / len(card_pcm[fmt]):.0%} of the frames)"
+              + ("" if ref_err is None else
+                 f", {ref_err:.3g} against the independent reference")
+              + ("; no frame seek (a module)" if seek_far is None else
+                 f"; {FACADE_SEEKS} seek windows passed (largest distance "
+                 f"from the linear decode {seek_far:.3g})")
+              + f" [{card}]")
+    cw, ct, cq = (cpu[k][0][1][0] for k in ("wav_s24", "to_wav", "qoa_enc"))
+    if len(cw) <= 44 or s24[44: len(cw)] != cw[44:] or tw != ct:
+        raise AssertionError("facade WAV encode: card bytes != CPU bytes")
+    if len(cq) <= 8 or qenc[8: len(cq)] != cq[8:]:
+        raise AssertionError("facade QOA encode: the card's first frames != "
+                             "the CPU's")
+    print(f"# facade encodes of the FLAC track's card decode "
+          f"({len(card_pcm['flac']) / SR:.1f} s): s24 dithered WAV "
+          f"{len(s24)} bytes in {wav_wall:.3f} s (its first "
+          f"{FACADE_CPU_SECONDS} s byte-equal to the CPU's), QOA "
+          f"{len(qenc)} bytes in {qoa_wall:.3f} s (its first "
+          f"{FACADE_QOA_CPU_FRAMES} frames byte-equal to the CPU's), "
+          f"to_wav (s16 dithered) of its first {FACADE_CPU_SECONDS} s "
+          f"byte-equal to the CPU's; launches {enc_launches} [{card}]")
+    print(f"# facade phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    launches["encode"] = enc_launches
+    return launches
+
+
 def main():
     import torch
 
@@ -3382,6 +3916,7 @@ def main():
     with ProcessPoolExecutor(
             max_workers=8,
             mp_context=multiprocessing.get_context("spawn")) as pool:
+        facade = facade_submit(pool)
         mp3_masters = pool.map(mp3_master, range(MP3_MASTERS))
         vorbis_masters = pool.map(vorbis_master, range(VORBIS_MASTERS))
         with ThreadPoolExecutor(max_workers=len(names)) as ex:
@@ -3393,13 +3928,14 @@ def main():
         mp3_masters = list(mp3_masters)
         vorbis_masters = list(vorbis_masters)
     print(f"# MP3 and Vorbis masters: {len(mp3_masters)} and "
-          f"{len(vorbis_masters)} built {time.perf_counter() - t0:.1f} s "
-          "after the builds started")
+          f"{len(vorbis_masters)}, and the facade's FLAC, MP3 and Vorbis "
+          f"tracks, built {time.perf_counter() - t0:.1f} s after the builds "
+          "started")
     for name, (secs, log) in _kernels.BUILD_LOG.items():
         print(f"#   {name}: nvcc {secs:.2f} s")
         for line in log.strip().splitlines():
             print(f"#   {name}: {line.strip()}")
-    run_phases(card, mp3_masters, vorbis_masters)
+    run_phases(card, mp3_masters, vorbis_masters, facade)
 
 
 def flac_slice(streams, pcms):
@@ -3455,7 +3991,7 @@ def rice_slice(streams, pcms):
     return dec, wall, launches, kept
 
 
-def run_phases(card, mp3_masters, vorbis_masters):
+def run_phases(card, mp3_masters, vorbis_masters, facade):
     import torch
 
     # 3. kernels vs twins
@@ -3613,6 +4149,12 @@ def run_phases(card, mp3_masters, vorbis_masters):
     zres, deemph_launches = phase_deemph_kernel(card)
     phase_mixed_threshold(card)
 
+    # 15. the single-stream facade: a track of each format read on the
+    # card, held to the CPU facade and an independent reference, seeks,
+    # encodes, and the four examples
+    fl = phase_facade(card, facade)
+    del facade
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "audio_formats_tpu"))
@@ -3624,15 +4166,18 @@ def run_phases(card, mp3_masters, vorbis_masters):
         {"name": "flac_lpc", "route": "cuda",
          "source": "audio_formats_torch/csrc/flac_lpc.cu",
          "replaces": "audio_formats_tpu/ops/lpc.py:158",
-         "launches": launches["flac_lpc"], **fres, **kres},
+         "launches": launches["flac_lpc"],
+         "facade_launches": fl["flac"]["flac_lpc"], **fres, **kres},
         {"name": "qoa_decode", "route": "cuda",
          "source": "audio_formats_torch/csrc/qoa_lms.cu",
          "replaces": "audio_formats_tpu/ops/lms.py:135",
-         "launches": dec_launches, **dres},
+         "launches": dec_launches,
+         "facade_launches": fl["qoa"]["qoa_decode"], **dres},
         {"name": "qoa_encode", "route": "cuda",
          "source": "audio_formats_torch/csrc/qoa_lms.cu",
          "replaces": "audio_formats_tpu/ops/lms.py:187",
-         "launches": enc_launches, **eres},
+         "launches": enc_launches,
+         "facade_launches": fl["encode"]["qoa_encode"], **eres},
         {"name": "mp3_huff", "route": "cuda",
          "source": "audio_formats_torch/csrc/mp3_huff.cu",
          "replaces": "audio_formats_tpu/ops/mp3_huff.py:351",
@@ -3644,11 +4189,13 @@ def run_phases(card, mp3_masters, vorbis_masters):
         {"name": "pcm", "route": "cuda",
          "source": "audio_formats_torch/csrc/pcm.cu",
          "replaces": "audio_formats_tpu/ops/pcm.py:81",
-         "launches": wav_launches, **pres},
+         "launches": wav_launches,
+         "facade_launches": fl["wav"]["pcm"], **pres},
         {"name": "pcm_encode", "route": "cuda",
          "source": "audio_formats_torch/csrc/pcm.cu",
          "replaces": "audio_formats_tpu/ops/pcm.py:235",
-         "launches": wenc_launches, **pres_enc},
+         "launches": wenc_launches,
+         "facade_launches": fl["encode"]["pcm_encode"], **pres_enc},
         {"name": "vorbis_win", "route": "cuda",
          "source": "audio_formats_torch/csrc/vorbis_win.cu",
          "replaces": "audio_formats_tpu/ops/vorbis_win.py:62",

@@ -1522,3 +1522,109 @@ def test_batch_decoder_opus_groups_cuda_equals_cpu(cuda):
     want = BatchDecoder(streams, device="cpu").decode_all()
     for a, b in zip(got, want, strict=True):
         _close(torch.from_numpy(a), torch.from_numpy(b), tol=1e-5)
+
+
+# ------------------------------------------------------------ the facade
+def _facade_pcm(fmt, device):
+    from audio_formats_torch import AudioStream
+    from test_torch_stream import read_all, stream
+
+    s = AudioStream(device).open_from_memory(stream(fmt))
+    assert not s.is_error(), s.error_message()
+    return read_all(s)
+
+
+FACADE_LAUNCHES = {"flac": lambda: tlpc.KERNEL_LAUNCHES,
+                   "wav": lambda: tpcm.DECODE_LAUNCHES,
+                   "qoa": lambda: tlms.DECODE_LAUNCHES}
+
+
+@pytest.mark.parametrize("fmt", ["flac", "wav", "qoa", "mp3", "vorbis",
+                                 "opus", "mod", "xm"])
+def test_facade_cuda_equals_cpu(cuda, fmt):
+    """AudioStream(device="cuda") read in 1,024-frame chunks equals the
+    CPU facade: bit for bit, or within the transform codec's bound of
+    the port's tests; FLAC, WAV and QOA launch their kernels (K1, K10,
+    K2)."""
+    from test_torch_stream import assert_close
+
+    before = FACADE_LAUNCHES.get(fmt, lambda: 0)()
+    got = _facade_pcm(fmt, cuda)
+    if fmt in FACADE_LAUNCHES:
+        assert FACADE_LAUNCHES[fmt]() > before
+    assert_close(fmt, got, _facade_pcm(fmt, "cpu"))
+
+
+@pytest.mark.parametrize("fmt,sample_format,dither", [
+    ("wav", "s8", True), ("wav", "s16", True), ("wav", "s16", False),
+    ("wav", "s24", True), ("wav", "s24", False), ("qoa", None, False)])
+def test_facade_encode_cuda_equals_cpu(cuda, fmt, sample_format, dither):
+    """WAV (K10) and QOA (K5) bytes through the card's facade, written in
+    chunks, equal the CPU's; each chunk's quantize is one K10 launch."""
+    from audio_formats_torch import (AudioSampleFormat, AudioStream,
+                                     EncodingOptions)
+
+    rng = np.random.default_rng(3)
+    x = (0.3 * rng.standard_normal((12000, 2))).astype(np.float32)
+    opts = None if sample_format is None else EncodingOptions(
+        sample_format=AudioSampleFormat[sample_format],
+        enable_dither=dither)
+    outs = []
+    for device in (cuda, "cpu"):
+        before = (tpcm.ENCODE_LAUNCHES, tlms.ENCODE_LAUNCHES)
+        s = AudioStream(device).open_to_buffer(fmt, 44100, 2, opts)
+        for k in range(0, len(x), 5000):
+            s.write_samples_float(x[k: k + 5000])
+        outs.append(s.finalize_and_get_encoded_result())
+        if device == cuda:
+            assert (tpcm.ENCODE_LAUNCHES - before[0],
+                    tlms.ENCODE_LAUNCHES - before[1]) == \
+                ((3, 0) if fmt == "wav" else (0, 3))
+    assert outs[0] is not None and outs[0] == outs[1]
+
+
+def _read_k1(s):
+    from test_torch_stream import stream
+
+    s.open_from_memory(stream("flac"))
+    s.read_samples_float(1024)
+
+
+def _read_k10(s):
+    from test_torch_stream import stream
+
+    s.open_from_memory(stream("wav"))
+    s.read_samples_float(1024)
+
+
+def _qoa_k5(s, finish):
+    s.open_to_buffer("qoa", 44100, 1)
+    s.write_samples_float(np.zeros((100, 1), np.float32))
+    finish(s)
+
+
+@pytest.mark.parametrize("kernel,call", [
+    ("flac_lpc", _read_k1), ("pcm_decode", _read_k10),
+    ("qoa_encode", lambda s: _qoa_k5(s, lambda s: s.finalize_encoding())),
+    ("qoa_encode", lambda s: _qoa_k5(s, lambda s: s.close()))],
+    ids=["K1-read", "K10-read", "K5-finalize", "K5-close"])
+def test_facade_kernel_error_raises(cuda, kernel, call, monkeypatch):
+    """A launch that fails inside K1's, K10's or K5's wrapper raises out
+    of read_samples_float, finalize_encoding and close, and never becomes
+    the stream's sticky error."""
+    from audio_formats_torch import AudioStream
+    from audio_formats_torch.ops import _kernels
+
+    check = _kernels.check_launch
+
+    def failing(fn, rc):
+        if fn == kernel:
+            raise _kernels.KernelError(f"{fn} kernel launch failed: CUDA "
+                                       "error 700")
+        check(fn, rc)
+
+    monkeypatch.setattr(_kernels, "check_launch", failing)
+    s = AudioStream(cuda)
+    with pytest.raises(_kernels.KernelError, match="CUDA error 700"):
+        call(s)
+    assert s.error_message() in (None, "Stream not initialized")

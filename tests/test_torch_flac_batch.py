@@ -15,12 +15,15 @@ from audio_formats_tpu.io import ogg as oggmod
 from audio_formats_tpu.parallel import BatchDecoder as JaxBatchDecoder
 from audio_formats_tpu.parallel import batch as jbatch
 
+from audio_formats_torch import AudioStream as TorchStream
 from audio_formats_torch import BatchDecoder
 from audio_formats_torch.io.source import MemorySource
 from audio_formats_torch.models.flac import FlacDecoder
 from audio_formats_torch.parallel import batch as tbatch
 
-from golden import flac_ref, mod_ref, opus_ref, wav_ref, xm_ref
+from golden import flac_ref, opus_ref, wav_ref
+
+import torch_stream_cases
 
 
 def _pcm(rng, frames, channels, bps, amp=9000.0, noise=300.0):
@@ -280,39 +283,59 @@ def _unported_streams(rng):
         "Ogg Vorbis": vorbis,
         "Ogg Opus": opus_ref.build_ogg_opus([opus_ref.silence_packet()] * 2,
                                             channels=1),
-        "MOD": mod_ref.build_mod([mod_ref.empty_pattern()], [0],
-                                 [(mod_ref.saw_sample(), 64, 0, 0, 0)]),
-        "XM": xm_ref.build_xm([xm_ref.empty_rows(4, 4)], [0], [],
-                              channels=4),
+        "MOD": torch_stream_cases.mod_song(2, 2, rows=8),
+        "XM": torch_stream_cases.xm_song(2, 2, rows=8),
     }
 
 
+def _port_facade(data):
+    """The port's facade on the CPU, read in the per-stream read's chunks
+    (modules pad their last read to the size asked, stream.d:604)."""
+    s = TorchStream("cpu").open_from_memory(data)
+    chunks = []
+    while True:
+        c = s.read_samples_float(1 << 16)
+        if len(c) == 0:
+            break
+        chunks.append(c)
+    assert not s.is_error(), s.error_message()
+    return np.concatenate(chunks)
+
+
 def test_unported_formats_get_lane_errors(rng):
-    """Formats not ported yet (MOD, XM) become lane errors that name them.
-    WAV, Ogg Vorbis and Ogg Opus are ported: the WAV lane decodes, the
-    Opus lane (two CELT silence packets) decodes as JAX's batch decodes
-    it, and the Vorbis stream here, an ID header alone, is not one the
-    cascade recognizes (as in the JAX package)."""
+    """Every format is ported now: the MOD and XM lanes, mixed with FLAC,
+    WAV and Opus lanes in one batch, decode by the per-stream read equal
+    to JAX's batch and to the port's chunked facade (atol 1e-7, as
+    tests/test_batch.py holds JAX's); the WAV lane decodes, the Opus lane
+    (two CELT silence packets) decodes as JAX's batch decodes it, and the
+    Vorbis stream here, an ID header alone, and a run of 0x01 bytes are
+    lane errors, as in the JAX package."""
     fx = _unported_streams(rng)
     good, pcm = _flac(rng, 2000)
-    dec = BatchDecoder([good, *fx.values(), b"\x01" * 100], device="cpu")
+    streams = [good, *fx.values(), b"\x01" * 100]
+    dec = BatchDecoder(streams, device="cpu")
     out = dec.decode_all()
+    jdec = JaxBatchDecoder(streams)
+    jout = jdec.decode_all()
+    assert dec.errors == jdec.errors
     np.testing.assert_array_equal(out[0], _expected(pcm, 16))
-    for name, err, o in zip(fx, dec.errors[1:], out[1:]):
+    for name, err, o, j in zip(fx, dec.errors[1:], out[1:], jout[1:]):
         if name == "WAV":
             assert err is None and o.shape == (2048, 1)
             continue
         if name == "Ogg Opus":
-            want = JaxBatchDecoder([fx[name]]).decode_all()[0]
-            assert err is None and o.shape == want.shape == (168, 1)
-            np.testing.assert_array_equal(o, want)
+            assert err is None and o.shape == j.shape == (168, 1)
+            np.testing.assert_array_equal(o, j)
             continue
-        assert o is None
         if name == "Ogg Vorbis":
+            assert o is None
             assert err == "Cannot decode stream: unrecognized encoding."
             continue
-        assert err == (f"Cannot decode stream: {name} is not decoded by "
-                       "audio_formats_torch yet."), (name, err)
+        assert err is None and o.shape == j.shape, name
+        assert np.abs(o).max() > 0.01, name
+        np.testing.assert_allclose(o, j, rtol=0, atol=1e-7)
+        np.testing.assert_allclose(o, _port_facade(fx[name]), rtol=0,
+                                   atol=1e-7)
     assert dec.errors[-1] == "Cannot decode stream: unrecognized encoding."
 
 

@@ -29,6 +29,12 @@ whose granule field runs past their packets, JAX's hybrid group drains
 its resampler rows past what the lane owes (486 samples more than its
 facade); the port's group drains what the per-stream read drains.
 
+Each mutation of its MOD and XM fixtures takes the per-stream read in
+both batch decoders, held bit-equal with the same lane errors.  The
+reference's facade sweep runs on the port's ``AudioStream(device="cpu")``
+for all eight formats: nothing raises, and the errors and PCM are JAX's
+facade's (the transform codecs within their bounds of the peak).
+
 The reference's per-lane demotion test runs on the port, on both FLAC wires:
 a fault injected at the wire's host seam for one lane of a 64-lane group
 demotes that lane alone, the others stay grouped and bit-exact, and a
@@ -43,6 +49,7 @@ import pytest
 from audio_formats_tpu import AudioStream
 from audio_formats_tpu.parallel import BatchDecoder as JaxBatchDecoder
 
+from audio_formats_torch import AudioStream as TorchStream
 from audio_formats_torch import BatchDecoder
 from audio_formats_torch.errors import AudioFormatError
 from audio_formats_torch.host import native as tnative
@@ -111,7 +118,7 @@ def _opus_fixture(fixture):
 
 
 def test_sweep_has_every_mutation():
-    for fmt in ("qoa", "flac", "wav", "vorbis", "mp3", "opus"):
+    for fmt in ("qoa", "flac", "wav", "vorbis", "mp3", "opus", "mod", "xm"):
         assert len(_mutations(fmt)) == N_MUTATIONS
     assert len(_celt_mutations()) == N_MUTATIONS
     assert len(_hybrid_mutations()) == N_MUTATIONS + 1
@@ -154,6 +161,63 @@ def test_wav_mutation_matches_jax(k):
 @pytest.mark.parametrize("k", range(N_MUTATIONS))
 def test_vorbis_mutation_matches_jax(k):
     _matches_jax([_mutations("vorbis")[k]], tol=4e-6)
+
+
+@pytest.mark.parametrize("k", range(N_MUTATIONS))
+@pytest.mark.parametrize("fmt", ["mod", "xm"])
+def test_module_mutation_matches_jax(fmt, k):
+    """MOD and XM lanes take the per-stream read in both packages."""
+    _matches_jax([_mutations(fmt)[k]])
+
+
+#: the bound of each transform codec between the port's facade and JAX's
+#: on a damaged stream, relative to the peak; the others are bit-equal
+FACADE_TOL = {"mp3": 4e-6, "vorbis": 4e-6, "opus": 1e-5}
+
+
+def _facade_run(stream):
+    """The reference test's drive of one facade: the open's error, else
+    up to 200 reads of 4,096 frames, each finite, and the sticky error
+    after them.  Returns (error at open, PCM, error after the reads)."""
+    if stream.is_error():
+        assert isinstance(stream.error_message(), str)
+        return stream.error_message(), None, None
+    parts = []
+    for _ in range(200):
+        out = np.asarray(stream.read_samples_float(4096))
+        assert np.isfinite(out).all()
+        if out.shape[0] == 0:
+            break
+        parts.append(out)
+    if stream.is_error():
+        assert isinstance(stream.error_message(), str)
+    pcm = np.concatenate(parts) if parts else np.zeros((0, 1), np.float32)
+    return None, pcm, stream.error_message()
+
+
+@pytest.mark.parametrize("fmt", ["mp3", "flac", "qoa", "wav", "vorbis",
+                                 "mod", "opus", "xm"])
+def test_facade_never_raises_on_corruption(fmt):
+    """Twin of tests/test_robustness.py's facade sweep: every mutation of
+    the format's fixture goes through the port's AudioStream(device="cpu")
+    and JAX's; nothing raises, the PCM is finite, and the errors at open
+    and after the reads are JAX's, with the PCM bit-equal (or within the
+    transform codec's bound of the peak)."""
+    for k, bad in enumerate(_mutations(fmt)):
+        t = TorchStream("cpu")
+        t.open_from_memory(bad)
+        j = AudioStream()
+        j.open_from_memory(bad)
+        terr, tpcm, tlate = _facade_run(t)
+        jerr, jpcm, jlate = _facade_run(j)
+        assert (terr, tlate) == (jerr, jlate), (fmt, k)
+        if jpcm is None:
+            continue
+        assert tpcm.shape == jpcm.shape, (fmt, k)
+        if fmt not in FACADE_TOL:
+            np.testing.assert_array_equal(tpcm, jpcm, err_msg=f"{k}")
+        elif jpcm.size:
+            assert _rel(tpcm, jpcm) < FACADE_TOL[fmt], (fmt, k)
 
 
 @pytest.mark.parametrize("wire", ["packed", "rice"])
@@ -292,6 +356,8 @@ def _mp3_first_overrun(data, monkeypatch):
         m.setattr(tmp3._HuffReader, "decode", watched_decode)
         m.setattr(tmp3, "_huffman", watched_huffman)
         m.setattr(tmp3.native, "get_lib", lambda: None)
+        # the module caches the library at its first decode in the process
+        m.setattr(tmp3, "_NATIVE_CACHE", [None])
         try:
             dec = tmp3.probe(MemorySource(data), "cpu")
             while dec is not None and dec.read(1 << 16).shape[0]:
