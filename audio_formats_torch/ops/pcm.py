@@ -363,15 +363,39 @@ def quantize_float_to_int(x: np.ndarray, kind: str, *, dither: bool,
 
 
 def quantize_pack_rows(rows, lens, seeds, kind: str, sample_size: int, *,
-                       dither: bool, device="cuda"):
+                       dither: bool, device="cuda", mesh=None):
     """Batched encode: rows [L, n] float32 (zero-padded), lens [L] valid
     sample counts, one seed a row.  Quantize and pack on `device`; returns
-    a list of L byte strings, each row's exact WAV data payload."""
+    a list of L byte strings, each row's exact WAV data payload.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) splits the rows and their seeds
+    into contiguous shards over its 'data' devices, one K10 launch a
+    shard: a row's noise comes from its own seed and its positions, so the
+    bytes equal the unsharded call's.  ``device`` then defaults to the
+    mesh's first device, and another one raises ValueError."""
     if sample_size != KIND_BYTES[kind]:
         raise ValueError(f"{kind} has {KIND_BYTES[kind]} bytes a sample, "
                          f"not {sample_size}")
-    x = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(device)
-    w = quantize_pack(x, torch.tensor(np.asarray(seeds, np.int64)), kind,
-                      dither).cpu().numpy()
-    return [w[i, : sample_size * int(lens[i])].tobytes()
-            for i in range(len(lens))]
+    rows = np.ascontiguousarray(rows, np.float32)
+    seeds = np.asarray(seeds, np.int64)
+    devices = [device]
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        mesh_device(device, mesh)
+        devices = mesh.data_devices
+    shards = []
+    for dev, idx in zip(devices, np.array_split(np.arange(len(rows)),
+                                                len(devices))):
+        if idx.size:
+            sl = slice(int(idx[0]), int(idx[-1]) + 1)
+            x = torch.from_numpy(rows[sl]).to(dev)
+            shards.append((sl, quantize_pack(x, torch.from_numpy(seeds[sl]),
+                                             kind, dither)))
+    out = []
+    # every shard is enqueued before the first download waits on its device
+    for sl, w in shards:
+        w = w.cpu().numpy()
+        out.extend(w[i, : sample_size * int(lens[sl.start + i])].tobytes()
+                   for i in range(w.shape[0]))
+    return out

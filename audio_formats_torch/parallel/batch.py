@@ -39,9 +39,10 @@ synthesis requests in buckets on the device (from
 ``OPUS_MIXED_DEVICE_MIN_LANES`` lanes) or on the host.  Multistream Opus
 lanes take the per-stream read.
 
-The port decodes Ogg Opus, FLAC, Ogg-FLAC, WAV, QOA, Ogg Vorbis and MP3
-(Layers I–III) so far; every other lane carries an error that names its
-format.
+MOD and XM lanes, float WAV lanes and multistream Opus lanes take the
+per-stream read on the host.  With ``mesh=`` every group chunk splits into
+shards over the mesh's 'data' devices, each shard a group of its own on its
+device (``parallel/mesh.py``).
 
 Error lattice: a corrupt stream only poisons its own lane — it stops
 producing frames and its `errors` entry is set; other lanes are unaffected.
@@ -79,6 +80,7 @@ from ..ops import vorbis_win
 from ..ops.resample import BatchedFittedUpsampler
 from ..ops._kernels import KernelError
 from ..ops import mp3_dsp, mp3_huff
+from .mesh import mesh_device
 
 #: FLAC frames per device call
 FLAC_WINDOW_FRAMES = 12
@@ -247,9 +249,17 @@ class _PendingGroup:
         return self._result
 
 
+def _synchronize(device: torch.device) -> None:
+    """Block until `device` has finished its queued work (a no-op off
+    CUDA)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class DeviceBatchResult:
     """Result of ``BatchDecoder.decode_all(output="device")``: decoded PCM
-    window tensors stay on the decoder's device.
+    window tensors stay on the device of the group (or, under a mesh, the
+    shard) that decoded them.
 
     * ``windows()`` — the window tensors per group (window-major layout)
     * ``sync()`` — block until the device has finished every window
@@ -275,9 +285,9 @@ class DeviceBatchResult:
         ]
 
     def sync(self):
-        """Block until the device has finished all of this batch's work."""
-        if self._owner.device.type == "cuda":
-            torch.cuda.synchronize(self._owner.device)
+        """Block until every device the batch used has finished its work."""
+        for dev in self._owner.devices_used:
+            _synchronize(dev)
         return self
 
     def to_numpy(self):
@@ -290,7 +300,7 @@ class DeviceBatchResult:
 
 
 class BatchDecoder:
-    """Decode a batch of streams on one torch device.
+    """Decode a batch of streams on one torch device, or over a mesh.
 
     Usage::
 
@@ -310,10 +320,24 @@ class BatchDecoder:
     ``group_size`` is the lockstep group width: how many lanes of one
     format group share a device window.  None (the default) puts 1024
     lanes in a group with ``output="device"`` and 256 otherwise.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) shards every lockstep group over
+    its 'data' devices: each group chunk splits into ``data`` contiguous
+    shards (sized as ``np.array_split`` gives them; an empty one runs
+    nothing), and each shard runs as a group of its own on its device, with
+    its own windows, pools and carried state (lanes are independent, so the
+    output equals the unsharded run's: bit for bit on the integer paths).
+    The 'model' column is not used, as the JAX package replicates over it.
+    ``device`` then defaults to the mesh's first device, and another one
+    raises ValueError.  Lanes outside every group (MOD, XM, float WAV,
+    multistream Opus) read on the host as without a mesh; a demoted lane
+    reads on its shard's device.
     """
 
     def __init__(self, items: Sequence, device="cuda", flac_wire="packed",
-                 group_size: int = None):
+                 group_size: int = None, mesh=None):
+        if mesh is not None:
+            device = mesh_device(device, mesh)
         if flac_wire not in ("packed", "rice"):
             raise ValueError(f"flac_wire {flac_wire!r}: want 'packed' or "
                              "'rice'")
@@ -323,6 +347,9 @@ class BatchDecoder:
         self.flac_wire = flac_wire
         self._group_size = group_size
         self.device = device_of(device)
+        self.mesh = mesh
+        #: the devices the group shards ran on, in first-use order
+        self.devices_used: List[torch.device] = []
         self.decoders: List[Optional[object]] = []
         self.errors: List[Optional[str]] = []
         for item in items:
@@ -396,14 +423,15 @@ class BatchDecoder:
         self._stat_add("host_cpu_ms", cdt)
         self._stat_add("host_cpu_ms_by_format", cdt, fmt=fmt)
 
-    def _reprobe(self, i):
-        """Fresh decoder for lane i (a failed grouped run leaves decoder
-        state mid-window); sets the lane error when the re-probe fails."""
+    def _reprobe(self, i, device: torch.device):
+        """Fresh decoder for lane i on `device`, its shard's (a failed
+        grouped run leaves decoder state mid-window); sets the lane error
+        when the re-probe fails."""
         d = self.decoders[i]
         try:
             src = getattr(d, "_src", None)
             self.decoders[i] = (
-                models.probe_all(src, self.device) if src is not None
+                models.probe_all(src, device) if src is not None
                 else None
             )
         except Exception:
@@ -411,7 +439,8 @@ class BatchDecoder:
         if self.decoders[i] is None and self.errors[i] is None:
             self.errors[i] = "Cannot decode stream: data is corrupt."
 
-    def _run_group(self, fn, chunk, *args, to_device: bool = False):
+    def _run_group(self, fn, chunk, *args, device: torch.device,
+                   to_device: bool = False):
         """Run a lockstep group decode with the error lattice intact: a lane
         that raises inside the grouped device path must not abort the other
         lanes.  Demotion is PER-LANE: on a failure the chunk bisects (each
@@ -423,10 +452,11 @@ class BatchDecoder:
         is recorded in stats["group_exceptions"] so code faults don't
         masquerade as corrupt data.  A KernelError (a kernel that does not
         build, load or launch) is no lane's fault and propagates: demoting
-        around it would move the kernel's work to another path."""
+        around it would move the kernel's work to another path.  Every
+        call, retries included, runs on the shard's `device`."""
         try:
             return fn([self.decoders[i] for i in chunk], *args,
-                      to_device=to_device)
+                      device=device, to_device=to_device)
         except KernelError:
             raise
         except Exception as e:
@@ -437,17 +467,17 @@ class BatchDecoder:
                     excs.append(f"{type(e).__name__}: {e}")
             if len(chunk) == 1:
                 self._stat_add("lanes_demoted", 1)
-                self._reprobe(chunk[0])
+                self._reprobe(chunk[0], device)
                 return [None]
             mid = len(chunk) // 2
             out = []
             for half in (chunk[:mid], chunk[mid:]):
                 for i in half:
-                    self._reprobe(i)
+                    self._reprobe(i, device)
                 live = [i for i in half if self.decoders[i] is not None]
                 res = {i: None for i in half}
                 if live:
-                    sub = self._run_group(fn, live, *args,
+                    sub = self._run_group(fn, live, *args, device=device,
                                           to_device=to_device)
                     if isinstance(sub, _PendingGroup):
                         sub = sub.finalize()
@@ -525,9 +555,28 @@ class BatchDecoder:
         # downloaded, moderate groups let fetches overlap the next group's
         # host stage
         GROUP = self._group_size or (1024 if to_device else 256)
+        data_devices = [self.device] if self.mesh is None \
+            else self.mesh.data_devices
 
-        def run(chunk, fn, *args):
-            res = self._run_group(fn, chunk, *args, to_device=to_device)
+        def shards(lanes):
+            """(lanes, device) of each non-empty shard of every GROUP chunk
+            of `lanes`: a chunk splits into contiguous pieces over the data
+            devices."""
+            out = []
+            for c in range(0, len(lanes), GROUP):
+                chunk = lanes[c: c + GROUP]
+                for dev, idx in zip(data_devices, np.array_split(
+                        np.arange(len(chunk)), len(data_devices))):
+                    if idx.size:
+                        out.append((chunk[idx[0]: idx[-1] + 1], dev))
+            return out
+
+        def run(chunk, device, fn, *args):
+            with self._stats_lock:
+                if device not in self.devices_used:
+                    self.devices_used.append(device)
+            res = self._run_group(fn, chunk, *args, device=device,
+                                  to_device=to_device)
             if isinstance(res, _PendingGroup):
                 finalizers.append((chunk, res))
                 for i in chunk:
@@ -536,32 +585,22 @@ class BatchDecoder:
                 for i, pcm in zip(chunk, res):
                     out[i] = pcm
 
+        # (lanes, device, group function, its arguments) a shard
         jobs = []
-        for (nch, mpeg1), lanes in mp3_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_mp3_group,
-                             (nch, 2 if mpeg1 else 1)))
-        for (nch, _layer), lanes in l12_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_l12_group,
-                             (nch,)))
         flac_fn = self._decode_flac_group_rice if self.flac_wire == "rice" \
             else self._decode_flac_group
-        for nch, lanes in flac_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], flac_fn, (nch,)))
-        for nch, lanes in qoa_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_qoa_group,
-                             (nch,)))
-        for kind, lanes in wav_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_wav_group,
-                             (kind,)))
-        for (nch, _bs0, _bs1), lanes in vorbis_groups.items():
-            for c in range(0, len(lanes), GROUP):
-                jobs.append((lanes[c: c + GROUP], self._decode_vorbis_group,
-                             (nch,)))
+        for groups, fn, args_of in (
+                (mp3_groups, self._decode_mp3_group,
+                 lambda k: (k[0], 2 if k[1] else 1)),
+                (l12_groups, self._decode_l12_group, lambda k: (k[0],)),
+                (flac_groups, flac_fn, lambda k: (k,)),
+                (qoa_groups, self._decode_qoa_group, lambda k: (k,)),
+                (wav_groups, self._decode_wav_group, lambda k: (k,)),
+                (vorbis_groups, self._decode_vorbis_group,
+                 lambda k: (k[0],))):
+            for key, lanes in groups.items():
+                jobs.extend((chunk, dev, fn, args_of(key))
+                            for chunk, dev in shards(lanes))
         # the mode-switching Opus group runs on a thread of its own, beside
         # the other groups; it is joined even when another group raises,
         # so no orphaned thread goes on writing `out`, and its own
@@ -572,9 +611,8 @@ class BatchDecoder:
             def run_mixed():
                 try:
                     for lanes in opus_mixed_groups.values():
-                        for c in range(0, len(lanes), GROUP):
-                            run(lanes[c: c + GROUP],
-                                self._decode_opus_mixed_group)
+                        for chunk, dev in shards(lanes):
+                            run(chunk, dev, self._decode_opus_mixed_group)
                 except BaseException as e:  # raised on the main thread
                     mixed_err.append(e)
 
@@ -585,28 +623,30 @@ class BatchDecoder:
             # groups run concurrently on multi-core hosts (lane sets are
             # disjoint; stats ride _stat_add's lock): one group's host
             # parse overlaps another group's uploads and device windows
+            # (under a mesh too: the shards share no collective whose
+            # order the threads could break)
             conc = 2 if (os.cpu_count() or 1) > 1 else 1
             if conc > 1 and len(jobs) > 1:
                 with ThreadPoolExecutor(max_workers=conc) as ex:
-                    for f in [ex.submit(run, chunk, fn, *args)
-                              for chunk, fn, args in jobs]:
+                    for f in [ex.submit(run, chunk, dev, fn, *args)
+                              for chunk, dev, fn, args in jobs]:
                         f.result()
             else:
-                for chunk, fn, args in jobs:
-                    run(chunk, fn, *args)
-            # the Opus groups after the pooled jobs, a chunk after
+                for chunk, dev, fn, args in jobs:
+                    run(chunk, dev, fn, *args)
+            # the Opus groups after the pooled jobs, a shard after
             # another, as the JAX package runs them: CELT, SILK, hybrid
             for lanes in opus_groups.values():
-                for c in range(0, len(lanes), GROUP):
-                    run(lanes[c: c + GROUP], self._decode_opus_group)
+                for chunk, dev in shards(lanes):
+                    run(chunk, dev, self._decode_opus_group)
             for (nch, config, stereo, nfr), lanes in silk_groups.items():
-                for c in range(0, len(lanes), GROUP):
-                    run(lanes[c: c + GROUP], self._decode_silk_group, nch,
-                        config, stereo, nfr)
+                for chunk, dev in shards(lanes):
+                    run(chunk, dev, self._decode_silk_group, nch, config,
+                        stereo, nfr)
             for (nch, config, stereo), lanes in hybrid_groups.items():
-                for c in range(0, len(lanes), GROUP):
-                    run(lanes[c: c + GROUP], self._decode_hybrid_group,
-                        nch, config, stereo)
+                for chunk, dev in shards(lanes):
+                    run(chunk, dev, self._decode_hybrid_group, nch, config,
+                        stereo)
         finally:
             if mixed_thread is not None:
                 mixed_thread.join()
@@ -644,7 +684,7 @@ class BatchDecoder:
 
     # ------------------------------------------------ batched MP3 lockstep
     def _decode_l12_group(self, decs: List[Mp3Decoder], nch: int,
-                          to_device: bool = False):
+                          device: torch.device, to_device: bool = False):
         """Layer I/II lockstep: no bit reservoir, so frames are independent
         subband blocks (minimp3.d:286-486).  The host parses W frames per
         lane into scalefactor-applied slot tensors; one batched synthesis
@@ -657,7 +697,7 @@ class BatchDecoder:
         TS = W * spf_slots
         B = len(decs)
         shist = torch.zeros((B, nch, 16, 32), dtype=torch.float32,
-                            device=self.device)
+                            device=device)
         offs = [d._offset for d in decs]
         active = np.ones(B, bool)
         pending = []
@@ -693,7 +733,7 @@ class BatchDecoder:
             if not n_slots.any():
                 break
             t_enq = time.perf_counter()
-            (S_d,) = _upload(self.device, Sarr)
+            (S_d,) = _upload(device, Sarr)
             pcm, shist = mp3_dsp.mp3_synth_slots(S_d, shist, nch=nch)
             pending.append((_prefetch(pcm, to_device), n_slots))
             self._note_stage("enqueue_ms", "mp3_l12", t_enq)
@@ -726,18 +766,19 @@ class BatchDecoder:
         return result
 
     def _decode_mp3_group(self, decs: List[Mp3Decoder], nch: int, ngr: int,
-                          to_device: bool = False):
+                          device: torch.device, to_device: bool = False):
         lib = _native.get_lib()
         if lib is None:
             raise RuntimeError("the MP3 batch path needs the C host stage "
                                "(host/src/af_host.cc), which did not load")
-        pending = self._decode_mp3_group_packed(decs, nch, ngr, lib,
+        pending = self._decode_mp3_group_packed(decs, nch, ngr, lib, device,
                                                 to_device)
         group = _PendingGroup("mp3", decs, pending, self._mp3_finalize,
                               (decs, pending, nch))
         return group if to_device else group.finalize()
 
     def _decode_mp3_group_packed(self, decs, nch: int, ngr: int, lib,
+                                 device: torch.device,
                                  to_device: bool = False):
         """Device-Huffman lockstep over the pooled wire: per window the C
         stage parses 24 frames of every lane into each frame's main data
@@ -755,7 +796,6 @@ class BatchDecoder:
         NL = G * nch
         LPF = ngr * nch  # lanes a frame
         FW = _native.FRAME_WORDS
-        device = self.device
         dev_state = {
             "overlap": torch.zeros((B, nch, 32, 18), dtype=torch.float32,
                                    device=device),
@@ -970,14 +1010,13 @@ class BatchDecoder:
 
     # ------------------------------------------------ batched FLAC lockstep
     def _decode_flac_group(self, decs: List[FlacDecoder], nch: int,
-                           to_device: bool = False):
+                           device: torch.device, to_device: bool = False):
         """FLAC lockstep over the packed wire: the C host stage Rice-decodes
         W frames per lane, packs the residual rows at the window's bit
         width, and one upload plus one device chain (unpack → overflow
         merge → LPC kernel → stereo decorrelation) runs per window."""
         B = len(decs)
         W = FLAC_WINDOW_FRAMES
-        device = self.device
         outputs = [[] for _ in range(B)]
         active = np.ones(B, dtype=bool)
         pending = []  # (device out32, [(slot, si, blocksize), ...])
@@ -1383,6 +1422,7 @@ class BatchDecoder:
 
     # -------------------------------------- batched FLAC, device-Rice wire
     def _decode_flac_group_rice(self, decs: List[FlacDecoder], nch: int,
+                                device: torch.device,
                                 to_device: bool = False):
         """FLAC lockstep over the device-Rice wire: the host runs only the
         byte-level frame sync index, one C call a window for every live
@@ -1417,7 +1457,7 @@ class BatchDecoder:
                 buf[cur: cur + nb] = np.frombuffer(d._view, np.uint8, nb, 0)
                 stream_base[bi] = cur
                 cur += nb
-            (corpus_d,) = _upload(self.device, buf.view(np.int32))
+            (corpus_d,) = _upload(device, buf.view(np.int32))
             corpus = (corpus_d, stream_base, zero_off)
             self._stat_add("h2d_bytes", buf.nbytes)
             self._stat_add("h2d_bytes_by_format", buf.nbytes, fmt="flac")
@@ -1425,8 +1465,8 @@ class BatchDecoder:
         # window k's device chain
         pool_w = ThreadPoolExecutor(max_workers=1)
         try:
-            self._flac_rice_windows(decs, nch, to_device, lib, corpus,
-                                    outputs, pending, pool_w)
+            self._flac_rice_windows(decs, nch, device, to_device, lib,
+                                    corpus, outputs, pending, pool_w)
         finally:
             # no worker outlives a lane fault mid-window
             pool_w.shutdown(wait=True)
@@ -1449,8 +1489,8 @@ class BatchDecoder:
                               (decs, outputs, pending, nch))
         return group if to_device else group.finalize()
 
-    def _flac_rice_windows(self, decs, nch, to_device, lib, corpus, outputs,
-                           pending, pool_w):
+    def _flac_rice_windows(self, decs, nch, device, to_device, lib, corpus,
+                           outputs, pending, pool_w):
         """The device-Rice window loop: one af_flac_sync_index_multi call a
         window indexes up to W frames of every live lane (each lane's sync
         state is a row of a batch array, written back to its decoder at the
@@ -1521,13 +1561,13 @@ class BatchDecoder:
             if not lanes:
                 break
             self._flac_rice_enqueue(decs, lanes, nch, outputs, pending,
-                                    pool_w, to_device, ptrs, corpus)
+                                    pool_w, device, to_device, ptrs, corpus)
         # chunked reads continue across groups from the sync state
         for bi, d in enumerate(decs):
             d._rice_state[:] = st_all[bi]
 
     def _flac_rice_enqueue(self, decs, lanes, nch, outputs, pending, pool_w,
-                           to_device, lane_addrs, corpus):
+                           device, to_device, lane_addrs, corpus):
         """Split a window's frames into dispatches whose pools, with the two
         guard blocks, stay within RICE_DISPATCH_BLOCKS."""
         blk_b = flac_rice.BLK_W * 4
@@ -1542,10 +1582,11 @@ class BatchDecoder:
         chunks.append(cur)
         for sub in chunks:
             self._rice_dispatch_lanes(decs, sub, nch, outputs, pending,
-                                      pool_w, to_device, lane_addrs, corpus)
+                                      pool_w, device, to_device, lane_addrs,
+                                      corpus)
 
     def _rice_dispatch_lanes(self, decs, lanes, nch, outputs, pending,
-                             pool_w, to_device, lane_addrs, corpus):
+                             pool_w, device, to_device, lane_addrs, corpus):
         """Build and submit one device-Rice dispatch: the frame pool (or
         its gather indices), the per-frame arrays, and the worker's device
         chain (pool → frame-entropy kernel → LPC kernel → stereo)."""
@@ -1579,7 +1620,6 @@ class BatchDecoder:
                                np.int32, S)
         use_s16 = bool((lane_bps <= 16).all())
         out_shifts = (32 - lane_bps).astype(np.int32)
-        device = self.device
 
         def _dispatch(pool, lane_src, cum_dst, start_bits, bs_arr, ca_arr,
                       bps_arr, out_shifts, NPOOL, max_bs, use_s16):
@@ -1670,7 +1710,7 @@ class BatchDecoder:
 
     # --------------------------------------------------- batched QOA frames
     def _decode_qoa_group(self, decs: List[QoaDecoder], nch: int,
-                          to_device: bool = False):
+                          device: torch.device, to_device: bool = False):
         """QOA batching: LMS state is in-band per frame (qoa.d:488-503), so
         every frame of every stream is an independent lane — the whole
         group decodes as a few large [lanes, 5120] device calls.  Slice
@@ -1716,7 +1756,7 @@ class BatchDecoder:
                 t_enq = time.perf_counter()
                 sl = slice(c0, min(L, c0 + QOA_WINDOW_LANES))
                 arrays = (hist[sl], wts[sl], sf8[sl], cd8[sl])
-                out = lms_ops.decode_slices(*_upload(self.device, *arrays))
+                out = lms_ops.decode_slices(*_upload(device, *arrays))
                 pending.append((_prefetch(out, to_device), sl.stop - c0))
                 self._note_stage("enqueue_ms", "qoa", t_enq)
                 h2d = sum(a.nbytes for a in arrays)
@@ -1752,7 +1792,7 @@ class BatchDecoder:
 
     # --------------------------------------------------- batched WAV lanes
     def _decode_wav_group(self, decs: List[WavDecoder], kind: str,
-                          to_device: bool = False):
+                          device: torch.device, to_device: bool = False):
         """WAV batching: int → f32 is elementwise, so every lane of one
         sample kind rides one device call.  Each lane's raw payload bytes
         (frame-aligned, so lane boundaries stay sample boundaries) join one
@@ -1771,8 +1811,7 @@ class BatchDecoder:
         self._note_stage("host_ms", "wav", t_host)
         self._note_host_cpu("wav", ct_host)
         t_enq = time.perf_counter()
-        out = pcm_ops.decode_bytes(torch.from_numpy(raw).to(self.device),
-                                   kind)
+        out = pcm_ops.decode_bytes(torch.from_numpy(raw).to(device), kind)
         pending = [(_prefetch(out, to_device),)]
         self._note_stage("enqueue_ms", "wav", t_enq)
         self._stat_add("h2d_bytes", raw.nbytes)
@@ -1797,7 +1836,7 @@ class BatchDecoder:
 
     # ------------------------------------------------ batched Vorbis lanes
     def _decode_vorbis_group(self, decs: List[VorbisDecoder], nch: int,
-                             to_device: bool = False):
+                             device: torch.device, to_device: bool = False):
         """Vorbis lockstep: the host runs the entropy stage (codebooks,
         floors, residues, coupling, floor dot) of K packets a lane; one
         upload of the window's spectra X [K, L, bs1/2] and geometry, and one
@@ -1811,7 +1850,7 @@ class BatchDecoder:
         h = bs1 // 2
         L = B * nch
         K = VORBIS_WINDOW_PACKETS
-        dev = self.device
+        dev = device
         state = (torch.zeros((L, h), dtype=torch.float32, device=dev),
                  torch.zeros(B, dtype=torch.int32, device=dev),
                  torch.zeros(B, dtype=torch.int32, device=dev))
@@ -1914,14 +1953,14 @@ class BatchDecoder:
         d._lockstep_packets = pkts
         return True
 
-    def _celt_imdct_bucket(self, items, blocks, bs):
+    def _celt_imdct_bucket(self, items, blocks, bs, device):
         """One bucket of a CELT lockstep step on the device: a row for each
         output channel, each packet scaled by its own imdct_scale (0.5 when
         a stereo-coded packet downmixes to a mono output,
         models/celt.py:1243-1246; a bucket of mixed scales has its rows
         pre-multiplied, exact for 0.5 and 1.0).  One upload of the spectra
-        and tails, K12a (with the IMDCT matmul in front of it for long
-        blocks), and one download of the packed [rows, frame + 60] output
+        and tails to `device`, K12a (with the IMDCT matmul in front of it for
+        long blocks), and one download of the packed [rows, frame + 60] output
         and new tail.  items: [(celt_decoder, params)] in row order.  Returns
         (raw [rows, frame], newtail [rows, OVERLAP//2]) as numpy."""
         frame = blocks * bs
@@ -1941,8 +1980,8 @@ class BatchDecoder:
             scale = 1.0
         rows = co.shape[0]
         t0 = time.perf_counter()
-        (flat,) = _upload(self.device, np.concatenate([co.ravel(),
-                                                        tails.ravel()]))
+        (flat,) = _upload(device, np.concatenate([co.ravel(),
+                                                   tails.ravel()]))
         self._stat_add("enq_opus_upload_ms", (time.perf_counter() - t0) * 1e3)
         nb = co.nbytes + tails.nbytes
         self._stat_add("h2d_bytes", nb)
@@ -1958,7 +1997,7 @@ class BatchDecoder:
         return packed[:, :frame], packed[:, frame:]
 
     def _decode_opus_group(self, decs: List[OpusDecoder],
-                           to_device: bool = False):
+                           device: torch.device, to_device: bool = False):
         """CELT lockstep: the host symbol stage (C) runs a frame a lane a
         step; each (blocks, blocksize) bucket of the step then runs on the
         device (``_celt_imdct_bucket``), and the pitch postfilter and
@@ -2009,7 +2048,8 @@ class BatchDecoder:
             t_enq = time.perf_counter()
             for (blocks, bs), items in buckets.items():
                 raw, newtail = self._celt_imdct_bucket(
-                    [(cd, p) for (_, _, cd, p, _) in items], blocks, bs)
+                    [(cd, p) for (_, _, cd, p, _) in items], blocks, bs,
+                    device)
                 t0 = time.perf_counter()
                 row = 0
                 for (bi, d, cd, p, n) in items:
@@ -2163,7 +2203,7 @@ class BatchDecoder:
 
     def _decode_silk_group(self, decs: List[OpusDecoder], nch: int,
                            config: int, stereo: bool, nfr: int,
-                           to_device: bool = False):
+                           device: torch.device, to_device: bool = False):
         """SILK lockstep (the JAX package's batch.py:3247): each lane's
         SILK synthesis at the native rate on the host (the per-stream
         read's SilkDecoder), then one K13 launch a packet step upsamples
@@ -2187,7 +2227,7 @@ class BatchDecoder:
         # (models/silk.py: the mono copy and the MS unmix share a
         # one-sample-delay timeline)
         rs = BatchedFittedUpsampler(bw, B * nch, feed=[4, 9, 12][bw],
-                                    device=self.device)
+                                    device=device)
         silks = [SilkDecoder(output_channels=nch) for _ in decs]
         outs = [[] for _ in range(B)]
         owed = [0] * B   # each lane's samples the upsampler holds back
@@ -2231,7 +2271,7 @@ class BatchDecoder:
 
     def _decode_hybrid_group(self, decs: List[OpusDecoder], nch: int,
                              config: int, stereo: bool,
-                             to_device: bool = False):
+                             device: torch.device, to_device: bool = False):
         """Hybrid lockstep (the JAX package's batch.py:3079), a step in
         three phases.  On the host, each lane's SILK superframe at 16 kHz,
         its redundancy flag and its CELT symbols (bands 17 on, on the same
@@ -2253,7 +2293,7 @@ class BatchDecoder:
         T = dur_ms * 16                      # SILK runs wideband
         coded = 2 if stereo else 1
         endband = 19 if config < 14 else 21
-        rs = BatchedFittedUpsampler(2, B * nch, feed=12, device=self.device)
+        rs = BatchedFittedUpsampler(2, B * nch, feed=12, device=device)
         sds = []
         for d in decs:
             sd = d._streams[0]
@@ -2308,7 +2348,7 @@ class BatchDecoder:
             for (blocks, bs), lanes in buckets.items():
                 raw, newtail = self._celt_imdct_bucket(
                     [(sds[bi]._celt, stash[bi][0]) for bi in lanes],
-                    blocks, bs)
+                    blocks, bs, device)
                 row = 0
                 for bi in lanes:
                     k = sds[bi]._celt.output_channels
@@ -2343,6 +2383,7 @@ class BatchDecoder:
         return self._lane_pcm(decs, outs)
 
     def _decode_opus_mixed_group(self, decs: List[OpusDecoder],
+                                 device: torch.device,
                                  to_device: bool = False):
         """Mode-switching Opus lockstep (the JAX package's batch.py:2874):
         every lane drives the per-stream read's own packet generator
@@ -2352,10 +2393,12 @@ class BatchDecoder:
         syntheses are answered here: from OPUS_MIXED_DEVICE_MIN_LANES
         lanes on, bucketed by (blocks, blocksize) across lanes, one K12a
         launch a bucket a round (``_celt_imdct_bucket``); in a smaller group, on the host by
-        ``CeltDecoder.synthesize``, the per-stream read's own IMDCT.
-        Returns host PCM for either output."""
+        ``CeltDecoder.synthesize``, the per-stream read's own IMDCT.  Under
+        a mesh the device path runs whatever the lane count, as the JAX
+        package's does.  Returns host PCM for either output."""
         B = len(decs)
-        use_device = B >= OPUS_MIXED_DEVICE_MIN_LANES
+        use_device = self.mesh is not None or \
+            B >= OPUS_MIXED_DEVICE_MIN_LANES
         for d in decs:
             if not hasattr(d, "_mixed_pkts") and \
                     not self._opus_mixed_eligible(d):
@@ -2404,7 +2447,7 @@ class BatchDecoder:
             t_enq = time.perf_counter()
             for (blocks, bs), items in jobs.items():
                 raw, newtail = self._celt_imdct_bucket(
-                    [(cd, p) for _, cd, p in items], blocks, bs)
+                    [(cd, p) for _, cd, p in items], blocks, bs, device)
                 row = 0
                 for bi, cd, p in items:
                     k = cd.output_channels

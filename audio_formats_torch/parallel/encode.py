@@ -14,6 +14,10 @@ launch per chunk of lanes serves every stream.
 ``parallel_frames=False`` is byte-exact vs the streaming single-stream
 QoaEncoder (tested): full frames run in lockstep; each stream's final
 partial frame finishes with a per-stream call of the same kernel.
+
+``mesh=`` (``parallel/mesh.py``) splits the independent lanes of each
+device call into contiguous shards over the mesh's 'data' devices, one
+launch a shard; the bytes equal the unsharded call's.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..ops import lms as lms_ops
 from ..ops import pcm as pcm_ops
 from ..ops.lms import QOA_SLICE_LEN, QOA_SLICES_PER_FRAME
 from .batch import _prefetch, _to_numpy
+from .mesh import mesh_device
 
 #: lanes per device call of the frame-parallel encoder
 QOA_CHUNK_LANES = 2048
@@ -40,7 +45,7 @@ QOA_CHUNK_LANES = 2048
 
 def encode_qoa_batch(pcms: Sequence[np.ndarray], sample_rate: int,
                      parallel_frames: bool = True, device="cuda",
-                     stats: dict = None) -> List[bytes]:
+                     stats: dict = None, mesh=None) -> List[bytes]:
     """Encode N streams of float PCM [(frames, ch)] to QOA byte streams.
 
     Channel counts may differ per stream; lanes = Σ channels.  ``device``
@@ -60,8 +65,19 @@ def encode_qoa_batch(pcms: Sequence[np.ndarray], sample_rate: int,
 
     If ``stats`` (a dict) is given, ``windows`` (device calls) is recorded,
     and with ``parallel_frames=True`` also ``h2d_bytes`` and ``d2h_bytes``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): with ``parallel_frames=True`` each
+    chunk's frame lanes split into contiguous shards over the mesh's 'data'
+    devices, one search launch (a window) a shard, and the word planes join
+    in lane order: the bytes equal the unsharded encode's.  ``device`` then
+    defaults to the mesh's first device, and another one raises
+    ValueError; the sequential layout runs on that device, as the JAX
+    package's runs unsharded.
     """
+    if mesh is not None:
+        device = mesh_device(device, mesh)
     dev = device_of(device)
+    devices = [dev] if mesh is None else mesh.data_devices
     n = len(pcms)
     chans = [p.shape[1] for p in pcms]
     lengths = [p.shape[0] for p in pcms]
@@ -91,7 +107,7 @@ def encode_qoa_batch(pcms: Sequence[np.ndarray], sample_rate: int,
                 return a
 
         return _encode_qoa_frames_parallel(
-            _LazyS16(), chans, lengths, sample_rate, dev, stats)
+            _LazyS16(), chans, lengths, sample_rate, devices, stats)
 
     def search(lanes, hist, wts, frame_len):
         out = lms_ops.qoa_encode_frame_scan(
@@ -147,7 +163,7 @@ def encode_qoa_batch(pcms: Sequence[np.ndarray], sample_rate: int,
     return [bytes(o) for o in outs]
 
 
-def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, dev,
+def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, devices,
                                 stats=None) -> List[bytes]:
     """Frame-parallel QOA encode: every (stream, frame, channel) is an
     independent lane of a lockstep device call, each frame starting from
@@ -159,7 +175,8 @@ def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, dev,
     frame's channels stay together) uploads int16 rows, launches the
     search, and starts the download of its [lanes, 256] word plane through
     a pinned copy; the host then builds the next chunk's rows while the
-    card works."""
+    card works.  A chunk's lanes split into contiguous shards over
+    `devices`, one upload, search and download a shard."""
     n = len(chans)
     # lane layout: frame-major per stream, channel-minor
     spans = []  # (stream, frame_idx, frame_samples, lane_start)
@@ -194,11 +211,17 @@ def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, dev,
             rows[ls - c0 : ls - c0 + chans[i], :fs] = seg.T
             flen[ls - c0 : ls - c0 + chans[i]] = fs
         h2d += rows.nbytes + flen.nbytes
-        words = lms_ops.qoa_encode_frame_words(
-            torch.from_numpy(rows).to(dev), torch.from_numpy(flen).to(dev))
-        fetches.append((c0, c1, _prefetch(words, False)))
-        if stats is not None:
-            stats["windows"] += 1
+        for dev, idx in zip(devices, np.array_split(np.arange(c1 - c0),
+                                                    len(devices))):
+            if not idx.size:
+                continue
+            a, b = int(idx[0]), int(idx[-1]) + 1
+            words = lms_ops.qoa_encode_frame_words(
+                torch.from_numpy(rows[a:b]).to(dev),
+                torch.from_numpy(flen[a:b]).to(dev))
+            fetches.append((c0 + a, c0 + b, _prefetch(words, False)))
+            if stats is not None:
+                stats["windows"] += 1
         si = sj
     for (c0, c1, words) in fetches:
         arr = _to_numpy(words)
@@ -231,7 +254,7 @@ def _encode_qoa_frames_parallel(s16, chans, lengths, sample_rate, dev,
 
 def encode_wav_batch(pcms: Sequence[np.ndarray], sample_rate: int,
                      options: EncodingOptions = None, device="cuda",
-                     stats: dict = None) -> List[bytes]:
+                     stats: dict = None, mesh=None) -> List[bytes]:
     """Encode N float streams [(frames, ch)] to WAV byte streams.
 
     The quantize (TPDF dither or exact round-half-up) and the byte pack run
@@ -244,11 +267,19 @@ def encode_wav_batch(pcms: Sequence[np.ndarray], sample_rate: int,
 
     If ``stats`` (a dict) is given, ``windows`` (device calls),
     ``h2d_bytes`` and ``d2h_bytes`` are recorded.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) splits the streams' rows over the
+    mesh's 'data' devices, one K10 launch a shard
+    (``ops.pcm.quantize_pack_rows``): the bytes equal the unsharded
+    encode's.  ``device`` then defaults to the mesh's first device, and
+    another one raises ValueError.
     """
     options = options or EncodingOptions()
     fmt = options.sample_format
     sample_size, wformat, qkind = _FMT_INFO[fmt]
     n = len(pcms)
+    if mesh is not None:
+        device = mesh_device(device, mesh)
     dev = device_of(device)
     if stats is not None:
         stats.update(windows=0, h2d_bytes=0, d2h_bytes=0)
@@ -265,15 +296,15 @@ def encode_wav_batch(pcms: Sequence[np.ndarray], sample_rate: int,
         for i, f in enumerate(flats):
             rows[i, : lens[i]] = f
         seeds = np.full(n, options.dither_seed & 0xFFFFFFFF, np.int64)
-        x = torch.from_numpy(rows).to(dev)
         # quantize and pack on the device: the download is the payload
         # bytes (3 a sample for s24), not an int32 plane
-        w = pcm_ops.quantize_pack(x, torch.from_numpy(seeds), qkind,
-                                  options.enable_dither)
-        w = _to_numpy(_prefetch(w, False))
-        bodies = [w[i, : sample_size * lens[i]].tobytes() for i in range(n)]
+        bodies = pcm_ops.quantize_pack_rows(
+            rows, lens, seeds, qkind, sample_size,
+            dither=options.enable_dither, device=dev, mesh=mesh)
         if stats is not None:
-            stats.update(windows=1, h2d_bytes=rows.nbytes + seeds.nbytes,
-                         d2h_bytes=w.nbytes)
+            n_dev = 1 if mesh is None else mesh.shape["data"]
+            stats.update(windows=min(n, n_dev),
+                         h2d_bytes=rows.nbytes + seeds.nbytes,
+                         d2h_bytes=rows.size * sample_size)
     return [wav_header(wformat, p.shape[1], sample_rate, sample_size,
                        len(body)) + body for p, body in zip(pcms, bodies)]

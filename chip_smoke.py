@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the audio_formats_torch FLAC, QOA, MP3, WAV, Vorbis and Opus slices
-and the single-stream facade of all eight formats once on one CUDA GPU.
+"""Drive the audio_formats_torch FLAC, QOA, MP3, WAV, Vorbis and Opus slices,
+the single-stream facade of all eight formats and the mesh once on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -158,11 +159,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (byte-equal), and the four examples of
    examples_torch/ run on the card as subprocesses: transcode
    --check-seeking on the FLAC and MP3 tracks, dump_patterns on the XM,
-   batch_decode on a file of each format, midi2wav on a small MIDI file.
+   batch_decode on a file of each format, midi2wav on a small MIDI file;
+16. mesh  — ``make_mesh(1)``, and ``make_mesh(4, data=4, devices=["cuda:0"]
+   * 4)`` (make_mesh of one device more than the card count raises); over
+   the latter, ``BatchDecoder(..., mesh=).decode_all(output="device")`` of
+   the FLAC slice's 512 lanes on both wires (bit-equal to the same lanes
+   unsharded and to their source) and of the MP3 slice's 1,024 lanes
+   (within 4e-6 of the unsharded run's peak and 1e-4 of mp3_ref), then a
+   mixed set (Layer II, QOA, WAV, Vorbis, CELT, SILK, hybrid and
+   mode-switching Opus, one corrupt lane, the only one that may err or
+   leave its group; the mixed Opus group on the device path under 16
+   lanes) against its unsharded run, the QOA encode (4,480 frame lanes)
+   and the dithered s24 WAV encode of the encode slice's masters
+   byte-equal to the unsharded encodes, and ``entry.dryrun_multichip(4,
+   devices=["cuda:0"] * 4, items=...)`` on the JAX dryrun's lanes and the
+   mixed set; each timed sharded and unsharded, and each kernel's
+   launches a shard counted (``mesh_launches``).
 
 Prints a JSON line with the kernels' launches (and the facade's launches
-of K1, K2, K5 and K10), errors, times and bounds, the card's name and power
-limit, and last ``{"ok": true, "device":
+of K1, K2, K5 and K10, and the mesh phase's), errors, times and bounds,
+the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of the JAX package, and checks so
 before the result.
 
@@ -296,6 +312,8 @@ FACADE_FORMATS = ("flac", "wav", "qoa", "mp3", "vorbis", "opus", "mod",
 FACADE_TOL = {"mp3": (MP3_TOL, False), "vorbis": (VORBIS_TOL, True),
               "opus": (OPUS_TOL, True)}
 F32_RECIP = np.float32(1.0) / np.float32(32767.0)  # QOA's s16 -> float
+MESH_SHARDS = 4       # phase 16: a mesh that names cuda:0 four times
+                      # on the card (the JAX dryrun's, __graft_entry__.py:248)
 
 _GOLDEN = {}
 
@@ -722,8 +740,9 @@ def time_host(fn, reps=20):
 # Late in a long run (after the Opus speech slices) a trace can miss the
 # card's records of some launches: of the port's kernels from 2 of 20 to
 # all of them, at random, of torch's own kernels in the same trace fewer.
-# ``device_ms(..., per_launch=True)`` and ``deemph_chain`` read what a
-# trace holds and trace again where it holds too little.
+# ``device_ms(..., per_launch=True)``, ``kernel_names`` and
+# ``deemph_chain`` read what a trace holds and trace again where it holds
+# too little (a trace can also hold no device event at all).
 TRACE_TRIES = 3
 
 
@@ -1240,57 +1259,46 @@ def phase_qoa_kernels(card):
              "share": enc_b["bound_ms"] / enc_ms})
 
 
-def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
-                   flac_wire="packed", rel=False):
-    """Run the main path on `streams` (FLAC over `flac_wire`) and hold every
-    good lane to `expect(i)`, its PCM: bit for bit, or within max abs
-    `tol` (with `rel`, `tol` times the expected PCM's peak).  The kernel
-    counts are set to 0 just before the run and read just after.  Returns
-    (decoder, wall seconds, launches by kernel, output, the largest error
-    seen, over the peak with `rel`)."""
-    import torch
-    from audio_formats_torch import BatchDecoder
-    from audio_formats_torch.ops import (celt_dsp, flac_rice, lms, lpc,
-                                         mp3_huff, pcm, resample, vorbis_win)
+#: the launch counters of the decode kernels: (key, module, counter)
+DECODE_COUNTERS = (
+    ("flac_lpc", "lpc", "KERNEL_LAUNCHES"),
+    ("qoa_decode", "lms", "DECODE_LAUNCHES"),
+    ("mp3_huff", "mp3_huff", "HUFF_LAUNCHES"),
+    ("flac_rice", "flac_rice", "RICE_LAUNCHES"),
+    ("pcm", "pcm", "DECODE_LAUNCHES"),
+    ("vorbis_win", "vorbis_win", "WIN_LAUNCHES"),
+    ("celt_ola", "celt_dsp", "OLA_LAUNCHES"),
+    ("celt_imdct_ola", "celt_dsp", "IMDCT_OLA_LAUNCHES"),
+    ("silk_upsample", "resample", "UPSAMPLE_LAUNCHES"),
+    ("celt_deemph", "celt_dsp", "DEEMPH_LAUNCHES"))
 
-    dec = BatchDecoder(streams, device=device, flac_wire=flac_wire)
-    resample.UPSAMPLE_LAUNCHES = 0
-    celt_dsp.DEEMPH_LAUNCHES = 0
-    lpc.KERNEL_LAUNCHES = 0
-    lms.DECODE_LAUNCHES = 0
-    mp3_huff.HUFF_LAUNCHES = 0
-    flac_rice.RICE_LAUNCHES = 0
-    pcm.DECODE_LAUNCHES = 0
-    vorbis_win.WIN_LAUNCHES = 0
-    celt_dsp.OLA_LAUNCHES = 0
-    celt_dsp.IMDCT_OLA_LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = dec.decode_all(output="device")
-    res.sync()
-    wall = time.perf_counter() - t0
-    launches = {"flac_lpc": lpc.KERNEL_LAUNCHES,
-                "qoa_decode": lms.DECODE_LAUNCHES,
-                "mp3_huff": mp3_huff.HUFF_LAUNCHES,
-                "flac_rice": flac_rice.RICE_LAUNCHES,
-                "pcm": pcm.DECODE_LAUNCHES,
-                "vorbis_win": vorbis_win.WIN_LAUNCHES,
-                "celt_ola": celt_dsp.OLA_LAUNCHES,
-                "celt_imdct_ola": celt_dsp.IMDCT_OLA_LAUNCHES,
-                "silk_upsample": resample.UPSAMPLE_LAUNCHES,
-                "celt_deemph": celt_dsp.DEEMPH_LAUNCHES}
-    st = dec.stats
-    for _, wins in res.windows():
-        for w in wins:
-            if w.device.type != torch.device(device).type:
-                raise AssertionError(f"a PCM window lies on {w.device}")
-    if st["group_demotions"] or st.get("lanes_demoted"):
-        raise AssertionError(f"demotions: {st.get('group_exceptions')}")
-    # every FLAC, QOA, MP3 Layer III, WAV and Vorbis window, every Opus
-    # CELT bucket and every SILK upsample step launches exactly one kernel
-    # (LPC, LMS, Huffman, PCM, lapped window, one of K12a's two routes,
-    # SILK upsample), and a FLAC window of the Rice wire the frame entropy
-    # kernel too; Layer I/II windows are synthesis only, and no decode path
-    # runs the CELT deemphasis on the card
+
+def zero_launches():
+    """Set every decode kernel's launch count to 0."""
+    import importlib
+
+    for _, mod, name in DECODE_COUNTERS:
+        setattr(importlib.import_module("audio_formats_torch.ops." + mod),
+                name, 0)
+
+
+def read_launches():
+    """{kernel: launches} of the decode kernels since zero_launches()."""
+    import importlib
+
+    return {key: getattr(importlib.import_module(
+        "audio_formats_torch.ops." + mod), name)
+        for key, mod, name in DECODE_COUNTERS}
+
+
+def check_window_launches(launches, st, flac_wire):
+    """Every FLAC, QOA, MP3 Layer III, WAV and Vorbis window, every Opus
+    CELT bucket and every SILK upsample step launches exactly one kernel
+    (LPC, LMS, Huffman, PCM, lapped window, one of K12a's two routes, SILK
+    upsample), and a FLAC window of the Rice wire the frame entropy kernel
+    too; Layer I/II windows are synthesis only, and no decode path runs the
+    CELT deemphasis on the card.  Under a mesh each shard's window is one
+    window."""
     wbf = st["windows_by_format"]
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
@@ -1307,7 +1315,46 @@ def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
     if got != want_launches:
         raise AssertionError(f"kernel launches {launches} != windows "
                              f"{wbf}")
-    out = res.to_numpy()
+
+
+def decode_run(streams, device, flac_wire="packed", mesh=None):
+    """Run the main path on `streams` (FLAC over `flac_wire`; with `mesh`,
+    sharded over it) through decode_all(output="device") and .sync(): every
+    PCM window on the card (under a mesh, on a shard's device), no
+    demotion, a kernel launch a window.  The kernel counts are set to 0
+    just before the run and read just after.  Returns (decoder, wall
+    seconds, launches by kernel, output as numpy)."""
+    import torch
+    from audio_formats_torch import BatchDecoder
+
+    dec = BatchDecoder(streams, device=device, flac_wire=flac_wire,
+                       mesh=mesh)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = dec.decode_all(output="device")
+    res.sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = dec.stats
+    want_dev = {torch.device(device).type} if mesh is None else \
+        set(mesh.data_devices)
+    for _, wins in res.windows():
+        for w in wins:
+            if (w.device.type if mesh is None else w.device) not in want_dev:
+                raise AssertionError(f"a PCM window lies on {w.device}")
+    if st["group_demotions"] or st.get("lanes_demoted"):
+        raise AssertionError(f"demotions: {st.get('group_exceptions')}")
+    check_window_launches(launches, st, flac_wire)
+    return dec, wall, launches, res.to_numpy()
+
+
+def decode_checked(streams, expect, device, corrupt=(), tol=0.0,
+                   flac_wire="packed", rel=False, mesh=None):
+    """decode_run, then every good lane held to `expect(i)`, its PCM: bit
+    for bit, or within max abs `tol` (with `rel`, `tol` times the expected
+    PCM's peak).  Returns (decoder, wall seconds, launches by kernel,
+    output, the largest error seen, over the peak with `rel`)."""
+    dec, wall, launches, out = decode_run(streams, device, flac_wire, mesh)
     max_err = 0.0
     for i in range(len(streams)):
         if i in corrupt:
@@ -2741,13 +2788,17 @@ def celt_ola_work(rows, blocks):
 def kernel_names(fn, reps=10):
     """The names of the kernels one call of `fn` runs on the card, each as
     often as it runs: torch.profiler's device events of `reps` calls (as
-    ``device_ms`` reads them), their counts over `reps`."""
+    ``device_ms`` reads them), their counts over `reps`; traced again
+    (TRACE_TRIES in all) while the trace holds no device event at all."""
     from torch.autograd import DeviceType
 
-    prof = traced(fn, reps)
-    return [evt.key for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA
-            for _ in range(round(evt.count / reps))]
+    for _ in range(TRACE_TRIES):
+        names = [evt.key for evt in traced(fn, reps).key_averages()
+                 if evt.device_type == DeviceType.CUDA
+                 for _ in range(round(evt.count / reps))]
+        if names:
+            break
+    return names
 
 
 def time_imdct_ola_short(card, label, co, tail, blocks, scale):
@@ -3889,6 +3940,194 @@ def phase_facade(card, futures):
     return launches
 
 
+# --------------------------------------------------------------- mesh
+def jax_dryrun_items():
+    """The JAX package's dryrun lanes at 4 devices
+    (tests/torch_stream_cases.py dryrun_items): 4 stereo Layer III and 4
+    mid/side FLAC lanes, two Layer II lanes, a SILK-only and a
+    mode-switching Opus lane, two Vorbis lanes."""
+    import torch_stream_cases
+
+    silk = read_constants("test_opus_silk", ("SILK_PACKETS",))[
+        "SILK_PACKETS"]
+    return torch_stream_cases.dryrun_items(
+        8, golden_mp3_ref(), golden_opus_ref(), golden_vorbis_ref(), silk)
+
+
+def mesh_mixed_streams(qoa_lanes, vorbis_masters):
+    """Phase 16's mixed set: two Layer II lanes, 4 QOA lanes, the mixed WAV
+    lanes but the truncated one, two Vorbis masters, three mode tours and
+    the mixed Opus lanes (CELT corpus lanes, SILK, hybrid, a tour, DTX),
+    whose last is the one corrupt lane (a CELT lane with bytes flipped in
+    its packets, which decodes to the end).  Returns (streams, the corrupt
+    lane's index)."""
+    import torch_opus_speech_cases as sc
+
+    mp3_ref, opus_ref = golden_mp3_ref(), golden_opus_ref()
+    rng = np.random.default_rng(16)
+    l2 = [mp3_ref.build_mp3_l2(
+        rng.integers(0, 16, (20 + 7 * k, 3, 30, 12)).tolist(),
+        rng.integers(10, 60, (20 + 7 * k, 30)).tolist(), ba=4)[0]
+        for k in range(2)]
+    tours = [m for m, k in zip(sc.load(), sc.kinds()) if k == "tour"]
+    streams = (l2 + list(qoa_lanes[:4]) + wav_mixed_streams()[:-1]
+               + [m[0] for m in vorbis_masters[:2]]
+               + [sc.stream(opus_ref.build_ogg_opus, tours[k % len(tours)],
+                            60 + 20 * k, preskip=(0, 312)[k % 2])
+                  for k in range(3)]
+               + opus_mixed_streams(np.random.default_rng(77)))
+    return streams, len(streams) - 1
+
+
+def phase_mesh(card, flac, pcms, mp3, mp3_info, mp3_masters, qoa_lanes,
+               vorbis_masters, enc_masters):
+    """Phase 16: the mesh on the card, cuda:0 named MESH_SHARDS times.
+    Returns each kernel's launches in the phase's sharded runs."""
+    import torch
+    from audio_formats_torch import (BatchDecoder, encode_qoa_batch,
+                                     encode_wav_batch, entry)
+    from audio_formats_torch.config import AudioSampleFormat, EncodingOptions
+    from audio_formats_torch.ops import lms, pcm
+    from audio_formats_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    one = make_mesh(1)
+    if one.shape != {"data": 1, "model": 1} or \
+            one.devices[0, 0] != torch.device("cuda", 0):
+        raise AssertionError(f"make_mesh(1) gave {one}")
+    mesh = make_mesh(MESH_SHARDS, data=MESH_SHARDS,
+                     devices=["cuda:0"] * MESH_SHARDS)
+    try:
+        make_mesh(torch.cuda.device_count() + 1)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("make_mesh of one device more than the card "
+                             "count did not raise")
+    launches = {}
+
+    def count(run):
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def walls(label, d0, w0, d1, w1, extra=""):
+        """Print a slice's walls: w0 and w1 lists of seconds (unsharded,
+        sharded) of the same work, with the host split of d0's and d1's
+        runs."""
+        secs = d1.stats["decoded_seconds"]
+        w0, w1 = list(w0), list(w1)
+        split = "; host_ms / enqueue_ms / host_cpu_ms " + " -> ".join(
+            "/".join(f"{d.stats.get(k, 0):.0f}" for k in
+                     ("host_ms", "enqueue_ms", "host_cpu_ms"))
+            for d in (d0, d1))
+        print(f"# mesh {label}: unsharded "
+              f"{' / '.join(f'{w:.3f}' for w in w0)} s wall = "
+              f"{' / '.join(f'{secs / w:.1f}' for w in w0)}x realtime, "
+              f"sharded over cuda:0 x {MESH_SHARDS} "
+              f"{' / '.join(f'{w:.3f}' for w in w1)} s = "
+              f"{' / '.join(f'{secs / w:.1f}' for w in w1)}x; windows "
+              f"{d0.stats['windows']} -> {d1.stats['windows']}{split}"
+              f"{extra} [{card}]")
+
+    # full width: the FLAC slice on both wires, the MP3 slice, each in
+    # turns (unsharded, sharded, sharded, unsharded); the first sharded run
+    # is held to the lanes' references and to the first unsharded run
+    slices = [(f"FLAC {wire} ({len(flac)} lanes, bit-equal)", flac,
+               {"flac_wire": wire}, lambda i: expected_f32(pcms[i], 16),
+               0.0, True) for wire in ("packed", "rice")]
+    slices.append((f"MP3 ({len(mp3)} lanes)", mp3, {},
+                   lambda i: mp3_lane_expected(mp3_masters, *mp3_info[i]),
+                   MP3_TOL, False))
+    for label, streams, kw, expect, tol, exact in slices:
+        d0, w0, _, out0 = decode_run(streams, "cuda", **kw)
+        d1, w1, run, out1, err = decode_checked(
+            streams, expect, "cuda", tol=tol, mesh=mesh, **kw)
+        worst = entry.compare_lanes(out0, out1, lambda i: exact,
+                                    label=label + " lane")
+        del out0, out1
+        w1b = decode_run(streams, "cuda", mesh=mesh, **kw)[1]
+        w0b = decode_run(streams, "cuda", **kw)[1]
+        count(run)
+        walls(label, d0, (w0, w0b), d1, (w1, w1b),
+              "" if exact else f"; {worst:.3g} of the peak from unsharded, "
+              f"max abs err {err:.3g} from mp3_ref")
+
+    # the mixed set, a corrupt lane last; the mixed Opus group on the
+    # device path under 16 lanes
+    items, bad = mesh_mixed_streams(qoa_lanes, vorbis_masters)
+    d0 = BatchDecoder(items, device="cuda")
+    t0 = time.perf_counter()
+    ref = d0.decode_all()
+    w0 = time.perf_counter() - t0
+    d1 = BatchDecoder(items, mesh=mesh)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = d1.decode_all(output="device")
+    res.sync()
+    w1 = time.perf_counter() - t0
+    run = read_launches()
+    check_window_launches(run, d1.stats, "packed")
+    out = res.to_numpy()
+    del res
+    st = d1.stats
+    worst = entry.compare_decoders(d0, ref, d1, out, label="mixed lane")
+    if any(e is not None for i, e in enumerate(d1.errors) if i != bad):
+        raise AssertionError(f"mixed set errors {d1.errors}")
+    if st.get("lanes_demoted", 0) > 1:
+        raise AssertionError(f"{st['lanes_demoted']} lanes demoted")
+    if not 0 < st["opus_mixed_lanes"] < 16 or \
+            "opus_mixed_host_rounds" in st:
+        raise AssertionError("the mixed Opus group did not take the device "
+                             "path under the mesh")
+    count(run)
+    walls(f"mixed set ({len(items)} lanes: Layer II, QOA, WAV, Vorbis, "
+          "CELT, SILK, hybrid, mode tours, a corrupt lane)", d0, [w0], d1,
+          [w1],
+          f"; {worst:.3g} of the peak, corrupt lane {d1.errors[bad]!r}, "
+          f"lanes demoted {st.get('lanes_demoted', 0)}, mixed Opus lanes "
+          f"{st['opus_mixed_lanes']} on the device path")
+
+    # the encodes at the encode slice's shape
+    secs = sum(m.shape[0] for m in enc_masters) / SR
+    opt = EncodingOptions(sample_format=AudioSampleFormat.s24,
+                          enable_dither=True)
+    for name, mod, counter, enc in (
+            ("qoa_encode", lms, "ENCODE_LAUNCHES",
+             lambda **kw: encode_qoa_batch(enc_masters, SR, **kw)),
+            ("pcm_encode", pcm, "ENCODE_LAUNCHES",
+             lambda **kw: encode_wav_batch(enc_masters, SR, opt, **kw))):
+        t0 = time.perf_counter()
+        want = enc(device="cuda")
+        w0 = time.perf_counter() - t0
+        st = {}
+        setattr(mod, counter, 0)
+        t0 = time.perf_counter()
+        got = enc(mesh=mesh, stats=st)
+        w1 = time.perf_counter() - t0
+        n = getattr(mod, counter)
+        if got != want:
+            raise AssertionError(f"sharded {name} is not byte-equal")
+        if n != st["windows"] or n < MESH_SHARDS:
+            raise AssertionError(f"sharded {name}: {n} launches, windows "
+                                 f"{st['windows']}")
+        launches[name] = n
+        print(f"# mesh {name} ({len(enc_masters)} stereo masters, "
+              f"{secs:.1f} s): byte-equal; unsharded {w0:.3f} s wall = "
+              f"{secs / w0:.1f}x realtime, sharded {w1:.3f} s = "
+              f"{secs / w1:.1f}x, {n} launches [{card}]")
+
+    # the dryrun on the JAX dryrun's lanes and the mixed set
+    t0 = time.perf_counter()
+    summary = entry.dryrun_multichip(
+        MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS,
+        items=jax_dryrun_items() + items)
+    print(f"# mesh dryrun: {summary['lanes']} lanes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"# mesh launches (phase 16, counted a shard): {launches}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main():
     import torch
 
@@ -4105,7 +4344,6 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
     hres = phase_mp3_kernel(card, mp3_streams)
     mp3_launches, _ = phase_mp3(card, mp3_streams, mp3_info, mp3_masters)
     phase_mp3_mixed(card, streams[:4], q_lanes[:4])
-    del streams, pcms, mp3_streams
 
     # 10. WAV decode, K10 alone, mixed WAV, 11. WAV encode
     t0 = time.perf_counter()
@@ -4155,6 +4393,12 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
     fl = phase_facade(card, facade)
     del facade
 
+    # 16. the mesh: the FLAC (both wires) and MP3 slices, a mixed set, the
+    # encodes and the dryrun over cuda:0 named four times
+    ml = phase_mesh(card, streams, pcms, mp3_streams, mp3_info, mp3_masters,
+                    q_lanes, vorbis_masters, masters)
+    del streams, pcms, mp3_streams
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "audio_formats_tpu"))
@@ -4164,59 +4408,71 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
 
     print(json.dumps({"kernels": [
         {"name": "flac_lpc", "route": "cuda",
+         "mesh_launches": ml["flac_lpc"],
          "source": "audio_formats_torch/csrc/flac_lpc.cu",
          "replaces": "audio_formats_tpu/ops/lpc.py:158",
          "launches": launches["flac_lpc"],
          "facade_launches": fl["flac"]["flac_lpc"], **fres, **kres},
         {"name": "qoa_decode", "route": "cuda",
+         "mesh_launches": ml["qoa_decode"],
          "source": "audio_formats_torch/csrc/qoa_lms.cu",
          "replaces": "audio_formats_tpu/ops/lms.py:135",
          "launches": dec_launches,
          "facade_launches": fl["qoa"]["qoa_decode"], **dres},
         {"name": "qoa_encode", "route": "cuda",
+         "mesh_launches": ml["qoa_encode"],
          "source": "audio_formats_torch/csrc/qoa_lms.cu",
          "replaces": "audio_formats_tpu/ops/lms.py:187",
          "launches": enc_launches,
          "facade_launches": fl["encode"]["qoa_encode"], **eres},
         {"name": "mp3_huff", "route": "cuda",
+         "mesh_launches": ml["mp3_huff"],
          "source": "audio_formats_torch/csrc/mp3_huff.cu",
          "replaces": "audio_formats_tpu/ops/mp3_huff.py:351",
          "launches": mp3_launches, **hres},
         {"name": "flac_rice", "route": "cuda",
+         "mesh_launches": ml["flac_rice"],
          "source": "audio_formats_torch/csrc/flac_rice.cu",
          "replaces": "audio_formats_tpu/ops/flac_rice.py:282",
          "launches": rlaunches["flac_rice"], **rres},
         {"name": "pcm", "route": "cuda",
+         "mesh_launches": ml["pcm"],
          "source": "audio_formats_torch/csrc/pcm.cu",
          "replaces": "audio_formats_tpu/ops/pcm.py:81",
          "launches": wav_launches,
          "facade_launches": fl["wav"]["pcm"], **pres},
         {"name": "pcm_encode", "route": "cuda",
+         "mesh_launches": ml["pcm_encode"],
          "source": "audio_formats_torch/csrc/pcm.cu",
          "replaces": "audio_formats_tpu/ops/pcm.py:235",
          "launches": wenc_launches,
          "facade_launches": fl["encode"]["pcm_encode"], **pres_enc},
         {"name": "vorbis_win", "route": "cuda",
+         "mesh_launches": ml["vorbis_win"],
          "source": "audio_formats_torch/csrc/vorbis_win.cu",
          "replaces": "audio_formats_tpu/ops/vorbis_win.py:62",
          "launches": vorbis_launches, **vres},
         {"name": "celt_imdct_ola", "route": "cuda",
+         "mesh_launches": ml["celt_imdct_ola"],
          "source": "audio_formats_torch/csrc/celt_ola.cu",
          "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
          "path": "K12a's fused route: blocks of 120 (short blocks, LM0)",
          "launches": opus_launches["celt_imdct_ola"],
          **ores["celt_imdct_ola"]},
         {"name": "celt_ola", "route": "cuda",
+         "mesh_launches": ml["celt_ola"],
          "source": "audio_formats_torch/csrc/celt_ola.cu",
          "replaces": "audio_formats_tpu/ops/celt_dsp.py:46",
          "path": "K12a's in-place route: a long block after the IMDCT "
                  "matmul",
          "launches": opus_launches["celt_ola"], **ores["celt_ola"]},
         {"name": "silk_upsample", "route": "cuda",
+         "mesh_launches": ml["silk_upsample"],
          "source": "audio_formats_torch/csrc/silk_upsample.cu",
          "replaces": "audio_formats_tpu/ops/resample.py:358",
          "launches": silk_l["silk_upsample"], **sres},
         {"name": "celt_deemph", "route": "cuda",
+         "mesh_launches": ml["celt_deemph"],
          "source": "audio_formats_torch/csrc/celt_deemph.cu",
          "replaces": "audio_formats_tpu/ops/celt_dsp.py:85",
          "path": "the CELT synthesis chain of bench.py:800-810 (no decode "

@@ -1628,3 +1628,102 @@ def test_facade_kernel_error_raises(cuda, kernel, call, monkeypatch):
     with pytest.raises(_kernels.KernelError, match="CUDA error 700"):
         call(s)
     assert s.error_message() in (None, "Stream not initialized")
+
+
+# ------------------------------------------------------------------ mesh
+def _mesh_flac_streams():
+    from golden import flac_ref
+
+    rng = np.random.default_rng(17)
+    streams = []
+    for i in range(9):
+        n = 3000 + 900 * i
+        t = np.arange(n)[:, None]
+        pcm = np.clip(np.round(
+            9000 * np.sin(2 * np.pi * (200 + 30 * i) * t * [1, 1.4] / 44100)
+            + 300 * rng.standard_normal((n, 2))), -32768, 32767
+        ).astype(np.int64)
+        streams.append(flac_ref.build_flac(pcm, 44100, 16, block_size=1024,
+                                           stereo_mode="mid_side",
+                                           modes=["lpc8", "fixed3"]))
+    return streams
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / (np.abs(a).max() + 1e-12))
+
+
+def test_mesh_cuda0_x4_matches_unsharded(cuda):
+    """Over a mesh that names cuda:0 four times: FLAC packed lanes
+    bit-equal to the unsharded run, MP3 lanes within 4e-6 of its peak, a
+    K1 or K3 launch a shard window, every window on cuda:0."""
+    from audio_formats_torch.ops import mp3_huff
+    from audio_formats_torch.parallel import make_mesh
+
+    mesh = make_mesh(4, data=4, devices=["cuda:0"] * 4)
+    for streams, counter, exact in (
+            (_mesh_flac_streams(), (tlpc, "KERNEL_LAUNCHES"), True),
+            (_mp3_streams() * 2, (mp3_huff, "HUFF_LAUNCHES"), False)):
+        want = BatchDecoder(streams, device=cuda).decode_all()
+        before = getattr(*counter)
+        dec = BatchDecoder(streams, mesh=mesh)
+        res = dec.decode_all(output="device")
+        for _, wins in res.windows():
+            assert all(w.device == torch.device("cuda", 0) for w in wins)
+        got = res.sync().to_numpy()
+        assert dec.stats["group_demotions"] == 0
+        assert getattr(*counter) - before == dec.stats["windows"] >= 4
+        for a, b in zip(want, got, strict=True):
+            assert a.shape == b.shape
+            if exact:
+                np.testing.assert_array_equal(b, a)
+            else:
+                assert _rel(a, b) < 4e-6
+
+
+@pytest.fixture
+def two_cuda():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    return [torch.device("cuda", k) for k in range(2)]
+
+
+def test_mesh_two_cards_lanes_on_their_shard(two_cuda):
+    """A mesh of two cards: each group's lanes split in two, each half's
+    PCM windows on its own card, and every lane equal to the one-card run
+    (FLAC and WAV bit for bit, MP3 within 4e-6 of the peak).  Needs two
+    cards: one card never runs it."""
+    from golden import wav_ref
+
+    from audio_formats_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(5)
+    wav = [wav_ref.build_wav(
+        wav_ref.pack_pcm(rng.integers(-32768, 32768, 2 * n)
+                         .astype(np.int32), 16),
+        fmt_tag=1, channels=2, sample_rate=44100, bits=16)
+        for n in (3000, 5000, 7000, 9000)]
+    flac = _mesh_flac_streams()[:6]
+    mp3 = _mp3_streams()[1:]   # stereo: one group
+    streams = flac + wav + mp3
+    mesh = make_mesh(2)
+    res = BatchDecoder(streams, mesh=mesh).decode_all(output="device")
+    seen = set()
+    spans = {"flac": (0, len(flac)), "wav": (len(flac), len(wav)),
+             "mp3": (len(flac) + len(wav), len(mp3))}
+    for chunk, group in res._finalizers:
+        devs = {p[0].device for p in group.pending}
+        assert len(devs) == 1
+        # a group's first half rides cuda:0, its second half cuda:1
+        base, n = spans[group.kind]
+        first_half = np.array_split(np.arange(n), 2)[0] + base
+        assert devs == {two_cuda[0 if chunk[0] in first_half else 1]}
+        seen |= devs
+    assert seen == set(two_cuda)
+    got = res.sync().to_numpy()
+    want = BatchDecoder(streams, device=two_cuda[0]).decode_all()
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        if i < len(flac) + len(wav):
+            np.testing.assert_array_equal(b, a)
+        else:
+            assert _rel(a, b) < 4e-6

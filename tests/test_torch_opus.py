@@ -214,9 +214,9 @@ def test_batch_matches_jax(output, monkeypatch):
         calls.append(a[2:4])
         return imdct_ola(*a, **kw)
 
-    def watched(self, items, blocks, bs):
+    def watched(self, items, blocks, bs, device):
         scales.append({float(p["imdct_scale"]) for _, p in items})
-        return bucket(self, items, blocks, bs)
+        return bucket(self, items, blocks, bs, device)
 
     monkeypatch.setattr(celt_dsp, "celt_imdct_ola_packed", counted)
     monkeypatch.setattr(tbatch.BatchDecoder, "_celt_imdct_bucket", watched)

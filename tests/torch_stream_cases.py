@@ -179,3 +179,52 @@ def xm_song(seed: int, n_orders: int, rows: int = 64,
     return xm_ref.build_xm(pats, list(range(n_orders)), _xm_instruments(),
                            channels=channels)
 
+
+
+def dryrun_items(n_lanes: int, mp3_ref, opus_ref, vorbis_ref,
+                 silk_packets) -> list:
+    """The JAX package's multi-device dryrun lanes, built as its
+    __graft_entry__.py builds them: n_lanes // 2 stereo Layer III lanes and
+    as many mid/side FLAC lanes, two Layer II lanes, a SILK-only and a
+    mode-switching Opus lane, two Vorbis lanes.  The golden MP3, Opus and
+    Vorbis builders and the SILK packets (hex) are taken as arguments, as
+    vorbis_stream takes its builder."""
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(4):
+        grs = []
+        for _g in range(2):
+            q = np.zeros(576, np.int64)
+            q[rng.choice(300, 25, replace=False)] = rng.integers(-20, 21, 25)
+            gr = {"q": q}
+            if i == 2:
+                gr["block_type"] = 2
+            grs.append([dict(gr), dict(gr.copy())])
+        frames.append(grs)
+    mp3_data = mp3_ref.build_mp3(frames, channels=2, mode_ext=[0, 2, 0, 2])
+    t = np.arange(3000)[:, None]
+    x = np.clip(np.round(
+        9000 * np.sin(2 * np.pi * 300 * t * [1, 1.4] / SR)), -32768,
+        32767).astype(np.int64)
+    flac_data = flac_ref.build_flac(x, SR, 16, block_size=1024,
+                                    stereo_mode="mid_side",
+                                    modes=["lpc8", "fixed3"])
+    gq = rng.integers(0, 16, size=(3, 3, 30, 12)).tolist()
+    scfs = rng.integers(0, 60, size=(3, 30)).tolist()
+    l2_data = mp3_ref.build_mp3_l2(gq, scfs, ba=4)[0]
+    silk_pkts = [(bytes.fromhex(h), 960) for h in silk_packets]
+    cpkt, cn = opus_ref.silence_packet(config=17)
+    mixed_pkts = [silk_pkts[0], silk_pkts[1], (cpkt, cn),
+                  silk_pkts[2 % len(silk_pkts)], (cpkt, cn)]
+    fix = vorbis_ref.Fixture(channels=1)
+    vframes = []
+    for _ in range(6):
+        r = np.zeros(fix.bs0 // 2)
+        idx = rng.choice(len(r), 30, replace=False)
+        r[idx] = rng.integers(-5, 6, 30) * fix.vq_delta
+        vframes.append(fix.audio_packet([[60, 70, 80, 90]], [r]))
+    half = n_lanes // 2
+    return ([mp3_data] * half + [flac_data] * half + [l2_data, l2_data]
+            + [opus_ref.build_ogg_opus(silk_pkts, channels=1, preskip=0),
+               opus_ref.build_ogg_opus(mixed_pkts, channels=1, preskip=0)]
+            + [fix.build(vframes)] * 2)
