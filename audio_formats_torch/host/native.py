@@ -15,6 +15,8 @@ import threading
 
 import numpy as np
 
+from .. import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "af_host.cc")
 _SO = os.path.join(_DIR, "src", "af_host.so")
@@ -43,17 +45,18 @@ def _build() -> bool:
         # build under a private name and rename into place, so a process
         # that builds concurrently never loads a half-written library
         tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
-        res = subprocess.run(
-            ["g++", "-march=native"] + flags + ["-o", tmp, _SRC],
-            capture_output=True,
-            timeout=120,
-        )
-        if res.returncode != 0:
-            res = subprocess.run(  # retry without -march=native
-                ["g++"] + flags + ["-o", tmp, _SRC],
+        with trace.span("kernel.build", kernel="af_host"):
+            res = subprocess.run(
+                ["g++", "-march=native"] + flags + ["-o", tmp, _SRC],
                 capture_output=True,
                 timeout=120,
             )
+            if res.returncode != 0:
+                res = subprocess.run(  # retry without -march=native
+                    ["g++"] + flags + ["-o", tmp, _SRC],
+                    capture_output=True,
+                    timeout=120,
+                )
         if res.returncode == 0:
             os.replace(tmp, _SO)
             with open(tag, "w") as f:
@@ -65,168 +68,173 @@ def _build() -> bool:
 
 def get_lib():
     """Returns the loaded library or None (fallback to Python paths)."""
-    global _lib, _tables_loaded
+    global _lib
     if os.environ.get("AF_TPU_NO_NATIVE"):
         return None
     with _lock:
-        if _lib is not None:
-            return _lib
-        if not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
-            return None
-        i8p = ctypes.POINTER(ctypes.c_uint8)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.af_mp3_set_table.argtypes = [
-            ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int
-        ]
-        lib.af_mp3_set_table.restype = ctypes.c_int
-        lib.af_mp3_huffman.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i32p, i32p, i8p, f32p,
-            ctypes.c_int32, ctypes.c_int32, i32p, f32p,
-        ]
-        lib.af_mp3_huffman.restype = ctypes.c_int64
-        lib.af_flac_parse_frame.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            i32p, i32p, i32p, i32p, i32p, i32p, i64p,
-        ]
-        lib.af_flac_parse_frame.restype = ctypes.c_int
-        lib.af_flac_parse_window.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            i32p, i32p, i32p, i32p, i32p, i32p, i64p,
-        ]
-        lib.af_flac_parse_window.restype = ctypes.c_int
-        lib.af_mp3_set_l3_tables.argtypes = [i8p] * 7
-        lib.af_mp3_set_l3_tables.restype = ctypes.c_int
-        lib.af_mp3_granules_scf_huff.argtypes = [
-            i8p, i8p, ctypes.c_int64, i32p, i8p,
-            ctypes.c_int32, ctypes.c_int32, i32p, i32p, f32p, i32p,
-        ]
-        lib.af_mp3_granules_scf_huff.restype = ctypes.c_int
-        i64p_ = ctypes.POINTER(ctypes.c_int64)
-        lib.af_mp3_parse_window.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64, i8p, ctypes.c_int32,
-            ctypes.c_int32,
-            i8p, i32p, i32p,
-            f32p, i32p, i32p, i8p, i64p_,
-        ]
-        lib.af_mp3_parse_window.restype = ctypes.c_int
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        i16p = ctypes.POINTER(ctypes.c_int16)
-        lib.af_mp3_parse_window_packed.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64, i8p, ctypes.c_int32,
-            ctypes.c_int32,
-            i8p, i32p, i32p,
-            u32p, i32p, i32p, i16p, i16p, i32p, i32p, i8p, i64p_,
-        ]
-        lib.af_mp3_parse_window_packed.restype = ctypes.c_int
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        i16p_ = ctypes.POINTER(ctypes.c_int16)
-        u32p_ = ctypes.POINTER(ctypes.c_uint32)
-        lib.af_mp3_parse_window_packed_multi.argtypes = [
-            i32p, ctypes.c_int32,                    # lanes, n_lanes
-            u64p, i64p, i64p, i8p,                   # ptrs, lens, offs, hdr0s
-            ctypes.c_int32, i32p,                    # W, ffbytes
-            i8p, i32p, i32p,                         # rb, rl, ist state
-            u32p_, ctypes.c_int64, i32p,             # bits, stride, max_words
-            i32p, ctypes.c_int64,                    # meta, stride
-            i16p_, ctypes.c_int64,                   # scfq, stride
-            i16p_, ctypes.c_int64,                   # ist_out, stride
-            i32p, ctypes.c_int64,                    # aa, stride
-            i32p, ctypes.c_int64,                    # wt, stride
-            i8p, ctypes.c_int64,                     # flags, stride
-            i32p,                                    # n_out
-        ]
-        lib.af_mp3_parse_window_packed_multi.restype = ctypes.c_int
-        lib.af_flac_sync_index.argtypes = [
-            i8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i64p,
-            i64p, i64p, i32p, i32p, i32p]
-        lib.af_flac_sync_index.restype = ctypes.c_int
-        lib.af_flac_sync_index_multi.argtypes = [
-            i32p, ctypes.c_int32,                    # lanes, n_lanes
-            ctypes.POINTER(ctypes.c_uint64), i64p,   # ptrs, lens
-            i32p, ctypes.c_int32,                    # bps_in, expect_ch
-            ctypes.c_int32, ctypes.c_int32,          # max_block, W
-            i64p, i64p, i64p, i32p, i32p, i32p, i32p,
-        ]
-        lib.af_flac_sync_index_multi.restype = ctypes.c_int
-        lib.af_flac_build_pool.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), i64p, i64p, ctypes.c_int32,
-            ctypes.c_int32, i8p, ctypes.c_int64, i64p]
-        lib.af_flac_build_pool.restype = ctypes.c_int
-        lib.af_flac_parse_window_multi.argtypes = [
-            i32p, ctypes.c_int32,                    # lanes, n_lanes
-            ctypes.POINTER(ctypes.c_uint64), i64p,   # ptrs, lens
-            i64p, i32p,                              # cur_bits, bps_in
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ch,stride,W
-            i32p, i32p, i32p, i32p, i32p, i32p, i64p, i32p,
-        ]
-        lib.af_flac_parse_window_multi.restype = ctypes.c_int
-        lib.af_flac_widths.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32,
-                                       i32p, i32p]
-        lib.af_flac_widths.restype = ctypes.c_int
-        lib.af_flac_pack.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32,
-                                     i32p, ctypes.c_int32, u32p,
-                                     ctypes.c_int32]
-        lib.af_flac_pack.restype = ctypes.c_int
-        # gather variants: pack straight from parse-window rows (per-row
-        # pointers + valid lengths), skipping the padded residual scatter
-        lib.af_flac_widths_gather.argtypes = [
-            i64p, ctypes.c_int32, ctypes.c_int32, i32p, i32p, i32p]
-        lib.af_flac_widths_gather.restype = ctypes.c_int
-        lib.af_flac_pack_gather.argtypes = [
-            i64p, ctypes.c_int32, ctypes.c_int32, i32p, i32p,
-            ctypes.c_int32, u32p, ctypes.c_int32, i32p]
-        lib.af_flac_pack_gather.restype = ctypes.c_int
-        lib.af_u32_pack_prefix_rows.argtypes = [
-            u32p, ctypes.c_int32, ctypes.c_int32, i32p, u32p]
-        lib.af_u32_pack_prefix_rows.restype = ctypes.c_int64
-        lib.af_mp3_index.argtypes = [
-            i8p, ctypes.c_int64, i8p, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int64, i64p, i64p, i64p]
-        lib.af_mp3_index.restype = ctypes.c_int64
-
-        # install the MP3 Huffman tables
-        from ..utils.tables import mp3_tables as T
-
-        for t, codes in enumerate(T.HUFF_TABLES):
-            arr = np.array(codes, dtype=np.int32).reshape(-1, 4) if codes else \
-                np.zeros((0, 4), np.int32)
-            lib.af_mp3_set_table(
-                t, arr.ctypes.data_as(i32p), len(arr), int(T.LINBITS[t])
-            )
-        for t, codes in enumerate((T.COUNT1_A, T.COUNT1_B)):
-            # count1 payload: store v mask in the x byte slot, y unused
-            arr = np.array(
-                [(c, l, v, 0) for c, l, v in codes], dtype=np.int32
-            )
-            lib.af_mp3_set_table(32 + t, arr.ctypes.data_as(i32p), len(arr), 0)
-        sizes = {"SCF_LONG": 184, "SCF_SHORT": 320, "SCF_MIXED": 320}
-
-        def _padded(name, a):
-            a = np.asarray(a, dtype=np.uint8)
-            want = sizes.get(name, a.size)
-            if a.size < want:  # zero-terminated flat tables: pad the tail
-                a = np.concatenate([a, np.zeros(want - a.size, np.uint8)])
-            return a
-
-        _keep = [_padded(n, getattr(T, n)) for n in (
-            "SCF_LONG", "SCF_SHORT", "SCF_MIXED", "SCF_PARTITIONS",
-            "SCFC_DECODE", "SCF_MOD", "PREAMP")]
-        lib.af_mp3_set_l3_tables(*[a.ctypes.data_as(i8p) for a in _keep])
-
-        _install_celt(lib)
-        _lib = lib
-        _tables_loaded = True
+        if _lib is None and _build():
+            with trace.span("kernel.load", kernel="af_host"):
+                _lib = _load()
         return _lib
+
+
+def _load():
+    """Load the built library, declare its entries and install its
+    tables; None where it does not load."""
+    global _tables_loaded
+    try:
+        lib = ctypes.CDLL(_SO)
+    except OSError:
+        return None
+    i8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.af_mp3_set_table.argtypes = [
+        ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int
+    ]
+    lib.af_mp3_set_table.restype = ctypes.c_int
+    lib.af_mp3_huffman.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i32p, i32p, i8p, f32p,
+        ctypes.c_int32, ctypes.c_int32, i32p, f32p,
+    ]
+    lib.af_mp3_huffman.restype = ctypes.c_int64
+    lib.af_flac_parse_frame.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32p, i32p, i32p, i32p, i32p, i32p, i64p,
+    ]
+    lib.af_flac_parse_frame.restype = ctypes.c_int
+    lib.af_flac_parse_window.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32p, i32p, i32p, i32p, i32p, i32p, i64p,
+    ]
+    lib.af_flac_parse_window.restype = ctypes.c_int
+    lib.af_mp3_set_l3_tables.argtypes = [i8p] * 7
+    lib.af_mp3_set_l3_tables.restype = ctypes.c_int
+    lib.af_mp3_granules_scf_huff.argtypes = [
+        i8p, i8p, ctypes.c_int64, i32p, i8p,
+        ctypes.c_int32, ctypes.c_int32, i32p, i32p, f32p, i32p,
+    ]
+    lib.af_mp3_granules_scf_huff.restype = ctypes.c_int
+    i64p_ = ctypes.POINTER(ctypes.c_int64)
+    lib.af_mp3_parse_window.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64, i8p, ctypes.c_int32,
+        ctypes.c_int32,
+        i8p, i32p, i32p,
+        f32p, i32p, i32p, i8p, i64p_,
+    ]
+    lib.af_mp3_parse_window.restype = ctypes.c_int
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.af_mp3_parse_window_packed.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64, i8p, ctypes.c_int32,
+        ctypes.c_int32,
+        i8p, i32p, i32p,
+        u32p, i32p, i32p, i16p, i16p, i32p, i32p, i8p, i64p_,
+    ]
+    lib.af_mp3_parse_window_packed.restype = ctypes.c_int
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i16p_ = ctypes.POINTER(ctypes.c_int16)
+    u32p_ = ctypes.POINTER(ctypes.c_uint32)
+    lib.af_mp3_parse_window_packed_multi.argtypes = [
+        i32p, ctypes.c_int32,                    # lanes, n_lanes
+        u64p, i64p, i64p, i8p,                   # ptrs, lens, offs, hdr0s
+        ctypes.c_int32, i32p,                    # W, ffbytes
+        i8p, i32p, i32p,                         # rb, rl, ist state
+        u32p_, ctypes.c_int64, i32p,             # bits, stride, max_words
+        i32p, ctypes.c_int64,                    # meta, stride
+        i16p_, ctypes.c_int64,                   # scfq, stride
+        i16p_, ctypes.c_int64,                   # ist_out, stride
+        i32p, ctypes.c_int64,                    # aa, stride
+        i32p, ctypes.c_int64,                    # wt, stride
+        i8p, ctypes.c_int64,                     # flags, stride
+        i32p,                                    # n_out
+    ]
+    lib.af_mp3_parse_window_packed_multi.restype = ctypes.c_int
+    lib.af_flac_sync_index.argtypes = [
+        i8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i64p,
+        i64p, i64p, i32p, i32p, i32p]
+    lib.af_flac_sync_index.restype = ctypes.c_int
+    lib.af_flac_sync_index_multi.argtypes = [
+        i32p, ctypes.c_int32,                    # lanes, n_lanes
+        ctypes.POINTER(ctypes.c_uint64), i64p,   # ptrs, lens
+        i32p, ctypes.c_int32,                    # bps_in, expect_ch
+        ctypes.c_int32, ctypes.c_int32,          # max_block, W
+        i64p, i64p, i64p, i32p, i32p, i32p, i32p,
+    ]
+    lib.af_flac_sync_index_multi.restype = ctypes.c_int
+    lib.af_flac_build_pool.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), i64p, i64p, ctypes.c_int32,
+        ctypes.c_int32, i8p, ctypes.c_int64, i64p]
+    lib.af_flac_build_pool.restype = ctypes.c_int
+    lib.af_flac_parse_window_multi.argtypes = [
+        i32p, ctypes.c_int32,                    # lanes, n_lanes
+        ctypes.POINTER(ctypes.c_uint64), i64p,   # ptrs, lens
+        i64p, i32p,                              # cur_bits, bps_in
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ch,stride,W
+        i32p, i32p, i32p, i32p, i32p, i32p, i64p, i32p,
+    ]
+    lib.af_flac_parse_window_multi.restype = ctypes.c_int
+    lib.af_flac_widths.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32,
+                                   i32p, i32p]
+    lib.af_flac_widths.restype = ctypes.c_int
+    lib.af_flac_pack.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32,
+                                 i32p, ctypes.c_int32, u32p,
+                                 ctypes.c_int32]
+    lib.af_flac_pack.restype = ctypes.c_int
+    # gather variants: pack straight from parse-window rows (per-row
+    # pointers + valid lengths), skipping the padded residual scatter
+    lib.af_flac_widths_gather.argtypes = [
+        i64p, ctypes.c_int32, ctypes.c_int32, i32p, i32p, i32p]
+    lib.af_flac_widths_gather.restype = ctypes.c_int
+    lib.af_flac_pack_gather.argtypes = [
+        i64p, ctypes.c_int32, ctypes.c_int32, i32p, i32p,
+        ctypes.c_int32, u32p, ctypes.c_int32, i32p]
+    lib.af_flac_pack_gather.restype = ctypes.c_int
+    lib.af_u32_pack_prefix_rows.argtypes = [
+        u32p, ctypes.c_int32, ctypes.c_int32, i32p, u32p]
+    lib.af_u32_pack_prefix_rows.restype = ctypes.c_int64
+    lib.af_mp3_index.argtypes = [
+        i8p, ctypes.c_int64, i8p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, i64p, i64p, i64p]
+    lib.af_mp3_index.restype = ctypes.c_int64
+
+    # install the MP3 Huffman tables
+    from ..utils.tables import mp3_tables as T
+
+    for t, codes in enumerate(T.HUFF_TABLES):
+        arr = np.array(codes, dtype=np.int32).reshape(-1, 4) if codes else \
+            np.zeros((0, 4), np.int32)
+        lib.af_mp3_set_table(
+            t, arr.ctypes.data_as(i32p), len(arr), int(T.LINBITS[t])
+        )
+    for t, codes in enumerate((T.COUNT1_A, T.COUNT1_B)):
+        # count1 payload: store v mask in the x byte slot, y unused
+        arr = np.array(
+            [(c, l, v, 0) for c, l, v in codes], dtype=np.int32
+        )
+        lib.af_mp3_set_table(32 + t, arr.ctypes.data_as(i32p), len(arr), 0)
+    sizes = {"SCF_LONG": 184, "SCF_SHORT": 320, "SCF_MIXED": 320}
+
+    def _padded(name, a):
+        a = np.asarray(a, dtype=np.uint8)
+        want = sizes.get(name, a.size)
+        if a.size < want:  # zero-terminated flat tables: pad the tail
+            a = np.concatenate([a, np.zeros(want - a.size, np.uint8)])
+        return a
+
+    _keep = [_padded(n, getattr(T, n)) for n in (
+        "SCF_LONG", "SCF_SHORT", "SCF_MIXED", "SCF_PARTITIONS",
+        "SCFC_DECODE", "SCF_MOD", "PREAMP")]
+    lib.af_mp3_set_l3_tables(*[a.ctypes.data_as(i8p) for a in _keep])
+
+    _install_celt(lib)
+    _tables_loaded = True
+    return lib
 
 
 def _install_celt(lib) -> None:

@@ -21,6 +21,8 @@ import time
 
 import torch
 
+from .. import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -109,8 +111,10 @@ def build(name: str) -> str:
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     try:
-        res = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
-                             capture_output=True, text=True, timeout=600)
+        with trace.span("kernel.build", kernel=name):
+            res = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
+                                 capture_output=True, text=True,
+                                 timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise KernelError(f"nvcc did not run on {src}: {e}") from e
     if res.returncode != 0:
@@ -154,15 +158,16 @@ def load(name: str):
         lib = _libs.get(name)
         if lib is None:
             path = build(name)
-            try:
-                lib = ctypes.CDLL(path)
-                fns = [(getattr(lib, fn_name), argtypes)
-                       for fn_name, argtypes in _ENTRIES[name]]
-            except (OSError, AttributeError) as e:
-                raise KernelError(f"cannot load {path}: {e}") from e
-            for fn, argtypes in fns:
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with trace.span("kernel.load", kernel=name):
+                try:
+                    lib = ctypes.CDLL(path)
+                    fns = [(getattr(lib, fn_name), argtypes)
+                           for fn_name, argtypes in _ENTRIES[name]]
+                except (OSError, AttributeError) as e:
+                    raise KernelError(f"cannot load {path}: {e}") from e
+                for fn, argtypes in fns:
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

@@ -51,6 +51,7 @@ producing frames and its `errors` entry is set; other lanes are unaffected.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import threading
 import time
@@ -60,7 +61,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import models
+from .. import models, trace
 from ..errors import AudioFormatError
 from ..host import native as _native
 from ..io.source import ByteSource, FileSource, MemorySource
@@ -194,6 +195,11 @@ def _to_numpy(out) -> np.ndarray:
     return out.cpu().numpy()
 
 
+def _format_name(dec) -> str:
+    """A decoder's format as stats names it ("mp3", "flac", ...)."""
+    return type(dec).__name__.replace("Decoder", "").lower()
+
+
 def _open_source(item) -> ByteSource:
     if isinstance(item, (bytes, bytearray, memoryview)):
         return MemorySource(item)
@@ -275,7 +281,7 @@ class DeviceBatchResult:
         for i, v in enumerate(out):
             if isinstance(v, np.ndarray) and owner.decoders[i] is not None:
                 owner._note_seconds(
-                    type(owner.decoders[i]).__name__.replace("Decoder", "").lower(),
+                    _format_name(owner.decoders[i]),
                     v.shape[0] / max(1, owner.decoders[i].sample_rate),
                 )
 
@@ -286,8 +292,9 @@ class DeviceBatchResult:
 
     def sync(self):
         """Block until every device the batch used has finished its work."""
-        for dev in self._owner.devices_used:
-            _synchronize(dev)
+        with trace.root("sync", call=self._owner._trace_call):
+            for dev in self._owner.devices_used:
+                _synchronize(dev)
         return self
 
     def to_numpy(self):
@@ -352,29 +359,39 @@ class BatchDecoder:
         self.devices_used: List[torch.device] = []
         self.decoders: List[Optional[object]] = []
         self.errors: List[Optional[str]] = []
-        for item in items:
-            try:
-                src = _open_source(item)
-                dec = models.probe_all(src, self.device)
-                if dec is None:
-                    raise AudioFormatError(
-                        "Cannot decode stream: unrecognized encoding."
-                    )
-                self.decoders.append(dec)
-                self.errors.append(None)
-            except AudioFormatError as e:
-                self.decoders.append(None)
-                self.errors.append(e.message)
+        #: the id the tracer gives this decoder's spans (None when off)
+        self._trace_call = trace.new_call()
+        with trace.root("construct", call=self._trace_call):
+            for item in items:
+                with trace.span("probe") as sp:
+                    try:
+                        src = _open_source(item)
+                        dec = models.probe_all(src, self.device)
+                        if dec is None:
+                            raise AudioFormatError(
+                                "Cannot decode stream: unrecognized "
+                                "encoding.")
+                        sp.set(format=_format_name(dec))
+                        self.decoders.append(dec)
+                        self.errors.append(None)
+                    except AudioFormatError as e:
+                        self.decoders.append(None)
+                        self.errors.append(e.message)
         self._stats_lock = threading.Lock()
         self.stats = {
             "decoded_seconds": 0.0,
             "decoded_seconds_by_format": {},
             "lanes": len(items),
-            # per-stage split: host entropy parse ms, device enqueue
-            # (upload+dispatch) ms, PCM fetch ms, bytes to and from the
-            # device, device windows issued.  The wall counters sum the
-            # walls of groups that run concurrently, so they can exceed
-            # the batch wall; host_cpu_ms is the thread-CPU sum.
+            # per-stage split: host entropy parse ms; enqueue ms, the
+            # group thread's time from a parsed window to its device
+            # work handed over (MP3 and packed FLAC: the window's
+            # assembly, MP3's pack and the submit to the dispatch worker,
+            # whose upload and launch only the tracer's spans time; the
+            # other formats: the upload and launch themselves); PCM fetch
+            # ms, bytes to and from the device, device windows issued.
+            # The wall counters sum the walls of groups that run
+            # concurrently, so they can exceed the batch wall;
+            # host_cpu_ms is the thread-CPU sum.
             "host_ms": 0.0,
             "enqueue_ms": 0.0,
             "fetch_ms": 0.0,
@@ -409,17 +426,21 @@ class BatchDecoder:
         self._stat_add("decoded_seconds", seconds)
         self._stat_add("decoded_seconds_by_format", seconds, fmt=fmt)
 
-    def _note_stage(self, key: str, fmt: str, t0: float):
-        """Close a stage wall timer opened at ``t0`` (host_ms / enqueue_ms
-        and its per-format split)."""
-        dt = (time.perf_counter() - t0) * 1e3
+    def _note_stage(self, key: str, fmt: str, t: trace.Timer):
+        """Stop the stage timer `t` (its span, while the tracer is on) and
+        add its wall to `key` (host_ms / enqueue_ms) and its per-format
+        split."""
+        dt = t.stop().ms
+        t.set(format=fmt)
         self._stat_add(key, dt)
         self._stat_add(key + "_by_format", dt, fmt=fmt)
 
-    def _note_host_cpu(self, fmt: str, cpu_t0: float):
-        """Thread-CPU accumulation for host stages that run on a parse
-        pool (each worker measures its own thread)."""
-        cdt = (time.thread_time() - cpu_t0) * 1e3
+    def _note_host_cpu(self, fmt: str, t: trace.Timer):
+        """Stop the stage timer `t`, opened with ``cpu=True`` on this
+        thread, and add its thread CPU to host_cpu_ms (a parse pool's
+        workers each time their own thread)."""
+        cdt = t.stop().cpu_ms
+        t.set(format=fmt)
         self._stat_add("host_cpu_ms", cdt)
         self._stat_add("host_cpu_ms_by_format", cdt, fmt=fmt)
 
@@ -497,7 +518,14 @@ class BatchDecoder:
         device work is done, ``.to_numpy()`` to download and get exactly
         the output="numpy" result.
         """
+        with trace.root("decode_all", call=self._trace_call):
+            return self._decode_all(output)
+
+    def _decode_all(self, output: str):
         to_device = output == "device"
+        # the decode_all span, which each group's span names as its
+        # parent from whichever thread runs the group
+        ctx = trace.context()
         out: List[Optional[object]] = [None] * len(self.decoders)
         finalizers = []
 
@@ -575,8 +603,12 @@ class BatchDecoder:
             with self._stats_lock:
                 if device not in self.devices_used:
                     self.devices_used.append(device)
-            res = self._run_group(fn, chunk, *args, device=device,
-                                  to_device=to_device)
+            with trace.span("group", ctx=ctx, lanes=len(chunk),
+                            device=str(device),
+                            format=fn.__name__[len("_decode_"):]
+                            .replace("_group", "")):
+                res = self._run_group(fn, chunk, *args, device=device,
+                                      to_device=to_device)
             if isinstance(res, _PendingGroup):
                 finalizers.append((chunk, res))
                 for i in chunk:
@@ -627,7 +659,8 @@ class BatchDecoder:
             # order the threads could break)
             conc = 2 if (os.cpu_count() or 1) > 1 else 1
             if conc > 1 and len(jobs) > 1:
-                with ThreadPoolExecutor(max_workers=conc) as ex:
+                with ThreadPoolExecutor(max_workers=conc,
+                                        thread_name_prefix="af-group") as ex:
                     for f in [ex.submit(run, chunk, dev, fn, *args)
                               for chunk, dev, fn, args in jobs]:
                         f.result()
@@ -677,7 +710,7 @@ class BatchDecoder:
         for i, pcm in enumerate(out):
             if pcm is not None and self.decoders[i] is not None:
                 self._note_seconds(
-                    type(self.decoders[i]).__name__.replace("Decoder", "").lower(),
+                    _format_name(self.decoders[i]),
                     pcm.shape[0] / max(1, self.decoders[i].sample_rate),
                 )
         return out
@@ -702,8 +735,7 @@ class BatchDecoder:
         active = np.ones(B, bool)
         pending = []
         while active.any():
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             Sarr = np.zeros((B, nch, TS, 32), np.float32)
             n_slots = np.zeros(B, np.int32)
             for bi, d in enumerate(decs):
@@ -729,10 +761,10 @@ class BatchDecoder:
                 d._cur_sample += got * d._spf * nch
                 d._offset = offs[bi]
             self._note_stage("host_ms", "mp3_l12", t_host)
-            self._note_host_cpu("mp3_l12", ct_host)
+            self._note_host_cpu("mp3_l12", t_host)
             if not n_slots.any():
                 break
-            t_enq = time.perf_counter()
+            t_enq = trace.timer("enqueue")
             (S_d,) = _upload(device, Sarr)
             pcm, shist = mp3_dsp.mp3_synth_slots(S_d, shist, nch=nch)
             pending.append((_prefetch(pcm, to_device), n_slots))
@@ -837,7 +869,8 @@ class BatchDecoder:
         win = {}  # this window's host arrays, rebound every window
 
         def _parse_chunk(lanes):
-            _ct0 = time.thread_time()
+            t = trace.timer("parse_chunk", cpu=True, ctx=win["ctx"],
+                            format="mp3", lanes=len(lanes))
             try:
                 gated = []
                 for bi in lanes:
@@ -858,7 +891,7 @@ class BatchDecoder:
                         aa_all, wt_all, flags_all, n_out)
                 return gated
             finally:
-                self._note_host_cpu("mp3", _ct0)
+                self._note_host_cpu("mp3", t)
 
         def _post_parse(gated):
             """Frame activity, intensity flags, the rare compaction of
@@ -900,82 +933,102 @@ class BatchDecoder:
                     active[bi] = False
             return max(16, int(mw_all[g].max()))
 
-        def _dispatch(pool_w, meta16, scfq, ists, n_act, Wrow, short):
-            pool_d, meta_d, scf_d, n_act_d = _upload(
-                device, pool_w, meta16, scfq, n_act)
-            ist_d = None if ists is None else _upload(device, ists)[0]
-            pcm, dev_state["overlap"], dev_state["shist"] = \
-                mp3_huff.packed_window(
-                    pool_d, meta_d, scf_d, ist_d, dev_state["overlap"],
-                    dev_state["shist"], n_act_d, B=B, G=G, nch=nch, W=Wrow,
-                    mpeg1=ngr == 2, short=short)
-            return _prefetch(pcm, to_device)
+        def _dispatch(pool_w, meta16, scfq, ists, n_act, Wrow, short, h2d,
+                      ctx, k):
+            with trace.span("upload", ctx=ctx, format="mp3", window=k,
+                            bytes=h2d):
+                pool_d, meta_d, scf_d, n_act_d = _upload(
+                    device, pool_w, meta16, scfq, n_act)
+                ist_d = None if ists is None else _upload(device, ists)[0]
+            with trace.span("launch", ctx=ctx, format="mp3",
+                            window=k) as sp:
+                n0 = mp3_huff.HUFF_LAUNCHES
+                pcm, dev_state["overlap"], dev_state["shist"] = \
+                    mp3_huff.packed_window(
+                        pool_d, meta_d, scf_d, ist_d, dev_state["overlap"],
+                        dev_state["shist"], n_act_d, B=B, G=G, nch=nch,
+                        W=Wrow, mpeg1=ngr == 2, short=short)
+                out = _prefetch(pcm, to_device)
+                sp.set(launches=mp3_huff.HUFF_LAUNCHES - n0)
+            return out
 
         pending = []
         # one dispatch worker: window t+1's parse overlaps window t's
         # upload and device chain
-        pool = ThreadPoolExecutor(max_workers=1)
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="af-dispatch")
         n_workers = max(1, min(8, (os.cpu_count() or 1)))
-        parse_pool = ThreadPoolExecutor(max_workers=n_workers) \
+        parse_pool = ThreadPoolExecutor(
+            max_workers=n_workers, thread_name_prefix="af-parse") \
             if n_workers > 1 else None
         short_pats = np.zeros(mp3_huff.N_PATTERNS, bool)
         short_pats[list(mp3_huff.SHORT_PATTERNS)] = True
         try:
-            while active.any():
-                t_host = time.perf_counter()
-                win.update(
-                    bits=np.empty((B, W, FW), np.uint32),
-                    meta=np.zeros((B, NL, 16), np.int32),
-                    scfq=np.zeros((B, NL, 40), np.int16),
-                    ists=np.zeros((B, G, 40), np.int16),
-                    win_ist=np.zeros(B, bool),
-                    n_act=np.zeros(B, np.int32))
-                live = [bi for bi in range(B) if active[bi]]
-                if parse_pool is not None:
-                    gated = [bi for sub in parse_pool.map(
-                        _parse_chunk, _lane_chunks(live, n_workers))
-                        for bi in sub]
-                else:
-                    gated = _parse_chunk(live)
-                mw_max = _post_parse(gated)
-                self._note_stage("host_ms", "mp3", t_host)
-                n_act = win["n_act"]
-                if not n_act.any():
+            for k in itertools.count():
+                if not active.any():
                     break
-                t_enq = time.perf_counter()
-                meta = win["meta"]
-                L = B * NL
-                meta16 = mp3_huff.meta16_from_c(meta).reshape(L, 16)
-                # one C pass copies each frame's span of words into the pool
-                t_pack = time.perf_counter()
-                span32 = np.ascontiguousarray(
-                    meta16[::LPF, mp3_huff.M_SPAN], np.int32)
-                pool_w = np.empty(int(span32.sum()), np.uint32)
-                u32p = ctypes.POINTER(ctypes.c_uint32)
-                lib.af_u32_pack_prefix_rows(
-                    win["bits"].reshape(B * W, FW).ctypes.data_as(u32p),
-                    B * W, FW,
-                    span32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                    pool_w.ctypes.data_as(u32p))
-                self._stat_add("enq_mp3_pack_ms",
-                               (time.perf_counter() - t_pack) * 1e3)
-                ists = win["ists"].reshape(B * G, 40) \
-                    if nch == 2 and win["win_ist"].any() else None
-                short = bool(short_pats[meta[:, :, 10]].any())
-                scfq = win["scfq"].reshape(L, 40)
-                fut = pool.submit(_dispatch, pool_w, meta16, scfq, ists,
-                                  n_act, mp3_huff.row_width(mw_max), short)
-                self._note_stage("enqueue_ms", "mp3", t_enq)
-                h2d = (pool_w.nbytes + meta16.nbytes + scfq.nbytes
-                       + n_act.nbytes + (0 if ists is None else ists.nbytes))
-                self._stat_add("h2d_bytes", h2d)
-                self._stat_add("h2d_bytes_by_format", h2d, fmt="mp3")
-                self._note_window("mp3")
-                pending.append((fut, n_act))
+                with trace.span("window", format="mp3", window=k,
+                                lanes=int(active.sum())):
+                    win["ctx"] = trace.context()
+                    t_host = trace.timer("parse")
+                    win.update(
+                        bits=np.empty((B, W, FW), np.uint32),
+                        meta=np.zeros((B, NL, 16), np.int32),
+                        scfq=np.zeros((B, NL, 40), np.int16),
+                        ists=np.zeros((B, G, 40), np.int16),
+                        win_ist=np.zeros(B, bool),
+                        n_act=np.zeros(B, np.int32))
+                    live = [bi for bi in range(B) if active[bi]]
+                    if parse_pool is not None:
+                        gated = [bi for sub in parse_pool.map(
+                            _parse_chunk, _lane_chunks(live, n_workers))
+                            for bi in sub]
+                    else:
+                        gated = _parse_chunk(live)
+                    mw_max = _post_parse(gated)
+                    self._note_stage("host_ms", "mp3", t_host)
+                    n_act = win["n_act"]
+                    if not n_act.any():
+                        break
+                    t_enq = trace.timer("enqueue")
+                    meta = win["meta"]
+                    L = B * NL
+                    with trace.span("pack", format="mp3", window=k):
+                        meta16 = mp3_huff.meta16_from_c(meta).reshape(L, 16)
+                        # one C pass copies each frame's span of words into
+                        # the pool
+                        span32 = np.ascontiguousarray(
+                            meta16[::LPF, mp3_huff.M_SPAN], np.int32)
+                        pool_w = np.empty(int(span32.sum()), np.uint32)
+                        u32p = ctypes.POINTER(ctypes.c_uint32)
+                        lib.af_u32_pack_prefix_rows(
+                            win["bits"].reshape(B * W, FW).ctypes.data_as(
+                                u32p),
+                            B * W, FW,
+                            span32.ctypes.data_as(
+                                ctypes.POINTER(ctypes.c_int32)),
+                            pool_w.ctypes.data_as(u32p))
+                    ists = win["ists"].reshape(B * G, 40) \
+                        if nch == 2 and win["win_ist"].any() else None
+                    short = bool(short_pats[meta[:, :, 10]].any())
+                    scfq = win["scfq"].reshape(L, 40)
+                    h2d = (pool_w.nbytes + meta16.nbytes + scfq.nbytes
+                           + n_act.nbytes
+                           + (0 if ists is None else ists.nbytes))
+                    fut = pool.submit(_dispatch, pool_w, meta16, scfq, ists,
+                                      n_act, mp3_huff.row_width(mw_max),
+                                      short, h2d, win["ctx"], k)
+                    self._note_stage("enqueue_ms", "mp3", t_enq)
+                    self._stat_add("h2d_bytes", h2d)
+                    self._stat_add("h2d_bytes_by_format", h2d, fmt="mp3")
+                    self._note_window("mp3")
+                    pending.append((fut, n_act))
         finally:
             # a lane fault raising out of the window loop must not leak the
-            # dispatch or parse workers
-            pool.shutdown(wait=True)
+            # dispatch or parse workers; the main thread waits here for the
+            # dispatch worker's last windows
+            with trace.span("wait", format="mp3"):
+                pool.shutdown(wait=True)
             if parse_pool is not None:
                 parse_pool.shutdown(wait=True)
         # the parse ran against the batch copy of the persistent intensity
@@ -1023,10 +1076,13 @@ class BatchDecoder:
 
         # one dispatch worker: window t+1's host parse overlaps window t's
         # pack, upload and device chain
-        pool = ThreadPoolExecutor(max_workers=1)
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="af-dispatch")
         n_workers = max(1, min(8, (os.cpu_count() or 1)))
-        parse_pool = ThreadPoolExecutor(max_workers=n_workers) \
+        parse_pool = ThreadPoolExecutor(
+            max_workers=n_workers, thread_name_prefix="af-parse") \
             if n_workers > 1 else None
+        wctx = [None]   # the window span, for the parse workers' spans
 
         parse_lib = _native.get_lib()
 
@@ -1080,7 +1136,8 @@ class BatchDecoder:
             nf_buf = np.zeros(B, np.int32)
 
         def _parse_chunk_fmulti(lanes):
-            _ct0 = time.thread_time()
+            t = trace.timer("parse_chunk", cpu=True, ctx=wctx[0],
+                            format="flac", lanes=len(lanes))
             try:
                 gated = []
                 for bi in lanes:
@@ -1098,7 +1155,7 @@ class BatchDecoder:
                 return [_post_lane_fmulti(bi) if bi in gset
                         else ([], False, 0) for bi in lanes]
             finally:
-                self._note_host_cpu("flac", _ct0)
+                self._note_host_cpu("flac", t)
 
         def _take_frames(d, bi, n, meta_l, maxbps, res, cf, orr, sh, wa,
                          bpsr):
@@ -1151,11 +1208,12 @@ class BatchDecoder:
             return got
 
         def _parse_chunk(lanes):
-            _ct0 = time.thread_time()
+            t = trace.timer("parse_chunk", cpu=True, ctx=wctx[0],
+                            format="flac", lanes=len(lanes))
             try:
                 return [_parse_lane_inner(bi) for bi in lanes]
             finally:
-                self._note_host_cpu("flac", _ct0)
+                self._note_host_cpu("flac", t)
 
         def _parse_lane_inner(bi):
             # per-lane WINDOW parse — ONE C call decodes up to W frames
@@ -1202,7 +1260,7 @@ class BatchDecoder:
 
         def _flac_dispatch(rows, ns, keep, residual, coeffs, order, shift,
                            exact, assigns, wasteds, out_shifts, max_bs, S,
-                           use_s16):
+                           use_s16, ctx, k):
             # everything per-window arrives as an argument: the enclosing
             # loop rebinds its locals while this runs.  `rows`/`ns` address
             # the parser's residual rows in place; `keep` holds per-lane
@@ -1210,188 +1268,210 @@ class BatchDecoder:
             # live in the double-buffered res_buf, gated by buf_futs).
             Ln = S * nch
             h2d = 0
+            n0 = lpc_ops.KERNEL_LAUNCHES
             if parse_lib is not None:
                 _i32p = ctypes.POINTER(ctypes.c_int32)
                 _u32p = ctypes.POINTER(ctypes.c_uint32)
                 _i64p = ctypes.POINTER(ctypes.c_int64)
-                t_pk = time.perf_counter()
-                w_l = np.zeros(Ln, np.int32)
-                wmax = parse_lib.af_flac_widths_gather(
-                    rows.ctypes.data_as(_i64p), Ln, max_bs,
-                    ns.ctypes.data_as(_i32p),
-                    order.ctypes.data_as(_i32p),
-                    w_l.ctypes.data_as(_i32p))
-                # residual widths are heavy-tailed (verbatim blocks,
-                # high-order partitions): pad every row to the max bucket,
-                # or pack small and ship the few wide rows apart
-                wb, Lb = _flac_width_plan(w_l, wmax, Ln, max_bs)
-                stride = (max_bs * wb + 31) // 32 + 1
-                packed = np.empty((Ln, stride), np.uint32)
-                warm = np.empty((Ln, 32), np.int32)
-                parse_lib.af_flac_pack_gather(
-                    rows.ctypes.data_as(_i64p), Ln, max_bs,
-                    ns.ctypes.data_as(_i32p),
-                    order.ctypes.data_as(_i32p), wb,
-                    packed.ctypes.data_as(_u32p), stride,
-                    warm.ctypes.data_as(_i32p))
-                if Lb:
-                    # the wide rows ship packed at the window-max bucket
-                    over = np.flatnonzero(w_l > wb)
-                    wb2 = next((x for x in _FLAC_W_BUCKETS if wmax <= x), 32)
-                    stride2 = (max_bs * wb2 + 31) // 32 + 1
-                    order2 = np.full(Lb, max_bs, np.int32)
-                    order2[1: 1 + over.size] = order[over]
-                    packed2 = np.zeros((Lb, stride2), np.uint32)
-                    warm2 = np.zeros((Lb, 32), np.int32)
-                    if over.size:
-                        rows_o = np.ascontiguousarray(rows[over])
-                        ns_o = np.ascontiguousarray(ns[over])
-                        parse_lib.af_flac_pack_gather(
-                            rows_o.ctypes.data_as(_i64p),
-                            int(over.size), max_bs,
-                            ns_o.ctypes.data_as(_i32p),
-                            np.ascontiguousarray(order[over])
-                            .ctypes.data_as(_i32p), wb2,
-                            packed2[1:].ctypes.data_as(_u32p),
-                            stride2,
-                            warm2[1:].ctypes.data_as(_i32p))
-                    ovf_idx = np.zeros(Ln, np.int32)
-                    ovf_idx[over] = np.arange(1, 1 + over.size)
+                with trace.span("pack", ctx=ctx, format="flac", window=k):
+                    w_l = np.zeros(Ln, np.int32)
+                    wmax = parse_lib.af_flac_widths_gather(
+                        rows.ctypes.data_as(_i64p), Ln, max_bs,
+                        ns.ctypes.data_as(_i32p),
+                        order.ctypes.data_as(_i32p),
+                        w_l.ctypes.data_as(_i32p))
+                    # residual widths are heavy-tailed (verbatim blocks,
+                    # high-order partitions): pad every row to the max
+                    # bucket, or pack small and ship the few wide rows apart
+                    wb, Lb = _flac_width_plan(w_l, wmax, Ln, max_bs)
+                    stride = (max_bs * wb + 31) // 32 + 1
+                    packed = np.empty((Ln, stride), np.uint32)
+                    warm = np.empty((Ln, 32), np.int32)
+                    parse_lib.af_flac_pack_gather(
+                        rows.ctypes.data_as(_i64p), Ln, max_bs,
+                        ns.ctypes.data_as(_i32p),
+                        order.ctypes.data_as(_i32p), wb,
+                        packed.ctypes.data_as(_u32p), stride,
+                        warm.ctypes.data_as(_i32p))
+                    if Lb:
+                        # the wide rows ship packed at the window-max bucket
+                        over = np.flatnonzero(w_l > wb)
+                        wb2 = next((x for x in _FLAC_W_BUCKETS
+                                    if wmax <= x), 32)
+                        stride2 = (max_bs * wb2 + 31) // 32 + 1
+                        order2 = np.full(Lb, max_bs, np.int32)
+                        order2[1: 1 + over.size] = order[over]
+                        packed2 = np.zeros((Lb, stride2), np.uint32)
+                        warm2 = np.zeros((Lb, 32), np.int32)
+                        if over.size:
+                            rows_o = np.ascontiguousarray(rows[over])
+                            ns_o = np.ascontiguousarray(ns[over])
+                            parse_lib.af_flac_pack_gather(
+                                rows_o.ctypes.data_as(_i64p),
+                                int(over.size), max_bs,
+                                ns_o.ctypes.data_as(_i32p),
+                                np.ascontiguousarray(order[over])
+                                .ctypes.data_as(_i32p), wb2,
+                                packed2[1:].ctypes.data_as(_u32p),
+                                stride2,
+                                warm2[1:].ctypes.data_as(_i32p))
+                        ovf_idx = np.zeros(Ln, np.int32)
+                        ovf_idx[over] = np.arange(1, 1 + over.size)
                 keep = None   # parser rows consumed
-                # runs on the dispatch worker, overlapped with the next
-                # window's parse — attribution, not wall split
-                self._stat_add("enq_flacp_pack_ms",
-                               (time.perf_counter() - t_pk) * 1e3)
-                (packed_d, warm_d, coeffs, order_d, shift, exact, assigns,
-                 wasteds, out_shifts) = _upload(
-                    device, packed, warm, coeffs, order, shift, exact,
-                    assigns, wasteds, out_shifts)
-                residual_d = lpc_ops.flac_unpack_residuals(
-                    packed_d, warm_d, order_d, w=wb, n=max_bs)
-                h2d += packed.nbytes + warm.nbytes
+                nb = packed.nbytes + warm.nbytes
+                with trace.span("upload", ctx=ctx, format="flac", window=k,
+                                bytes=nb):
+                    (packed_d, warm_d, coeffs, order_d, shift, exact,
+                     assigns, wasteds, out_shifts) = _upload(
+                        device, packed, warm, coeffs, order, shift, exact,
+                        assigns, wasteds, out_shifts)
+                h2d += nb
+                with trace.span("launch", ctx=ctx, format="flac", window=k):
+                    residual_d = lpc_ops.flac_unpack_residuals(
+                        packed_d, warm_d, order_d, w=wb, n=max_bs)
                 if Lb:
-                    p2_d, w2_d, o2_d, idx_d = _upload(
-                        device, packed2, warm2, order2, ovf_idx)
-                    res_o = lpc_ops.flac_unpack_residuals(
-                        p2_d, w2_d, o2_d, w=wb2, n=max_bs)
-                    residual_d = lpc_ops.flac_merge_overflow(
-                        residual_d, res_o, idx_d)
-                    h2d += (packed2.nbytes + warm2.nbytes
-                            + order2.nbytes + ovf_idx.nbytes)
+                    nb = (packed2.nbytes + warm2.nbytes + order2.nbytes
+                          + ovf_idx.nbytes)
+                    with trace.span("upload", ctx=ctx, format="flac",
+                                    window=k, bytes=nb):
+                        p2_d, w2_d, o2_d, idx_d = _upload(
+                            device, packed2, warm2, order2, ovf_idx)
+                    h2d += nb
+                    with trace.span("launch", ctx=ctx, format="flac",
+                                    window=k):
+                        res_o = lpc_ops.flac_unpack_residuals(
+                            p2_d, w2_d, o2_d, w=wb2, n=max_bs)
+                        residual_d = lpc_ops.flac_merge_overflow(
+                            residual_d, res_o, idx_d)
             else:
-                (residual_d, coeffs, order_d, shift, exact, assigns,
-                 wasteds, out_shifts) = _upload(
-                    device, residual, coeffs, order, shift, exact,
-                    assigns, wasteds, out_shifts)
+                with trace.span("upload", ctx=ctx, format="flac", window=k,
+                                bytes=residual.nbytes):
+                    (residual_d, coeffs, order_d, shift, exact, assigns,
+                     wasteds, out_shifts) = _upload(
+                        device, residual, coeffs, order, shift, exact,
+                        assigns, wasteds, out_shifts)
                 h2d += residual.nbytes
-            samples = lpc_ops.flac_lpc(
-                residual_d, coeffs, order_d, shift, exact
-            ).reshape(S, nch, max_bs)
-            # <=16-bit lanes (out_shift >= 16): ship int16 losslessly to
-            # halve the device->host bytes
-            post = lpc_ops.flac_post_stereo_batch_s16 if use_s16 \
-                else lpc_ops.flac_post_stereo_batch
-            out32 = post(samples, assigns, wasteds, out_shifts)
-            return _prefetch(out32, to_device), h2d
+            with trace.span("launch", ctx=ctx, format="flac",
+                            window=k) as sp:
+                samples = lpc_ops.flac_lpc(
+                    residual_d, coeffs, order_d, shift, exact
+                ).reshape(S, nch, max_bs)
+                # <=16-bit lanes (out_shift >= 16): ship int16 losslessly
+                # to halve the device->host bytes
+                post = lpc_ops.flac_post_stereo_batch_s16 if use_s16 \
+                    else lpc_ops.flac_post_stereo_batch
+                out32 = post(samples, assigns, wasteds, out_shifts)
+                out = _prefetch(out32, to_device)
+                sp.set(launches=lpc_ops.KERNEL_LAUNCHES - n0)
+            return out, h2d
 
         try:
             buf_futs = [None, None]   # dispatch future per buffer parity
             wpar = 0
-            while active.any():
-                if fmulti:
-                    # rows of the window that used this buffer (two
-                    # windows ago) must be packed before reuse
-                    if buf_futs[wpar] is not None:
-                        buf_futs[wpar].result()
-                    res_buf = res_buf_alt if wpar else res_buf_first
-                # host entropy stage: parse up to W frames per stream
-                t_host = time.perf_counter()
-                live = [bi for bi in range(B) if active[bi]]
-                chunk_fn = _parse_chunk_fmulti if fmulti else _parse_chunk
-                if parse_pool is not None:
-                    res = [r for sub in parse_pool.map(
-                        chunk_fn, _lane_chunks(live, n_workers))
-                        for r in sub]
-                else:
-                    res = chunk_fn(live)
-                parsed = [[] for _ in range(B)]
-                max_bs = 0
-                progress = False
-                for bi, (lane_out, prog, mbs) in zip(live, res):
-                    parsed[bi] = lane_out
-                    progress = progress or prog
-                    max_bs = max(max_bs, mbs)
-                self._note_stage("host_ms", "flac", t_host)
-                lanes = [(bi, p) for bi in range(B) for p in parsed[bi]]
-                if not lanes:
-                    if not progress:
-                        break
-                    continue
-                t_enq = time.perf_counter()
-                # bucket the lane count (multiples of 128 past 128) and the
-                # block length, so window shapes repeat
-                n_l = len(lanes)
-                S = max(8, 1 << (n_l - 1).bit_length()) if n_l <= 128 \
-                    else -(-n_l // 128) * 128
-                max_bs = -(-max_bs // 1024) * 1024
-                coeffs = np.zeros((S * nch, 32), np.int32)
-                order = np.full(S * nch, max_bs, np.int32)  # pad: pass-through
-                shift = np.zeros(S * nch, np.int32)
-                exact = np.zeros(S * nch, bool)
-                assigns = np.zeros(S, np.int32)
-                wasteds = np.zeros((S, nch), np.int32)
-                out_shifts = np.zeros(S, np.int32)
-                if parse_lib is not None:
-                    # no padded residual scatter: the worker packs straight
-                    # from the parser's rows (af_flac_pack_gather).
-                    # rows[l] = address of that (lane, channel)'s residual
-                    # row, ns[l] its valid sample count (reads as 0
-                    # beyond); rows left 0 are all-zero padding rows.
-                    rows = np.zeros(S * nch, np.int64)
-                    ns = np.zeros(S * nch, np.int32)
-                    keep = []          # keepalive for per-lane parse bufs
-                    residual = None
-                else:
-                    rows = ns = keep = None
-                    residual = np.zeros((S * nch, max_bs), np.int32)
-                for si, (bi, p) in enumerate(lanes):
-                    bs, ca, res, cf, orr, sh, wa, bps, _slot = p
-                    if residual is None:
-                        base = res.__array_interface__["data"][0]
-                        st0 = res.strides[0]
-                        for c in range(nch):
-                            rows[si * nch + c] = base + c * st0
-                        ns[si * nch: si * nch + nch] = bs
-                        keep.append(res)
+            for k in itertools.count():
+                if not active.any():
+                    break
+                with trace.span("window", format="flac", window=k,
+                                lanes=int(active.sum())):
+                    if fmulti:
+                        # rows of the window that used this buffer (two
+                        # windows ago) must be packed before reuse
+                        if buf_futs[wpar] is not None:
+                            with trace.span("wait", format="flac", window=k):
+                                buf_futs[wpar].result()
+                        res_buf = res_buf_alt if wpar else res_buf_first
+                    # host entropy stage: parse up to W frames per stream
+                    wctx[0] = trace.context()
+                    t_host = trace.timer("parse")
+                    live = [bi for bi in range(B) if active[bi]]
+                    chunk_fn = _parse_chunk_fmulti if fmulti else _parse_chunk
+                    if parse_pool is not None:
+                        res = [r for sub in parse_pool.map(
+                            chunk_fn, _lane_chunks(live, n_workers))
+                            for r in sub]
                     else:
-                        residual[si * nch: si * nch + nch, :bs] = res
-                    coeffs[si * nch: si * nch + nch] = cf
-                    order[si * nch: si * nch + nch] = orr
-                    shift[si * nch: si * nch + nch] = sh
-                    exact[si * nch: si * nch + nch] = np.asarray(bps) > 16
-                    assigns[si] = ca
-                    wasteds[si] = wa
-                    out_shifts[si] = 32 - decs[bi].bits_per_sample
-                use_s16 = all(decs[bi].bits_per_sample <= 16
-                              for bi, _ in lanes)
-                fut = pool.submit(
-                    _flac_dispatch, rows, ns, keep, residual, coeffs,
-                    order, shift, exact, assigns, wasteds, out_shifts,
-                    max_bs, S, use_s16)
-                self._note_stage("enqueue_ms", "flac", t_enq)
-                self._note_window("flac")
-                # slots were claimed at parse time, in frame order; p[8] is
-                # the frame's slot
-                pending.append((fut, [(p[8], si, p[0]) for si, (bi, p)
-                                      in enumerate(lanes)]))
-                if fmulti:
-                    # this window's rows live in res_buf[wpar]; flip
-                    # parity so the next window parses the other buffer
-                    buf_futs[wpar] = fut
-                    wpar ^= 1
+                        res = chunk_fn(live)
+                    parsed = [[] for _ in range(B)]
+                    max_bs = 0
+                    progress = False
+                    for bi, (lane_out, prog, mbs) in zip(live, res):
+                        parsed[bi] = lane_out
+                        progress = progress or prog
+                        max_bs = max(max_bs, mbs)
+                    self._note_stage("host_ms", "flac", t_host)
+                    lanes = [(bi, p) for bi in range(B) for p in parsed[bi]]
+                    if not lanes:
+                        if not progress:
+                            break
+                        continue
+                    t_enq = trace.timer("enqueue")
+                    # bucket the lane count (multiples of 128 past 128) and the
+                    # block length, so window shapes repeat
+                    n_l = len(lanes)
+                    S = max(8, 1 << (n_l - 1).bit_length()) if n_l <= 128 \
+                        else -(-n_l // 128) * 128
+                    max_bs = -(-max_bs // 1024) * 1024
+                    coeffs = np.zeros((S * nch, 32), np.int32)
+                    # pad rows: pass-through
+                    order = np.full(S * nch, max_bs, np.int32)
+                    shift = np.zeros(S * nch, np.int32)
+                    exact = np.zeros(S * nch, bool)
+                    assigns = np.zeros(S, np.int32)
+                    wasteds = np.zeros((S, nch), np.int32)
+                    out_shifts = np.zeros(S, np.int32)
+                    if parse_lib is not None:
+                        # no padded residual scatter: the worker packs straight
+                        # from the parser's rows (af_flac_pack_gather).
+                        # rows[l] = address of that (lane, channel)'s residual
+                        # row, ns[l] its valid sample count (reads as 0
+                        # beyond); rows left 0 are all-zero padding rows.
+                        rows = np.zeros(S * nch, np.int64)
+                        ns = np.zeros(S * nch, np.int32)
+                        keep = []          # keepalive for per-lane parse bufs
+                        residual = None
+                    else:
+                        rows = ns = keep = None
+                        residual = np.zeros((S * nch, max_bs), np.int32)
+                    for si, (bi, p) in enumerate(lanes):
+                        bs, ca, res, cf, orr, sh, wa, bps, _slot = p
+                        if residual is None:
+                            base = res.__array_interface__["data"][0]
+                            st0 = res.strides[0]
+                            for c in range(nch):
+                                rows[si * nch + c] = base + c * st0
+                            ns[si * nch: si * nch + nch] = bs
+                            keep.append(res)
+                        else:
+                            residual[si * nch: si * nch + nch, :bs] = res
+                        coeffs[si * nch: si * nch + nch] = cf
+                        order[si * nch: si * nch + nch] = orr
+                        shift[si * nch: si * nch + nch] = sh
+                        exact[si * nch: si * nch + nch] = np.asarray(bps) > 16
+                        assigns[si] = ca
+                        wasteds[si] = wa
+                        out_shifts[si] = 32 - decs[bi].bits_per_sample
+                    use_s16 = all(decs[bi].bits_per_sample <= 16
+                                  for bi, _ in lanes)
+                    fut = pool.submit(
+                        _flac_dispatch, rows, ns, keep, residual, coeffs,
+                        order, shift, exact, assigns, wasteds, out_shifts,
+                        max_bs, S, use_s16, wctx[0], k)
+                    self._note_stage("enqueue_ms", "flac", t_enq)
+                    self._note_window("flac")
+                    # slots were claimed at parse time, in frame order; p[8] is
+                    # the frame's slot
+                    pending.append((fut, [(p[8], si, p[0]) for si, (bi, p)
+                                          in enumerate(lanes)]))
+                    if fmulti:
+                        # this window's rows live in res_buf[wpar]; flip
+                        # parity so the next window parses the other buffer
+                        buf_futs[wpar] = fut
+                        wpar ^= 1
         finally:
-            # no worker outlives a lane fault mid-window
-            pool.shutdown(wait=True)
+            # no worker outlives a lane fault mid-window; the main thread
+            # waits here for the dispatch worker's last windows
+            with trace.span("wait", format="flac"):
+                pool.shutdown(wait=True)
             if parse_pool is not None:
                 parse_pool.shutdown(wait=True)
         resolved = []
@@ -1517,8 +1597,7 @@ class BatchDecoder:
         bpsf_w = np.zeros((B, W), np.int32)
         n_w = np.zeros(B, np.int32)
         while active.any():
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             live = []
             for bi in np.flatnonzero(active).tolist():
                 d = decs[bi]
@@ -1557,7 +1636,7 @@ class BatchDecoder:
                 if n < W:
                     active[bi] = False
             self._note_stage("host_ms", "flac", t_host)
-            self._note_host_cpu("flac", ct_host)
+            self._note_host_cpu("flac", t_host)
             if not lanes:
                 break
             self._flac_rice_enqueue(decs, lanes, nch, outputs, pending,
@@ -1590,7 +1669,7 @@ class BatchDecoder:
         """Build and submit one device-Rice dispatch: the frame pool (or
         its gather indices), the per-frame arrays, and the worker's device
         chain (pool → frame-entropy kernel → LPC kernel → stereo)."""
-        t_enq = time.perf_counter()
+        t_enq = trace.timer("enqueue")
         S = len(lanes)
         max_bs = max(p[4] for p in lanes)
         max_bs = next((x for x in (256, 1024, 4096) if max_bs <= x),
@@ -1717,8 +1796,7 @@ class BatchDecoder:
         payloads ship as int8 (3-bit codes, 4-bit scalefactors) and the
         kernel dequantizes them as it decodes."""
         FULL_S = lms_ops.QOA_SLICES_PER_FRAME
-        t_host = time.perf_counter()
-        ct_host = time.thread_time()
+        t_host = trace.timer("parse", cpu=True)
         metas = []   # (stream index, f_samples)
         H, Wt, SF, CD = [], [], [], []
         for bi, d in enumerate(decs):
@@ -1750,10 +1828,10 @@ class BatchDecoder:
             sf8 = np.concatenate(SF)
             cd8 = np.concatenate(CD)
             self._note_stage("host_ms", "qoa", t_host)
-            self._note_host_cpu("qoa", ct_host)
+            self._note_host_cpu("qoa", t_host)
             L = hist.shape[0]
             for c0 in range(0, L, QOA_WINDOW_LANES):
-                t_enq = time.perf_counter()
+                t_enq = trace.timer("enqueue")
                 sl = slice(c0, min(L, c0 + QOA_WINDOW_LANES))
                 arrays = (hist[sl], wts[sl], sf8[sl], cd8[sl])
                 out = lms_ops.decode_slices(*_upload(device, *arrays))
@@ -1798,8 +1876,7 @@ class BatchDecoder:
         (frame-aligned, so lane boundaries stay sample boundaries) join one
         buffer that goes up as it is, and K10 unpacks and converts it on
         the device: 2 bytes a sample up for s16."""
-        t_host = time.perf_counter()
-        ct_host = time.thread_time()
+        t_host = trace.timer("parse", cpu=True)
         parts = []
         counts = []  # (frames, channels) a lane
         for d in decs:
@@ -1809,8 +1886,8 @@ class BatchDecoder:
             d._frame_pos += frames
         raw = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
         self._note_stage("host_ms", "wav", t_host)
-        self._note_host_cpu("wav", ct_host)
-        t_enq = time.perf_counter()
+        self._note_host_cpu("wav", t_host)
+        t_enq = trace.timer("enqueue")
         out = pcm_ops.decode_bytes(torch.from_numpy(raw).to(device), kind)
         pending = [(_prefetch(out, to_device),)]
         self._note_stage("enqueue_ms", "wav", t_enq)
@@ -1858,8 +1935,7 @@ class BatchDecoder:
         active = np.ones(B, bool)
         pending = []
         while active.any():
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             X = np.zeros((K, L, h), np.float32)
             geom = np.zeros((4, K, B), np.int32)  # ls, rs, re, valid
             lens = np.zeros((K, B), np.int32)     # emitted (clamped) lengths
@@ -1888,10 +1964,10 @@ class BatchDecoder:
                     d._pos += ol
                     k += 1
             self._note_stage("host_ms", "vorbis", t_host)
-            self._note_host_cpu("vorbis", ct_host)
+            self._note_host_cpu("vorbis", t_host)
             if not geom[3].any():
                 break
-            t_enq = time.perf_counter()
+            t_enq = trace.timer("enqueue")
             X_d, g_d = _upload(dev, X, geom)
             pcm, *st = vorbis_win.vorbis_window_chain(
                 X_d, g_d[0], g_d[1], g_d[2], g_d[3], *state,
@@ -2023,8 +2099,7 @@ class BatchDecoder:
         outputs = [[] for _ in range(B)]
         for step in range(n_steps):
             buckets = {}
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             for bi, d in enumerate(decs):
                 if step >= len(lane_frames[bi]):
                     continue
@@ -2042,10 +2117,10 @@ class BatchDecoder:
                     (params["blocks"], params["blocksize"]), []
                 ).append((bi, d, cd, params, n))
             self._note_stage("host_ms", "opus", t_host)
-            self._note_host_cpu("opus", ct_host)
+            self._note_host_cpu("opus", t_host)
             if not buckets:
                 continue
-            t_enq = time.perf_counter()
+            t_enq = trace.timer("enqueue")
             for (blocks, bs), items in buckets.items():
                 raw, newtail = self._celt_imdct_bucket(
                     [(cd, p) for (_, _, cd, p, _) in items], blocks, bs,
@@ -2233,8 +2308,7 @@ class BatchDecoder:
         owed = [0] * B   # each lane's samples the upsampler holds back
         self._stat_add("opus_silk_lanes", B)
         for s in range(max(len(d._silk_lockstep) for d in decs)):
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             X = np.zeros((B * nch, T), np.float32)
             for bi, d in enumerate(decs):
                 if s >= len(d._silk_lockstep):
@@ -2254,8 +2328,8 @@ class BatchDecoder:
                 X[bi * nch: (bi + 1) * nch] = \
                     np.concatenate(cols, axis=0).T[:, :T]
             self._note_stage("host_ms", "opus", t_host)
-            self._note_host_cpu("opus", ct_host)
-            t_enq = time.perf_counter()
+            self._note_host_cpu("opus", t_host)
+            t_enq = trace.timer("enqueue")
             Y = self._silk_upsample_step(rs, X, frame48)
             self._note_stage("enqueue_ms", "opus", t_enq)
             for bi, d in enumerate(decs):
@@ -2304,8 +2378,7 @@ class BatchDecoder:
         outs = [[] for _ in range(B)]
         self._stat_add("opus_hybrid_lanes", B)
         for st in range(max(len(d._silk_lockstep) for d in decs)):
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             X = np.zeros((B * nch, T), np.float32)
             stash = {}
             for bi, d in enumerate(decs):
@@ -2335,10 +2408,10 @@ class BatchDecoder:
                     rd, coded, frame48, 17, endband)
                 stash[bi] = (params, redundancy, red, frame, size)
             self._note_stage("host_ms", "opus", t_host)
-            self._note_host_cpu("opus", ct_host)
+            self._note_host_cpu("opus", t_host)
             if not stash:
                 break
-            t_enq = time.perf_counter()
+            t_enq = trace.timer("enqueue")
             Y = self._silk_upsample_step(rs, X, frame48)
             buckets = {}
             for bi, (params, *_) in stash.items():
@@ -2411,8 +2484,7 @@ class BatchDecoder:
         done = [False] * B
         self._stat_add("opus_mixed_lanes", B)
         while not all(done):
-            t_host = time.perf_counter()
-            ct_host = time.thread_time()
+            t_host = trace.timer("parse", cpu=True)
             jobs = {}
             for bi, d in enumerate(decs):
                 while not done[bi]:
@@ -2441,10 +2513,10 @@ class BatchDecoder:
                         sends[bi] = cd.synthesize(p)
                 self._stat_add("opus_mixed_host_rounds", 1)
             self._note_stage("host_ms", "opus", t_host)
-            self._note_host_cpu("opus", ct_host)
+            self._note_host_cpu("opus", t_host)
             if not jobs or not use_device:
                 continue
-            t_enq = time.perf_counter()
+            t_enq = trace.timer("enqueue")
             for (blocks, bs), items in jobs.items():
                 raw, newtail = self._celt_imdct_bucket(
                     [(cd, p) for _, cd, p in items], blocks, bs, device)
