@@ -15,6 +15,13 @@ Everything after the Huffman stage is dense linear algebra over
 * **Polyphase synthesis** — the 32-band filterbank as a 17-tap matrix FIR
   over granule slots, W from ``utils/tables/mp3_synth_fir.npz``.
 
+On the card the batch window runs everything from the dequant to the
+synthesis product's operand as one hand-written kernel, K14
+(``csrc/mp3_dsp.cu``, ``window_dsp_cuda``), over the tables of
+``dsp_blob``; ``DSP_LAUNCHES`` counts its launches.  ``mp3_window_dsp``
+(after ops/mp3_huff.py ``spectrum_stage``) is its plain twin, which the CPU
+takes.
+
 Carried per-stream state: IMDCT overlap [C, 32, 18] and the last 16
 subband slot vectors [C, 16, 32] (minimp3's mdct_overlap and qmf_state,
 minimp3.d:40-45).
@@ -26,12 +33,14 @@ float32 matmuls rather than change that setting behind the caller's back.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 
 import numpy as np
 import torch
 
+from . import _kernels
 from ._kernels import KernelError
 
 _TABLE_DIR = os.path.join(os.path.dirname(__file__), "..", "utils", "tables")
@@ -304,6 +313,122 @@ def mp3_window_dsp(xq, aa_bands, wtype, overlap, shist, n_act, nch: int,
     new_shist = torch.gather(
         Sfull, 2, hidx[:, None, :, None].expand(B, nch, 16, 32))
     return pcm, new_overlap, new_shist
+
+
+# ------------------------------------------------- K14, the window kernel
+#: launches of the CUDA window DSP kernel (af_mp3_window_dsp) in this process
+DSP_LAUNCHES = 0
+_launch_lock = threading.Lock()
+
+#: int32 word offsets in dsp_blob() (csrc/mp3_dsp.cu reads the same layout)
+DSP_UV = 0                         # [4, 18, 36] f32: UV_MATS
+DSP_P43 = DSP_UV + 4 * 18 * 36     # [8208] f32: |q|^(4/3)
+DSP_BAND = DSP_P43 + 8208          # [48, 576] u8: BAND_IDX
+DSP_PERM = DSP_BAND + 48 * 576 // 4  # [48, 576] u16: PERM
+DSP_WT = DSP_PERM + 48 * 576 // 2  # [48, 4, 32] u8: window type a band
+DSP_AA = DSP_WT + 48 * 4 * 32 // 4  # [48] i8: antialias boundaries
+DSP_CS = DSP_AA + 48 // 4          # [8] f32: AA_CS
+DSP_CA = DSP_CS + 8                # [8] f32: AA_CA
+DSP_POW4 = DSP_CA + 8              # [4] f32: 2^(j/4)
+DSP_WORDS = DSP_POW4 + 4
+
+#: 2^(j/4), j = 0..3, rounded once to float32: the kernel's gain
+#: 2^(e/4) is ldexp(_POW4[e & 3], e >> 2), correctly rounded
+_POW4 = (2.0 ** (np.arange(4) / 4.0)).astype(np.float32)
+
+
+def _window_tables(nlb: np.ndarray):
+    """K14's window types [48 patterns, 4 block types, 32 bands] and
+    antialias boundary counts [48], from each pattern's long-band count
+    (ops/mp3_huff.py _NLB): the rule of ops/mp3_huff.py spectrum_stage,
+    tabulated.  Short and mixed patterns (kind 1, 2) take long windows
+    below their long bands and short ones above, and antialias their long
+    bands' boundaries; long patterns take the block type's window (3 stop,
+    1 start, any other normal) and all 31 boundaries."""
+    pat = np.arange(48)
+    is_short = np.isin(pat // 16, (1, 2))
+    base = np.array([WIN_NORMAL, WIN_START, WIN_NORMAL, WIN_STOP])
+    band = np.arange(32)
+    wt = np.where(is_short[:, None, None],
+                  np.where(band < nlb[:, None, None], WIN_NORMAL, WIN_SHORT),
+                  base[None, :, None])
+    aa = np.where(is_short, nlb - 1, 31)
+    return wt.astype(np.int8), aa.astype(np.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def dsp_blob() -> np.ndarray:
+    """The int32 word blob of every table K14 reads (DSP_* offsets): the
+    IMDCT matrices, |q|^(4/3), each pattern's band of a position and
+    short-block reorder, the window tables, the antialias coefficients and
+    _POW4.  Built once, at first use."""
+    from . import mp3_huff  # it imports this module
+
+    def words(a):
+        return np.ascontiguousarray(a).reshape(-1).view(np.int32)
+
+    wt, aa = _window_tables(mp3_huff._NLB)
+    blob = np.concatenate([
+        words(UV_MATS), words(mp3_huff._P43),
+        words(mp3_huff.BAND_IDX.astype(np.uint8)),
+        words(mp3_huff.PERM.astype(np.uint16)), words(wt), words(aa),
+        words(AA_CS), words(AA_CA), words(_POW4)])
+    assert blob.shape == (DSP_WORDS,)
+    return blob
+
+
+def window_dsp_cuda(q, meta16, scfq, n_act, overlap, shist, abcd=None, *,
+                    B: int, G: int, nch: int, short: bool = True):
+    """K14 (csrc/mp3_dsp.cu) on the tensors' card, on its current stream:
+    a window from the Huffman stage's output to the synthesis product's
+    operand in one launch.
+
+    q [L, 576] int32 (L = B·G·nch lanes, lane (b·G + g)·nch + c), meta16
+    [L, 16] int16 and scfq [L, 40] int16 as ops/mp3_huff.spectrum_stage
+    takes them; n_act [B] int32; overlap [B, nch, 32, 18] and shist [B,
+    nch, 16, 32] float32 as mp3_window_dsp; abcd [B·G, 4, 40] float32, the
+    intensity mix (ops/mp3_huff._intensity_abcd), or None outside intensity
+    windows; short: whether any lane has a short-block pattern.  All
+    contiguous on one CUDA device.
+
+    Returns (operand [L, 1088] f32, overlap', shist'): row (b, g, c) of
+    the operand holds slots [18g, 18g + 34) of (shist ‖ S), so
+    ``operand @ SYNTH_TOEPLITZ`` viewed as [B, G, nch, 576] is the PCM of
+    mp3_window_dsp."""
+    dev = q.device
+    L = B * G * nch
+    if nch not in (1, 2) or (abcd is not None and nch != 2):
+        raise _kernels.KernelArgError(
+            f"window_dsp: {nch} channels"
+            + (" with an intensity mix" if abcd is not None else ""))
+    want = [("q", q, (torch.int32,), (L, 576)),
+            ("meta16", meta16, (torch.int16,), (L, 16)),
+            ("scfq", scfq, (torch.int16,), (L, 40)),
+            ("n_act", n_act, (torch.int32,), (B,)),
+            ("overlap", overlap, (torch.float32,), (B, nch, 32, 18)),
+            ("shist", shist, (torch.float32,), (B, nch, 16, 32))]
+    if abcd is not None:
+        want.append(("abcd", abcd, (torch.float32,), (B * G, 4, 40)))
+    _kernels.check_args("window_dsp", dev, want)
+    operand = torch.empty((L, 34 * 32), dtype=torch.float32, device=dev)
+    new_overlap = torch.empty_like(overlap)
+    new_shist = torch.empty_like(shist)
+    if L == 0:
+        return operand, new_overlap, new_shist
+    global DSP_LAUNCHES
+    lib = _kernels.load("mp3_dsp")
+    blob = device_const(dsp_blob(), dev)
+    with torch.cuda.device(dev):
+        rc = lib.af_mp3_window_dsp(
+            q.data_ptr(), meta16.data_ptr(), scfq.data_ptr(),
+            n_act.data_ptr(), overlap.data_ptr(), shist.data_ptr(),
+            None if abcd is None else abcd.data_ptr(), blob.data_ptr(), B, G,
+            nch, int(short), operand.data_ptr(), new_overlap.data_ptr(),
+            new_shist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_launch("window_dsp", rc)
+    with _launch_lock:
+        DSP_LAUNCHES += 1
+    return operand, new_overlap, new_shist
 
 
 def mp3_synth_slots(S, shist, nch: int):

@@ -17,10 +17,12 @@ independent bitstream, so a window's lanes decode in lockstep:
   takes the plain twin ``huff_decode_torch``.  ``HUFF_LAUNCHES`` counts the
   kernel's launches.
 * ``dequant``, ``reorder_short``, ``_intensity_abcd`` and
-  ``packed_device_stage`` — requantize, short-block reorder, MS or
-  intensity mix, window types: plain torch ops.
-* ``packed_window`` — one window from the pooled wire to PCM, through
-  ops/mp3_dsp.py's window DSP.
+  ``spectrum_stage`` — requantize, short-block reorder, MS or intensity
+  mix, window types: plain torch ops, the front half of K14's twin
+  (``packed_device_stage`` is the Huffman FSM and this stage).
+* ``packed_window`` — one window from the pooled wire to PCM: on the card
+  K3, K14 (ops/mp3_dsp.py ``window_dsp_cuda``) and the synthesis product;
+  on the CPU the twins, through ops/mp3_dsp.py's window DSP.
 
 Both the twin and the kernel read the code tables from one int32 blob
 (``HUFF_BLOB``) built here from the spec tables: a two-level lookup, 8 bits
@@ -654,28 +656,55 @@ def _intensity_abcd(q_r, pat_l, is_ms, t_ist, t_ms, sh, ist, mpeg1: bool):
     return torch.stack([a, b, c, d], dim=1)
 
 
+def _window_abcd(q, pattern, stereo, ist, BG: int, nch: int, mpeg1: bool):
+    """The intensity window's per-band mix [BG, 4, 40] (_intensity_abcd)
+    from the window's q [BG·nch, 576], its lanes' patterns and stereo bits
+    (int64 [BG·nch]) and right-channel intensity positions ist [BG, 40]:
+    the left channel's layout and flags, the right channel's spectrum."""
+    pat_l = pattern.reshape(BG, nch)[:, 0]
+    fl = stereo.reshape(BG, nch)[:, 0]
+    return _intensity_abcd(
+        q.reshape(BG, nch, 576)[:, 1], pat_l, (fl & 1) == 1, (fl & 2) == 2,
+        (fl & 4) == 4, (fl >> 3) & 1, ist, mpeg1)
+
+
 def packed_device_stage(pool, meta16, scfq, W: int, B: int, G: int,
                         nch: int, ist=None, mpeg1: bool = True,
                         short: bool = True, lanes_per_frame: int = None):
-    """The device entropy stage of one window: Huffman FSM → dequant →
-    stereo (the intensity 2×2 mix before the reorder when ``ist`` is given,
-    else the MS butterfly after it) → short-block reorder → window types
-    and antialias counts.
+    """The device entropy stage of one window: the Huffman FSM, then
+    spectrum_stage.
 
     pool, meta16, lanes_per_frame as huff_decode (L = B·G·nch lanes; by
     default the batch wire's, where the ngr·nch granule-channels of a
-    frame share its words); scfq [L, 40] int16
-    quarter-exponent gains; ist [B·G, 40] int16 right-channel intensity
-    positions (intensity windows only); short: any short-block lane.
+    frame share its words); the rest as spectrum_stage.
+
+    Returns (xq [B, G, nch, 576] f32, aa [B, G, nch] i32,
+             wt [B, G, nch, 32] i32).
+    """
+    if lanes_per_frame is None:
+        lanes_per_frame = (2 if mpeg1 else 1) * nch
+    q, _err = huff_decode(pool, meta16, W, lanes_per_frame)
+    return spectrum_stage(q, meta16, scfq, B, G, nch, ist=ist, mpeg1=mpeg1,
+                          short=short)
+
+
+def spectrum_stage(q, meta16, scfq, B: int, G: int, nch: int, ist=None,
+                   mpeg1: bool = True, short: bool = True):
+    """A window's spectrum from the Huffman stage's q [L, 576] int32:
+    dequant → stereo (the intensity 2×2 mix before the reorder when ``ist``
+    is given, else the MS butterfly after it) → short-block reorder →
+    window types and antialias counts.  With mp3_dsp.mp3_window_dsp after
+    it, the plain twin of K14 (mp3_dsp.window_dsp_cuda).
+
+    meta16 [L, 16] as huff_decode; scfq [L, 40] int16 quarter-exponent
+    gains; ist [B·G, 40] int16 right-channel intensity positions
+    (intensity windows only); short: any short-block lane.
 
     Returns (xq [B, G, nch, 576] f32, aa [B, G, nch] i32,
              wt [B, G, nch, 32] i32).
     """
     dev = meta16.device
     L = B * G * nch
-    if lanes_per_frame is None:
-        lanes_per_frame = (2 if mpeg1 else 1) * nch
-    q, _err = huff_decode(pool, meta16, W, lanes_per_frame)
     pattern = meta16[:, M_PATTERN].to(torch.int64)
     stereo = meta16[:, M_STEREO].to(torch.int64)
     btype = meta16[:, M_BTYPE].to(torch.int64)
@@ -685,13 +714,10 @@ def packed_device_stage(pool, meta16, scfq, W: int, B: int, G: int,
         # the MS butterfly, applied before the reorder (the host mix
         # coordinates, models/mp3.py _stereo_mix)
         BG = B * G
-        pat_l = pattern.reshape(BG, nch)[:, 0]
-        fl = stereo.reshape(BG, nch)[:, 0]
-        abcd = _intensity_abcd(
-            q.reshape(BG, nch, 576)[:, 1], pat_l, (fl & 1) == 1,
-            (fl & 2) == 2, (fl & 4) == 4, (fl >> 3) & 1, ist, mpeg1)
+        abcd = _window_abcd(q, pattern, stereo, ist, BG, nch, mpeg1)
         # per-band -> per-coefficient: an exact index gather
-        idx = device_const(BAND_IDX, dev).to(torch.int64)[pat_l]
+        idx = device_const(BAND_IDX, dev).to(torch.int64)[
+            pattern.reshape(BG, nch)[:, 0]]
         exp = torch.gather(abcd, 2, idx[:, None, :].expand(BG, 4, 576))
         l, r = xq.reshape(BG, nch, 576).unbind(1)
         xq = torch.stack([exp[:, 0] * l + exp[:, 1] * r,
@@ -722,11 +748,27 @@ def packed_device_stage(pool, meta16, scfq, W: int, B: int, G: int,
 def packed_window(pool, meta16, scfq, ist, overlap, shist, n_act, *,
                   B: int, G: int, nch: int, W: int, mpeg1: bool = True,
                   short: bool = True):
-    """One MP3 window from the pooled wire to PCM: the Huffman FSM,
-    dequant, stereo mix and reorder (packed_device_stage), then the
+    """One MP3 window from the pooled wire to PCM.  On the card: the
+    Huffman kernel K3, the window kernel K14 (mp3_dsp.window_dsp_cuda; in
+    intensity windows after the mix's _intensity_abcd) and the synthesis
+    product.  On the CPU the plain chain: packed_device_stage, then the
     scan-free window DSP.  ``ist`` is None outside intensity windows.
     Returns (pcm [B, G, nch, 576], overlap', shist')."""
-    xq, aa, wt = packed_device_stage(pool, meta16, scfq, W, B, G, nch,
-                                     ist=ist, mpeg1=mpeg1, short=short)
-    return mp3_dsp.mp3_window_dsp(xq, aa, wt, overlap, shist, n_act,
-                                  nch=nch, ngr=G)
+    dev = meta16.device
+    if dev.type != "cuda":
+        xq, aa, wt = packed_device_stage(pool, meta16, scfq, W, B, G, nch,
+                                         ist=ist, mpeg1=mpeg1, short=short)
+        return mp3_dsp.mp3_window_dsp(xq, aa, wt, overlap, shist, n_act,
+                                      nch=nch, ngr=G)
+    mp3_dsp.full_fp32(dev)
+    q, _err = huff_decode(pool, meta16, W, (2 if mpeg1 else 1) * nch)
+    abcd = None
+    if nch == 2 and ist is not None:
+        abcd = _window_abcd(q, meta16[:, M_PATTERN].to(torch.int64),
+                            meta16[:, M_STEREO].to(torch.int64), ist, B * G,
+                            nch, mpeg1)
+    operand, new_overlap, new_shist = mp3_dsp.window_dsp_cuda(
+        q, meta16, scfq, n_act, overlap, shist, abcd, B=B, G=G, nch=nch,
+        short=short)
+    pcm = torch.matmul(operand, device_const(mp3_dsp.SYNTH_TOEPLITZ, dev))
+    return pcm.view(B, G, nch, 576), new_overlap, new_shist

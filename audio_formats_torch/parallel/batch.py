@@ -819,9 +819,11 @@ class BatchDecoder:
         frames' words pack into one exact-size u32 pool (frame after frame,
         each granule-channel addressing its frame's words by bit position);
         one dispatch worker uploads it and
-        runs ops/mp3_huff.packed_window — the Huffman kernel, dequant,
-        stereo mix, reorder and the window DSP — with the carried overlap
-        and slot history.  Returns the pending (PCM window, n_act) list."""
+        runs ops/mp3_huff.packed_window — the Huffman kernel (K3), the
+        window kernel (K14: dequant, stereo mix, reorder, antialias, IMDCT
+        and overlap-add) and the synthesis product — with the carried
+        overlap and slot history.  Returns the pending (PCM window, n_act)
+        list."""
         B = len(decs)
         W = MP3_WINDOW_FRAMES
         G = W * ngr
@@ -943,13 +945,15 @@ class BatchDecoder:
             with trace.span("launch", ctx=ctx, format="mp3",
                             window=k) as sp:
                 n0 = mp3_huff.HUFF_LAUNCHES
+                d0 = mp3_dsp.DSP_LAUNCHES
                 pcm, dev_state["overlap"], dev_state["shist"] = \
                     mp3_huff.packed_window(
                         pool_d, meta_d, scf_d, ist_d, dev_state["overlap"],
                         dev_state["shist"], n_act_d, B=B, G=G, nch=nch,
                         W=Wrow, mpeg1=ngr == 2, short=short)
                 out = _prefetch(pcm, to_device)
-                sp.set(launches=mp3_huff.HUFF_LAUNCHES - n0)
+                sp.set(launches=mp3_huff.HUFF_LAUNCHES - n0,
+                       dsp_launches=mp3_dsp.DSP_LAUNCHES - d0)
             return out
 
         pending = []

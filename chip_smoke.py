@@ -25,7 +25,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MP3 Huffman kernel at one full window of the MP3 slice (98,304
    granule-channel lanes parsed by the C stage from the MP3 corpus, four
    a frame addressing their frame's main data in the pool) and on
-   random-bit lanes at two row widths.  The LPC, Huffman and QOA decode
+   random-bit lanes at two row widths; K14, the MP3 window kernel, and the
+   synthesis product after it against their twin (K3's output of the MP3
+   slice's first 32 and first 128 lanes, one window, 70% of granules
+   mid/side), timed beside the twin.  The LPC, Huffman and QOA decode
    kernels are timed through their wrappers, alone (a launch into a
    pre-made output) and by their host enqueue, the first two also by
    their lane grouping;
@@ -190,6 +193,11 @@ before the result.
     python3 chip_smoke.py --wires                   # the card
     python3 chip_smoke.py --ring                    # the card
     python3 chip_smoke.py --grid                    # the card
+    python3 chip_smoke.py --dsp                     # the card
+
+``--dsp`` (on the card) builds K3 and K14 and runs K14's phase alone (the
+MP3 window kernel against its twin at the benchmark cell's window and at
+4x its lanes, timed) on 128 lanes cut from 8 masters of 6 s.
 
 ``--grid`` (on the card) builds K12a's fused route with one block a tile
 beside the source's grid, capped at the blocks that fit on the card at
@@ -1264,6 +1272,7 @@ DECODE_COUNTERS = (
     ("flac_lpc", "lpc", "KERNEL_LAUNCHES"),
     ("qoa_decode", "lms", "DECODE_LAUNCHES"),
     ("mp3_huff", "mp3_huff", "HUFF_LAUNCHES"),
+    ("mp3_dsp", "mp3_dsp", "DSP_LAUNCHES"),
     ("flac_rice", "flac_rice", "RICE_LAUNCHES"),
     ("pcm", "pcm", "DECODE_LAUNCHES"),
     ("vorbis_win", "vorbis_win", "WIN_LAUNCHES"),
@@ -1303,6 +1312,7 @@ def check_window_launches(launches, st, flac_wire):
     want_launches = {"flac_lpc": wbf.get("flac", 0),
                      "qoa_decode": wbf.get("qoa", 0),
                      "mp3_huff": wbf.get("mp3", 0),
+                     "mp3_dsp": wbf.get("mp3", 0),
                      "flac_rice": wbf.get("flac", 0)
                      if flac_wire == "rice" else 0,
                      "pcm": wbf.get("wav", 0),
@@ -1641,7 +1651,7 @@ def mp3_window(streams):
     Huffman kernel: the C stage parses 24 frames of every lane; the frames'
     words pack into one pool, each frame's 4 granule-channel lanes
     addressing its words.  Returns (pool int32, meta16 [L, 16] int16, row
-    width W, lanes a frame)."""
+    width W, lanes a frame, scfq [L, 40] int16)."""
     from audio_formats_torch.host import native
     from audio_formats_torch.io.source import MemorySource
     from audio_formats_torch.models.mp3 import Mp3Decoder
@@ -1655,13 +1665,14 @@ def mp3_window(streams):
     B = len(streams)
     bits = np.zeros((B, MP3_WINDOW, FW), np.uint32)
     meta = np.zeros((B, NL, 16), np.int32)
+    scfq = np.zeros((B, NL, 40), np.int16)
     mw = 16
     for bi, data in enumerate(streams):
         d = Mp3Decoder(MemorySource(data), device="cpu")
         state = (np.zeros(511, np.uint8), np.zeros(1, np.int32), d._ist_pos)
         n, _, w, _ = native.mp3_parse_window_packed(
             lib, d._view, d._offset, d._hdr0, MP3_WINDOW, 2, 2, state,
-            bits[bi], meta[bi], np.zeros((NL, 40), np.int16),
+            bits[bi], meta[bi], scfq[bi],
             np.zeros((G, 2), np.int32), np.zeros((G, 2, 32), np.int32),
             np.zeros(MP3_WINDOW, np.uint8),
             ist=np.zeros((G, 40), np.int16))
@@ -1672,7 +1683,8 @@ def mp3_window(streams):
     span = meta16[::LPF, mp3_huff.M_SPAN]
     pool = bits.reshape(B * MP3_WINDOW, FW)[
         np.arange(FW)[None, :] < span[:, None]]
-    return pool.view(np.int32), meta16, mp3_huff.row_width(mw), LPF
+    return (pool.view(np.int32), meta16, mp3_huff.row_width(mw), LPF,
+            scfq.reshape(B * NL, 40))
 
 
 def mp3_read_words(meta16, lpf):
@@ -1756,7 +1768,7 @@ def divergence(workers=4):
     with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
         masters = list(ex.map(mp3_master, range(MP3_MASTERS)))
     streams, _ = mp3_corpus(masters)
-    pool, meta16, W, lpf = mp3_window(streams)
+    pool, meta16, W, lpf, _ = mp3_window(streams)
     _, _, steps = mp3_huff.huff_decode_steps(
         torch.from_numpy(pool), torch.from_numpy(meta16), W, lpf)
     steps = steps.numpy()
@@ -2018,7 +2030,7 @@ def phase_mp3_kernel(card, streams):
     from audio_formats_torch.ops import mp3_huff
 
     dev = torch.device("cuda")
-    pool, meta16, W, lpf = mp3_window(streams)
+    pool, meta16, W, lpf, _ = mp3_window(streams)
     L = meta16.shape[0]
     p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
     # the kernel's q comes from torch.empty: hand it a block of -7s, so a
@@ -2088,12 +2100,150 @@ def phase_mp3_kernel(card, streams):
             **b, "library_ms": None, "share": b["bound_ms"] / ms}
 
 
+#: K14 at the benchmark cell's window (fma_mp3.b32: 32 clips) and at 4x its
+#: lanes; the share of granules coded mid/side there (the masters are LR)
+MP3_DSP_LANES = (32, 128)
+MP3_DSP_MS = 0.7
+K14_TOL = 1e-5        # of the peak: K14 and the product against the twin
+
+
+def mp3_dsp_work(B, G, nch):
+    """(bytes, multiply-adds) of K14 on a window: q, meta16, scfq, n_act
+    and the carried state read once, the synthesis operand and the new
+    state written once; 648 IMDCT multiply-adds (18 x 36) a band of each
+    granule-channel."""
+    L = B * G * nch
+    state = B * nch * (32 * 18 + 16 * 32) * 4
+    return (L * (576 * 4 + 16 * 2 + 40 * 2 + 1088 * 4) + B * 4 + 2 * state,
+            L * 32 * 18 * 36)
+
+
+def phase_mp3_dsp_kernel(card, streams):
+    """K14, the MP3 window kernel, at the first window of the MP3 slice's
+    first 32 and first 128 lanes (G 48, stereo), its granules flagged
+    mid/side at the benchmark's share: the route on the card (K14, then
+    the synthesis product) against the twin's chain (spectrum_stage,
+    mp3_window_dsp) on the same K3 output, PCM and carried state; K14's
+    device time (torch.profiler), its wrapper, the route's and the twin's
+    device time and kernels a call and their walls, beside K14's bound."""
+    import torch
+    from audio_formats_torch.ops import mp3_dsp, mp3_huff
+
+    dev = torch.device("cuda")
+    toeplitz = mp3_dsp.device_const(mp3_dsp.SYNTH_TOEPLITZ, dev)
+    G, nch = 2 * MP3_WINDOW, 2
+    res = {}
+    for B in MP3_DSP_LANES:
+        pool, meta16, W, lpf, scfq = mp3_window(streams[:B])
+        L = meta16.shape[0]
+        rng = np.random.default_rng(B)
+        ms = np.repeat(rng.random(L // nch) < MP3_DSP_MS, nch)
+        meta16[:, mp3_huff.M_STEREO] |= ms.astype(np.int16)
+        short = bool(np.isin(meta16[:, mp3_huff.M_PATTERN],
+                             mp3_huff.SHORT_PATTERNS).any())
+        p_d, m_d, s_d = (torch.from_numpy(a).to(dev)
+                         for a in (pool, meta16, scfq))
+        n_act = torch.full((B,), G, dtype=torch.int32, device=dev)
+        ov, sh = (torch.from_numpy(rng.normal(0, 0.05, shape)
+                                   .astype(np.float32)).to(dev)
+                  for shape in ((B, nch, 32, 18), (B, nch, 16, 32)))
+        q, _ = mp3_huff.huff_decode(p_d, m_d, W, lpf)
+
+        def k14():
+            return mp3_dsp.window_dsp_cuda(q, m_d, s_d, n_act, ov, sh, B=B,
+                                           G=G, nch=nch, short=short)
+
+        def route():
+            operand, o2, s2 = k14()
+            return (torch.matmul(operand, toeplitz).view(B, G, nch, 576),
+                    o2, s2)
+
+        def twin():
+            xq, aa, wt = mp3_huff.spectrum_stage(q, m_d, s_d, B, G, nch,
+                                                 short=short)
+            return mp3_dsp.mp3_window_dsp(xq, aa, wt, ov, sh, n_act,
+                                          nch=nch, ngr=G)
+
+        got, want = route(), twin()
+        gaps = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        if not max(gaps) <= K14_TOL:
+            raise AssertionError(f"K14 at B={B}: PCM, overlap, history "
+                                 f"{gaps} of the twin's peak")
+        for _ in range(3):
+            route()
+            twin()
+        torch.cuda.synchronize()
+        dev_ms = device_ms(k14, "mp3_dsp_kernel", per_launch=True)
+        route_dev = device_ms(route, "")
+        twin_dev = device_ms(twin, "")
+        route_ops = len(kernel_names(route))
+        twin_ops = len(kernel_names(twin))
+        ms = time_cuda(k14, 20)
+        route_ms = time_cuda(route, 20)
+        twin_ms = time_cuda(twin, 20)
+        host_ms = time_host(k14)
+        nbytes, macs = mp3_dsp_work(B, G, nch)
+        b = bound(nbytes, 0, macs)
+        share = b["bound_ms"] / dev_ms if dev_ms else None
+        print(f"# kernel mp3_dsp B={B} G={G} nch={nch} (L={L}, the MP3 "
+              f"slice's first window, {MP3_DSP_MS:.0%} of granules mid/side"
+              f", short blocks {short}): PCM, overlap and history within "
+              f"{max(gaps):.3g} of the twin's peak (PCM {gaps[0]:.3g}); "
+              f"device time {dev_ms} ms, wrapper {ms:.4f} ms (its host "
+              f"enqueue {host_ms:.4f} ms); route (K14 and the synthesis "
+              f"product): device {route_dev} ms, {route_ops} kernels, wall "
+              f"{route_ms:.4f} ms; twin from q: device {twin_dev} ms, "
+              f"{twin_ops} kernels, wall {twin_ms:.4f} ms; bound_ms "
+              f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes} bytes, "
+              f"{macs} multiply-adds), share of device time {share} "
+              f"[{card}]")
+        res[f"b{B}"] = {"max_gap_of_peak": max(gaps), "device_ms": dev_ms,
+                        "ms": ms, "host_ms": host_ms,
+                        "route_device_ms": route_dev,
+                        "route_kernels": route_ops, "route_ms": route_ms,
+                        "plain_device_ms": twin_dev, "plain_kernels": twin_ops,
+                        "plain_ms": twin_ms, **b, "share": share}
+    return {"max_abs_err": max(r["max_gap_of_peak"] for r in res.values()),
+            **res}
+
+
+def dsp_probe(workers=8):
+    """--dsp (on the card): phase_mp3_dsp_kernel alone, on MP3 masters of
+    6 s built in a process pool while nvcc builds K3 and K14."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from audio_formats_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: --dsp runs on the card")
+    card = card_line()
+    print(card)
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        masters = pool.map(mp3_master, range(8), [6.0] * 8)
+        for name in ("mp3_huff", "mp3_dsp"):
+            _kernels.load(name)
+        masters = list(masters)
+    for name, (secs, log) in _kernels.BUILD_LOG.items():
+        print(f"#   {name}: nvcc {secs:.2f} s")
+        for line in log.strip().splitlines():
+            print(f"#   {name}: {line.strip()}")
+    streams, _ = mp3_corpus(masters, n_lanes=max(MP3_DSP_LANES))
+    print(json.dumps({"mp3_dsp": phase_mp3_dsp_kernel(card, streams)}))
+    print(card)
+
+
 def phase_mp3(card, streams, info, masters):
     dec, wall, launches, _, err = decode_checked(
         streams, lambda i: mp3_lane_expected(masters, *info[i]), "cuda",
         tol=MP3_TOL)
     st = dec.stats
-    if launches["mp3_huff"] != st["windows"]:
+    if launches["mp3_huff"] != st["windows"] or \
+            launches["mp3_dsp"] != st["windows"]:
         raise AssertionError(f"MP3 launches {launches}")
     secs = st["decoded_seconds"]
     print(f"# MP3 slice: {len(streams)} stereo lanes within {MP3_TOL} of "
@@ -2101,7 +2251,8 @@ def phase_mp3(card, streams, info, masters):
           f"{secs:.1f} s of audio in {wall:.3f} s wall = "
           f"{secs / wall:.1f}x realtime; h2d_bytes {st['h2d_bytes']}, "
           f"windows {st['windows']}, Huffman launches "
-          f"{launches['mp3_huff']}, host_ms {st['host_ms']:.0f}, "
+          f"{launches['mp3_huff']}, window DSP launches "
+          f"{launches['mp3_dsp']}, host_ms {st['host_ms']:.0f}, "
           f"host_cpu_ms {st['host_cpu_ms']:.0f}, enqueue_ms "
           f"{st['enqueue_ms']:.0f} [{card}]")
     return launches["mp3_huff"], err
@@ -4150,7 +4301,8 @@ def main():
     from concurrent.futures import ProcessPoolExecutor
 
     names = ("flac_lpc", "qoa_lms", "mp3_huff", "flac_rice", "pcm",
-             "vorbis_win", "celt_ola", "silk_upsample", "celt_deemph")
+             "vorbis_win", "celt_ola", "silk_upsample", "celt_deemph",
+             "mp3_dsp")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=8,
@@ -4342,6 +4494,7 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
     print(f"# MP3 corpus: {len(mp3_masters)} masters, {len(mp3_streams)} "
           f"lanes, {sum(len(s) for s in mp3_streams) / 1e6:.1f} MB")
     hres = phase_mp3_kernel(card, mp3_streams)
+    kres14 = phase_mp3_dsp_kernel(card, mp3_streams)
     mp3_launches, _ = phase_mp3(card, mp3_streams, mp3_info, mp3_masters)
     phase_mp3_mixed(card, streams[:4], q_lanes[:4])
 
@@ -4430,6 +4583,10 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
          "source": "audio_formats_torch/csrc/mp3_huff.cu",
          "replaces": "audio_formats_tpu/ops/mp3_huff.py:351",
          "launches": mp3_launches, **hres},
+        {"name": "mp3_dsp", "route": "cuda",
+         "mesh_launches": ml["mp3_dsp"],
+         "source": "audio_formats_torch/csrc/mp3_dsp.cu",
+         "replaces": None, "launches": mp3_launches, **kres14},
         {"name": "flac_rice", "route": "cuda",
          "mesh_launches": ml["flac_rice"],
          "source": "audio_formats_torch/csrc/flac_rice.cu",
@@ -5125,7 +5282,7 @@ def ab_compare(parent, names=AB_KERNELS):
     if "mp3_huff" in names:
         # K3 at one window of the MP3 slice
         mp3_streams, mp3_info = mp3_corpus(mp3_masters)
-        pool, meta16, W, lpf = mp3_window(mp3_streams)
+        pool, meta16, W, lpf, _ = mp3_window(mp3_streams)
         p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
         L = meta16.shape[0]
         blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
@@ -6039,6 +6196,8 @@ if __name__ == "__main__":
         grid_probe()
     elif sys.argv[1:] == ["--wires"]:
         wire_compare()
+    elif sys.argv[1:] == ["--dsp"]:
+        dsp_probe()
     elif sys.argv[1:2] == ["--sass"]:
         print_sass(sys.argv[2:])
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:

@@ -26,10 +26,12 @@ from audio_formats_torch.ops import vorbis_win as twin
 from audio_formats_torch.parallel import batch as tbatch
 
 import torch_flac_cases
+import torch_mp3_cases
 import torch_opus_cases
 import torch_opus_speech_cases
 import torch_pcm_cases
 import torch_qoa_cases
+from torch_mp3_cases import as_frames, mp3_random_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -474,33 +476,6 @@ def test_encode_qoa_batch_cuda_equals_cpu(cuda, parallel_frames):
 
 
 # ------------------------------------------------------------------- MP3
-def mp3_random_lanes(rng, L, W):
-    """L lanes of random words (int32 pool) and random side info for the
-    Huffman FSM: spans up to the row width, bit limits anywhere up to it,
-    any table, region bounds and sfb pattern, a fifth of the lanes near
-    the 288-pair maximum (little or no count1)."""
-    from audio_formats_torch.ops import mp3_huff
-
-    pats = [p for p in range(48) if mp3_huff._sfb_widths(p)]
-    span = rng.integers(0, W - 3, L)
-    pool = rng.integers(0, 2 ** 32, int(span.sum()), dtype=np.uint64)\
-        .astype(np.uint32)
-    tabs = rng.integers(0, 32, (L, 3))
-    meta = np.zeros((L, 16), np.int16)
-    meta[:, 0] = rng.integers(0, 8, L)
-    meta[:, 1] = meta[:, 0] + rng.integers(0, W * 32, L)
-    meta[:, 2] = np.where(rng.random(L) < 0.2, rng.integers(250, 289, L),
-                          rng.integers(0, 289, L))
-    meta[:, 3] = rng.integers(1, 17, L)
-    meta[:, 4] = meta[:, 3] + rng.integers(1, 30, L)
-    meta[:, 5:8] = tabs
-    meta[:, 8:11] = mp3_huff.LINBITS_TAB[tabs]
-    meta[:, 11] = rng.integers(0, 2, L)
-    meta[:, 12] = rng.choice(pats, L)
-    meta[:, 15] = span
-    return pool.view(np.int32), meta
-
-
 @pytest.mark.parametrize("L,W", [(1, 20), (300, 20), (5000, 52), (257, 136)])
 def test_mp3_huff_kernel_matches_twin(cuda, L, W):
     from audio_formats_torch.ops import mp3_huff
@@ -567,22 +542,6 @@ def test_mp3_huff_kernel_edges_match_twin(cuda, L, W, case):
         assert torch.equal(q2, qt) and torch.equal(e2, errt)
 
 
-def _as_frames(meta, lpf):
-    """Random lanes regrouped into frames of lpf lanes: a frame's words are
-    its lanes' words end to end (the pool as it is), each lane's bit
-    positions counted from its frame's first word.  Returns (meta, the
-    widest lane reach in words)."""
-    m = meta.copy()
-    span = meta[:, 15].astype(np.int64)
-    start = np.cumsum(span) - span
-    shift = 32 * (start - np.repeat(start[::lpf], lpf))
-    m[:, 0] += shift
-    m[:, 1] += shift
-    m[:, 15] = np.repeat(np.add.reduceat(span, np.arange(0, len(span), lpf)),
-                         lpf)
-    return m, int(max(m[:, 15].max(), (m[:, :2].max() >> 5) + 1))
-
-
 @pytest.mark.parametrize("lpf", [2, 4])
 def test_mp3_huff_kernel_frames_match_twin(cuda, lpf):
     """Lanes that share their frame's words (lanes_per_frame > 1, the
@@ -594,7 +553,7 @@ def test_mp3_huff_kernel_frames_match_twin(cuda, lpf):
     rng = np.random.default_rng(40 + lpf)
     L = 1024
     pool, meta = mp3_random_lanes(rng, L, 28)
-    meta, reach = _as_frames(meta, lpf)
+    meta, reach = as_frames(meta, lpf)
     W = mp3_huff.row_width(reach)
     pool, meta = (torch.from_numpy(a).to(cuda) for a in (pool, meta))
     qt, errt = mp3_huff.huff_decode_torch(pool, meta, W, lpf)
@@ -656,10 +615,11 @@ def _mp3_streams():
 
 
 def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
-    from audio_formats_torch.ops import mp3_huff
+    from audio_formats_torch.ops import mp3_dsp, mp3_huff
 
     streams = _mp3_streams()
     before = mp3_huff.HUFF_LAUNCHES
+    dsp_before = mp3_dsp.DSP_LAUNCHES
     dec = BatchDecoder(streams, device=cuda)
     res = dec.decode_all(output="device")
     for kind, wins in res.windows():
@@ -667,6 +627,7 @@ def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
     got = res.sync().to_numpy()
     assert dec.stats["group_demotions"] == 0
     assert mp3_huff.HUFF_LAUNCHES - before == dec.stats["windows"]
+    assert mp3_dsp.DSP_LAUNCHES - dsp_before == dec.stats["windows"]
     want = BatchDecoder(streams, device="cpu").decode_all()
     got_np = BatchDecoder(streams, device=cuda).decode_all()
     for a, b, c in zip(got, want, got_np):
@@ -723,6 +684,91 @@ def test_mp3_dsp_refuses_tf32(cuda):
                                     nch=1)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------- MP3 window, K14
+#: K14 against its twin (spectrum_stage + mp3_window_dsp, torch ops on the
+#: card): the IMDCT's and the synthesis's sums in other orders, float32
+#: rounding over 18 + 1,088 terms, as a share of the twin's peak
+K14_TOL = 1e-5
+
+
+def _on_card(cuda, win):
+    return {k: torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray)
+            else v for k, v in win.items()}
+
+
+@pytest.mark.parametrize("name", torch_mp3_cases.WINDOW_CASES)
+def test_mp3_window_kernel_matches_twin(cuda, name):
+    """packed_window's route on the card (K3, K14, the synthesis product)
+    against K3 then the twin (packed_device_stage, mp3_window_dsp) on the
+    same lanes, over two chained windows, each route carrying its own
+    state: the PCM, overlap' and shist' within K14_TOL of the twin's peak,
+    and one K14 launch a window."""
+    from audio_formats_torch.ops import mp3_dsp, mp3_huff
+
+    case = torch_mp3_cases.window_case(name)
+    B, G, nch = case["B"], case["G"], case["nch"]
+    opts = {"mpeg1": case["mpeg1"], "short": case["short"]}
+    state_k = [torch.from_numpy(case[k]).to(cuda)
+               for k in ("overlap", "shist")]
+    state_t = [s.clone() for s in state_k]
+    for win in case["windows"]:
+        w = _on_card(cuda, win)
+        before = mp3_dsp.DSP_LAUNCHES
+        pcm_k, *state_k = mp3_huff.packed_window(
+            w["pool"], w["meta16"], w["scfq"], w["ist"], *state_k,
+            w["n_act"], B=B, G=G, nch=nch, W=w["W"], **opts)
+        assert mp3_dsp.DSP_LAUNCHES == before + 1
+        xq, aa, wt = mp3_huff.packed_device_stage(
+            w["pool"], w["meta16"], w["scfq"], w["W"], B, G, nch,
+            ist=w["ist"], **opts)
+        pcm_t, *state_t = mp3_dsp.mp3_window_dsp(
+            xq, aa, wt, *state_t, w["n_act"], nch=nch, ngr=G)
+        for got, want in zip((pcm_k, *state_k), (pcm_t, *state_t)):
+            assert got.is_cuda and got.shape == want.shape
+            assert bool(torch.isfinite(got).all())
+            gap = float((got - want).abs().max() / want.abs().max())
+            assert gap <= K14_TOL, (name, gap)
+
+
+def test_mp3_window_kernel_rejects_bad_arguments(cuda):
+    from audio_formats_torch.ops import mp3_dsp
+
+    B, G, nch = 2, 4, 2
+    L = B * G * nch
+    good = {"q": torch.zeros((L, 576), dtype=torch.int32, device=cuda),
+            "meta16": torch.zeros((L, 16), dtype=torch.int16, device=cuda),
+            "scfq": torch.zeros((L, 40), dtype=torch.int16, device=cuda),
+            "n_act": torch.full((B,), G, dtype=torch.int32, device=cuda),
+            "overlap": torch.zeros((B, nch, 32, 18), device=cuda),
+            "shist": torch.zeros((B, nch, 16, 32), device=cuda)}
+    shape = {"B": B, "G": G, "nch": nch}
+    before = mp3_dsp.DSP_LAUNCHES
+    operand, _, _ = mp3_dsp.window_dsp_cuda(**good, **shape)
+    mp3_dsp.window_dsp_cuda(
+        **good, abcd=torch.zeros((B * G, 4, 40), device=cuda), **shape)
+    torch.cuda.synchronize()
+    assert mp3_dsp.DSP_LAUNCHES == before + 2
+    assert operand.shape == (L, 1088) and not bool(operand.any())
+    bad = [("q", good["q"].to(torch.int64)), ("q", good["q"][:, :288]),
+           ("q", good["q"].t().contiguous().t()),
+           ("meta16", good["meta16"].to(torch.int32)),
+           ("scfq", good["scfq"].cpu()),
+           ("n_act", good["n_act"].to(torch.int64)),
+           ("overlap", good["overlap"].transpose(2, 3)),
+           ("shist", good["shist"].transpose(2, 3).contiguous()),
+           ("abcd", torch.zeros((B * G, 4, 39), device=cuda)),
+           ("abcd", torch.zeros((B * G, 4, 40), dtype=torch.float64,
+                                device=cuda))]
+    for name, t in bad:
+        with pytest.raises(ValueError):
+            mp3_dsp.window_dsp_cuda(**{**good, name: t}, **shape)
+    with pytest.raises(ValueError):
+        mp3_dsp.window_dsp_cuda(**good, B=B, G=G, nch=1)
+    with pytest.raises(ValueError):
+        mp3_dsp.window_dsp_cuda(**good, B=B, G=G, nch=3)
+    assert mp3_dsp.DSP_LAUNCHES == before + 2
 
 
 # ------------------------------------------------------------- FLAC Rice

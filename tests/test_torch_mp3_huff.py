@@ -25,7 +25,7 @@ from audio_formats_torch.ops import mp3_dsp, mp3_huff
 from audio_formats_torch.utils.tables import mp3_tables as T
 
 from golden import mp3_ref
-from test_torch_cuda import _as_frames, mp3_random_lanes
+from torch_mp3_cases import as_frames, mp3_random_lanes
 
 #: patterns that have an sfb layout (kind 0..2, sample-rate index 0..8)
 VALID_PATTERNS = [p for p in range(48) if mp3_huff._sfb_widths(p)]
@@ -415,7 +415,7 @@ def test_device_stage_matches_jax_on_frames():
     tolerance is 4e-6 of the window's peak."""
     rng = np.random.default_rng(12)
     pool, meta16, scfq, ist = _stage_lanes(rng, 28)
-    meta16, reach = _as_frames(meta16, 4)
+    meta16, reach = as_frames(meta16, 4)
     W = mp3_huff.row_width(reach)
     got = mp3_huff.packed_device_stage(
         torch.from_numpy(pool), torch.from_numpy(meta16),
