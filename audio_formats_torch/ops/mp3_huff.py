@@ -56,6 +56,12 @@ N_PATTERNS = 48   # kind(0..2)*16 + sr_idx_my(0..8)
 #: launches of the CUDA Huffman kernel (af_mp3_huff) in this process
 HUFF_LAUNCHES = 0
 _launch_lock = threading.Lock()
+#: the kernel's threads (lanes) a block, and the blocks an SM holds at once
+#: (csrc/mp3_huff.cu: kThreads, __launch_bounds__(kThreads, 3)): a launch
+#: of SMs x HUFF_BLOCKS_PER_SM x HUFF_THREADS lanes fills the card in one
+#: wave
+HUFF_THREADS = 256
+HUFF_BLOCKS_PER_SM = 3
 
 
 # --------------------------------------------------------------- code tables

@@ -6,8 +6,10 @@ frames per stream, and ONE upload plus one chain of device work runs per
 window: packed residual unpack → LPC kernel → stereo decorrelation; or,
 with ``flac_wire="rice"``, the host only indexes the frames and the device
 decodes the raw frame bytes (frame-entropy kernel → LPC kernel → stereo).  MP3
-Layer III: the C stage parses 24 frames a stream (side info, reservoir
-splice, scalefactors) and ships every granule-channel's Huffman bits in one
+Layer III: the C stage parses a window of frames a stream (side info,
+reservoir splice, scalefactors; 24 frames on the CPU, on the card as many as
+fill one wave of the Huffman kernel, ``mp3_window_frames``) and ships every
+granule-channel's Huffman bits in one
 exact-size pool; one device chain a window runs the Huffman kernel,
 dequant, stereo mix, reorder and the window DSP (IMDCT, synthesis) with
 carried overlap and slot history.  MP3 Layers I/II: the host parses
@@ -85,7 +87,8 @@ from .mesh import mesh_device
 
 #: FLAC frames per device call
 FLAC_WINDOW_FRAMES = 12
-#: MP3 frames per device call (Layer III and Layers I/II)
+#: MP3 frames per device call: Layers I/II, Layer III on the CPU, and the
+#: step Layer III windows on the card are sized in (mp3_window_frames)
 MP3_WINDOW_FRAMES = 24
 #: QOA (frame, channel) lanes per device call (bounds upload and memory)
 QOA_WINDOW_LANES = 8192
@@ -108,6 +111,36 @@ RICE_DISPATCH_BLOCKS = 524288
 _FLAC_W_BUCKETS = (4, 6, 8, 10, 12, 14, 17, 20, 26, 32)
 #: overflow plane row buckets for _flac_width_plan
 _FLAC_OVF_BUCKETS = (128, 512, 2048)
+
+
+def mp3_wave_lanes(device: torch.device) -> int:
+    """The Huffman kernel's (K3's) lanes that fill `device` in one wave:
+    its SMs x the kernel's resident blocks an SM x its threads a block.
+    0 off CUDA, where the plain chain runs."""
+    if device.type != "cuda":
+        return 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * mp3_huff.HUFF_BLOCKS_PER_SM * mp3_huff.HUFF_THREADS
+
+
+def mp3_window_frames(lanes_per_frame: int, frames_left: int,
+                      wave_lanes: int) -> int:
+    """Frames a Layer III device window takes, for a group whose frames
+    each hold `lanes_per_frame` granule-channel lanes (B x ngr x nch) and
+    whose longest lane has `frames_left` frames.  A window is one K3
+    launch and one synthesis product, whose rows are its lanes: the
+    window aims at one wave of K3 (`wave_lanes`, mp3_wave_lanes), in
+    steps of MP3_WINDOW_FRAMES, then splits the frames evenly over the
+    windows that takes, since K14 and the product run every row of a
+    window, live or not.  Never below MP3_WINDOW_FRAMES, which it stays
+    where a wave holds no more (the CPU, wave_lanes 0; 1,024 stereo
+    MPEG-1 lanes)."""
+    step = MP3_WINDOW_FRAMES
+    wave = max(step, step * (wave_lanes // (step * lanes_per_frame)))
+    if frames_left <= 0:
+        return step
+    n = -(-frames_left // wave)
+    return step * -(-frames_left // (step * n))
 
 
 def _flac_width_plan(w_l, wmax: int, Ln: int, bs: int):
@@ -208,13 +241,24 @@ def _open_source(item) -> ByteSource:
 
 def _upload(device: torch.device, *arrays):
     """Window arrays → tensors on `device` (uint32 words travel as int32
-    bits).  A synchronous copy: the host buffer may be reused at once."""
+    bits).  On a CUDA device each array is copied into a pinned block of
+    torch's caching host allocator (which holds the block until its copy
+    has run), then one DMA a block, queued without blocking: CUDA stages a
+    pageable copy of megabytes piece by piece while the copy engine waits,
+    so its span on the device would cover the host's memcpy.  Either way
+    the host buffer may be reused at once."""
     out = []
     for a in arrays:
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        out.append(torch.from_numpy(a).to(device))
+        src = torch.from_numpy(a)
+        if device.type != "cuda":
+            out.append(src.to(device))
+            continue
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src)
+        out.append(host.to(device, non_blocking=True))
     return tuple(out)
 
 
@@ -404,6 +448,9 @@ class BatchDecoder:
             "d2h_bytes": 0,
             "windows": 0,
             "windows_by_format": {},
+            # frames a Layer III window took (the largest over the MP3
+            # groups; 0 without one)
+            "mp3_window_frames": 0,
             "group_demotions": 0,
         }
 
@@ -813,7 +860,8 @@ class BatchDecoder:
                                  device: torch.device,
                                  to_device: bool = False):
         """Device-Huffman lockstep over the pooled wire: per window the C
-        stage parses 24 frames of every lane into each frame's main data
+        stage parses W frames of every lane (mp3_window_frames: 24 on the
+        CPU, sized to the batch on the card) into each frame's main data
         words, side info and quarter-exponent scalefactors of its
         granule-channels (one C call per lane chunk, on a parse pool); the
         frames' words pack into one exact-size u32 pool (frame after frame,
@@ -825,10 +873,16 @@ class BatchDecoder:
         overlap and slot history.  Returns the pending (PCM window, n_act)
         list."""
         B = len(decs)
-        W = MP3_WINDOW_FRAMES
+        LPF = ngr * nch  # lanes a frame
+        # the longest lane's frames: its frame index past its position
+        frames_left = max(len(d._index_offsets) - int(np.searchsorted(
+            d._index_offsets, d._offset)) for d in decs)
+        W = mp3_window_frames(B * LPF, frames_left, mp3_wave_lanes(device))
+        with self._stats_lock:
+            self.stats["mp3_window_frames"] = max(
+                W, self.stats["mp3_window_frames"])
         G = W * ngr
         NL = G * nch
-        LPF = ngr * nch  # lanes a frame
         FW = _native.FRAME_WORDS
         dev_state = {
             "overlap": torch.zeros((B, nch, 32, 18), dtype=torch.float32,
@@ -943,7 +997,7 @@ class BatchDecoder:
                     device, pool_w, meta16, scfq, n_act)
                 ist_d = None if ists is None else _upload(device, ists)[0]
             with trace.span("launch", ctx=ctx, format="mp3",
-                            window=k) as sp:
+                            window=k, lanes=B * NL) as sp:
                 n0 = mp3_huff.HUFF_LAUNCHES
                 d0 = mp3_dsp.DSP_LAUNCHES
                 pcm, dev_state["overlap"], dev_state["shist"] = \
@@ -972,7 +1026,7 @@ class BatchDecoder:
                 if not active.any():
                     break
                 with trace.span("window", format="mp3", window=k,
-                                lanes=int(active.sum())):
+                                lanes=int(active.sum()), frames=W):
                     win["ctx"] = trace.context()
                     t_host = trace.timer("parse")
                     win.update(

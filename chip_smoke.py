@@ -194,10 +194,19 @@ before the result.
     python3 chip_smoke.py --ring                    # the card
     python3 chip_smoke.py --grid                    # the card
     python3 chip_smoke.py --dsp                     # the card
+    python3 chip_smoke.py --windows                 # the card
 
-``--dsp`` (on the card) builds K3 and K14 and runs K14's phase alone (the
-MP3 window kernel against its twin at the benchmark cell's window and at
-4x its lanes, timed) on 128 lanes cut from 8 masters of 6 s.
+``--dsp`` (on the card) builds K3 and K14 and runs their phases at the
+fma_mp3.b32 cell's window (the size ``mp3_window_frames`` gives 32 stereo
+clips on this card: K3 bit-equal to its twin, K14 and the synthesis
+product within K14_TOL of theirs, timed) and K14's at 24-frame windows of
+32 and 128 lanes, on 128 lanes cut from 8 masters of 18 s.
+
+``--windows`` (on the card) decodes calls of the fma_mp3.b32 cell's shape
+(32 clips of 30 s from portbench's generator) with Layer III windows of 24
+frames and of the size ``mp3_window_frames`` gives, in turns, and prints
+the device time a call of K3, its plan, K14, the synthesis product and the
+uploads, K3's launches and share of its bound, and the memory peak.
 
 ``--grid`` (on the card) builds K12a's fused route with one block a tile
 beside the source's grid, capped at the blocks that fit on the card at
@@ -279,7 +288,6 @@ MP3_MASTERS = 24      # bench.py: 24 masters of 18 s
 MP3_SECONDS = 18.0
 MP3_LANES = 1024
 MP3_GAIN = 162        # global gain: the masters' PCM peaks near 0.5
-MP3_WINDOW = 24       # frames a window (parallel/batch.py)
 MP3_TOL = 1e-4        # max abs PCM error of a transform codec (ROADMAP)
 WAV_LANES = 256       # stereo 44.1 kHz s16 masters of 10 s
 WAV_SECONDS = 10
@@ -1646,45 +1654,66 @@ def mp3_lane_expected(masters, mi, start, end):
     return np.stack([mono, mono], axis=1)
 
 
-def mp3_window(streams):
+def mp3_window_sizes():
+    """The frames of the Layer III windows the kernel phases take: the
+    batch path's fixed window (parallel/batch.py's MP3_WINDOW_FRAMES, 24)
+    and the window mp3_window_frames sizes on this card for a call of the
+    fma_mp3.b32 cell (32 stereo MPEG-1 clips of 1,148 frames; 576 on 132
+    SMs)."""
+    import torch
+    from audio_formats_torch.parallel import batch as tbatch
+
+    wave = tbatch.mp3_wave_lanes(torch.device("cuda"))
+    return tbatch.MP3_WINDOW_FRAMES, tbatch.mp3_window_frames(32 * 4, 1148,
+                                                               wave)
+
+
+def mp3_window(streams, frames=None):
     """The first window of the MP3 slice as the batch path ships it to the
-    Huffman kernel: the C stage parses 24 frames of every lane; the frames'
-    words pack into one pool, each frame's 4 granule-channel lanes
-    addressing its words.  Returns (pool int32, meta16 [L, 16] int16, row
-    width W, lanes a frame, scfq [L, 40] int16)."""
+    Huffman kernel: the C stage parses `frames` frames of every lane (the
+    batch path's 24 by default; a lane shorter than that ends inside the
+    window); the frames' words pack into one pool, each frame's 4
+    granule-channel lanes addressing its words.  Returns (pool int32,
+    meta16 [L, 16] int16, row width W, lanes a frame, scfq [L, 40] int16,
+    the frames of each stream in the window [B] int32)."""
     from audio_formats_torch.host import native
     from audio_formats_torch.io.source import MemorySource
     from audio_formats_torch.models.mp3 import Mp3Decoder
     from audio_formats_torch.ops import mp3_huff
+    from audio_formats_torch.parallel import batch as tbatch
 
+    F = frames or tbatch.MP3_WINDOW_FRAMES
     lib = native.get_lib()
     FW = native.FRAME_WORDS
-    G = MP3_WINDOW * 2
+    G = F * 2
     NL = G * 2
-    LPF = NL // MP3_WINDOW
+    LPF = NL // F
     B = len(streams)
-    bits = np.zeros((B, MP3_WINDOW, FW), np.uint32)
+    bits = np.zeros((B, F, FW), np.uint32)
     meta = np.zeros((B, NL, 16), np.int32)
     scfq = np.zeros((B, NL, 40), np.int16)
+    n_fr = np.zeros(B, np.int32)
     mw = 16
     for bi, data in enumerate(streams):
         d = Mp3Decoder(MemorySource(data), device="cpu")
         state = (np.zeros(511, np.uint8), np.zeros(1, np.int32), d._ist_pos)
         n, _, w, _ = native.mp3_parse_window_packed(
-            lib, d._view, d._offset, d._hdr0, MP3_WINDOW, 2, 2, state,
+            lib, d._view, d._offset, d._hdr0, F, 2, 2, state,
             bits[bi], meta[bi], scfq[bi],
             np.zeros((G, 2), np.int32), np.zeros((G, 2, 32), np.int32),
-            np.zeros(MP3_WINDOW, np.uint8),
+            np.zeros(F, np.uint8),
             ist=np.zeros((G, 40), np.int16))
-        if n != MP3_WINDOW:
-            raise AssertionError(f"MP3 lane {bi}: {n} frames in a window")
+        if n != min(F, len(d._index_offsets)):
+            raise AssertionError(f"MP3 lane {bi}: {n} frames in a window "
+                                 f"of {F}")
+        n_fr[bi] = n
         mw = max(mw, w)
     meta16 = mp3_huff.meta16_from_c(meta.reshape(B * NL, 16))
     span = meta16[::LPF, mp3_huff.M_SPAN]
-    pool = bits.reshape(B * MP3_WINDOW, FW)[
+    pool = bits.reshape(B * F, FW)[
         np.arange(FW)[None, :] < span[:, None]]
     return (pool.view(np.int32), meta16, mp3_huff.row_width(mw), LPF,
-            scfq.reshape(B * NL, 40))
+            scfq.reshape(B * NL, 40), n_fr)
 
 
 def mp3_read_words(meta16, lpf):
@@ -1768,7 +1797,7 @@ def divergence(workers=4):
     with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
         masters = list(ex.map(mp3_master, range(MP3_MASTERS)))
     streams, _ = mp3_corpus(masters)
-    pool, meta16, W, lpf, _ = mp3_window(streams)
+    pool, meta16, W, lpf, _, _ = mp3_window(streams)
     _, _, steps = mp3_huff.huff_decode_steps(
         torch.from_numpy(pool), torch.from_numpy(meta16), W, lpf)
     steps = steps.numpy()
@@ -2025,12 +2054,14 @@ def rice_divergence(workers=8):
 def phase_mp3_kernel(card, streams):
     """The Huffman kernel against its twin at one full window of the MP3
     slice (timed: the wrapper, the launch alone, its plan alone, the host's
-    enqueue, the twin), and on random-bit lanes at two row widths."""
+    enqueue, the twin), on random-bit lanes at two row widths, and at the
+    window mp3_window_frames sizes for the fma_mp3.b32 cell's call (the
+    slice's first 32 lanes; bit-equal, the launch and its plan timed)."""
     import torch
     from audio_formats_torch.ops import mp3_huff
 
     dev = torch.device("cuda")
-    pool, meta16, W, lpf, _ = mp3_window(streams)
+    pool, meta16, W, lpf, _, _ = mp3_window(streams)
     L = meta16.shape[0]
     p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
     # the kernel's q comes from torch.empty: hand it a block of -7s, so a
@@ -2095,13 +2126,59 @@ def phase_mp3_kernel(card, streams):
           f"their twins) {plan_ms:.4f} ms, twin "
           f"{plain_ms:.1f} ms; bound_ms {b['bound_ms']:.4f} "
           f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f} [{card}]")
+    del q, err, qt, errt, steps, q2, e2
+    cell = phase_mp3_kernel_cell(card, streams)
     return {"max_abs_err": max_err, "ms": ms, "kernel_ms": kernel_ms,
             "plan_ms": plan_ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            **b, "library_ms": None, "share": b["bound_ms"] / ms}
+            **b, "library_ms": None, "share": b["bound_ms"] / ms,
+            "cell": cell}
 
 
-#: K14 at the benchmark cell's window (fma_mp3.b32: 32 clips) and at 4x its
-#: lanes; the share of granules coded mid/side there (the masters are LR)
+def phase_mp3_kernel_cell(card, streams):
+    """K3 at the fma_mp3.b32 cell's sized window: the first window of the
+    MP3 slice's first 32 lanes at mp3_window_frames' size (lanes shorter
+    than the window end inside it), bit-equal to the twin; the launch
+    alone and its plan timed, beside the bound."""
+    import torch
+    from audio_formats_torch.ops import mp3_huff
+
+    dev = torch.device("cuda")
+    _, frames = mp3_window_sizes()
+    pool, meta16, W, lpf, _, n_fr = mp3_window(streams[:32], frames)
+    L = meta16.shape[0]
+    p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
+    torch.full((L, 576), -7, dtype=torch.int32, device=dev)
+    q, err = mp3_huff.huff_decode(p_d, m_d, W, lpf)
+    qt, errt, steps = mp3_huff.huff_decode_steps(p_d, m_d, W, lpf)
+    if not (torch.equal(q, qt) and torch.equal(err, errt)):
+        e = int((q.long() - qt.long()).abs().max())
+        raise AssertionError(f"MP3 Huffman kernel != twin at the cell's "
+                             f"window of {frames} frames: max abs err {e}")
+    offs, perm = mp3_huff.huff_plan_cuda(m_d, lpf)
+    q2 = torch.empty_like(q)
+    e2 = torch.empty_like(err)
+    kernel_ms = time_cuda(
+        lambda: mp3_huff.huff_launch(p_d, m_d, W, offs, perm, q2, e2), 20)
+    plan_ms = time_cuda(lambda: mp3_huff.huff_plan_cuda(m_d, lpf), 20)
+    read = mp3_read_words(meta16, lpf)
+    n_steps = int(steps.sum())
+    b = bound(L * 576 * 4 + L + read * 4 + L * 32, n_steps * HUFF_STEP_OPS)
+    share = b["bound_ms"] / (kernel_ms + plan_ms)
+    print(f"# kernel mp3_huff at the fma_mp3.b32 cell's window: 32 lanes x "
+          f"{frames} frames (L={L}, {L // 256 + (L % 256 > 0)} blocks; "
+          f"lanes of {n_fr.min()}-{n_fr.max()} frames in it), W={W}, "
+          f"{n_steps} steps: bit-equal to the twin; kernel alone "
+          f"{kernel_ms:.4f} ms, plan {plan_ms:.4f} ms; bound_ms "
+          f"{b['bound_ms']:.4f} ({b['bound_by']}), share of the launch and "
+          f"its plan {share:.3f} [{card}]")
+    return {"frames": frames, "L": L, "kernel_ms": kernel_ms,
+            "plan_ms": plan_ms, **b, "share": share}
+
+
+#: K14 at the 24-frame window of 32 clips and of 4x their lanes, and at
+#: the benchmark cell's sized window (fma_mp3.b32: 32 clips,
+#: mp3_window_frames); the share of granules coded mid/side there (the
+#: masters are LR)
 MP3_DSP_LANES = (32, 128)
 MP3_DSP_MS = 0.7
 K14_TOL = 1e-5        # of the peak: K14 and the product against the twin
@@ -2119,22 +2196,28 @@ def mp3_dsp_work(B, G, nch):
 
 
 def phase_mp3_dsp_kernel(card, streams):
-    """K14, the MP3 window kernel, at the first window of the MP3 slice's
-    first 32 and first 128 lanes (G 48, stereo), its granules flagged
-    mid/side at the benchmark's share: the route on the card (K14, then
-    the synthesis product) against the twin's chain (spectrum_stage,
-    mp3_window_dsp) on the same K3 output, PCM and carried state; K14's
-    device time (torch.profiler), its wrapper, the route's and the twin's
-    device time and kernels a call and their walls, beside K14's bound."""
+    """K14, the MP3 window kernel, at the first 24-frame window of the MP3
+    slice's first 32 and first 128 lanes (G 48, stereo) and at the window
+    mp3_window_frames sizes for the fma_mp3.b32 cell's call (the first 32
+    lanes, G twice its frames; a lane shorter than the window ends inside
+    it, as n_act says), its granules flagged mid/side at the benchmark's
+    share: the route on the card (K14, then the synthesis product) against
+    the twin's chain (spectrum_stage, mp3_window_dsp) on the same K3
+    output, PCM and carried state; K14's device time (torch.profiler), its
+    wrapper, the route's and the twin's device time and kernels a call and
+    their walls, beside K14's bound."""
     import torch
     from audio_formats_torch.ops import mp3_dsp, mp3_huff
 
     dev = torch.device("cuda")
     toeplitz = mp3_dsp.device_const(mp3_dsp.SYNTH_TOEPLITZ, dev)
-    G, nch = 2 * MP3_WINDOW, 2
+    nch = 2
+    w24, sized = mp3_window_sizes()
+    shapes = [(B, w24) for B in MP3_DSP_LANES] + [(MP3_DSP_LANES[0], sized)]
     res = {}
-    for B in MP3_DSP_LANES:
-        pool, meta16, W, lpf, scfq = mp3_window(streams[:B])
+    for B, frames in shapes:
+        G = 2 * frames
+        pool, meta16, W, lpf, scfq, n_fr = mp3_window(streams[:B], frames)
         L = meta16.shape[0]
         rng = np.random.default_rng(B)
         ms = np.repeat(rng.random(L // nch) < MP3_DSP_MS, nch)
@@ -2143,7 +2226,7 @@ def phase_mp3_dsp_kernel(card, streams):
                              mp3_huff.SHORT_PATTERNS).any())
         p_d, m_d, s_d = (torch.from_numpy(a).to(dev)
                          for a in (pool, meta16, scfq))
-        n_act = torch.full((B,), G, dtype=torch.int32, device=dev)
+        n_act = torch.from_numpy(2 * n_fr).to(dev)
         ov, sh = (torch.from_numpy(rng.normal(0, 0.05, shape)
                                    .astype(np.float32)).to(dev)
                   for shape in ((B, nch, 32, 18), (B, nch, 16, 32)))
@@ -2165,10 +2248,15 @@ def phase_mp3_dsp_kernel(card, streams):
                                           nch=nch, ngr=G)
 
         got, want = route(), twin()
+        # granules past a lane's n_act are garbage the batch path drops
+        live = (torch.arange(G, device=dev)[None, :] < n_act[:, None]).view(
+            B, G, 1, 1)
+        got = (torch.where(live, got[0], 0.0), *got[1:])
+        want = (torch.where(live, want[0], 0.0), *want[1:])
         gaps = [float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(got, want)]
         if not max(gaps) <= K14_TOL:
-            raise AssertionError(f"K14 at B={B}: PCM, overlap, history "
+            raise AssertionError(f"K14 at B={B} G={G}: PCM, overlap, history "
                                  f"{gaps} of the twin's peak")
         for _ in range(3):
             route()
@@ -2187,7 +2275,8 @@ def phase_mp3_dsp_kernel(card, streams):
         b = bound(nbytes, 0, macs)
         share = b["bound_ms"] / dev_ms if dev_ms else None
         print(f"# kernel mp3_dsp B={B} G={G} nch={nch} (L={L}, the MP3 "
-              f"slice's first window, {MP3_DSP_MS:.0%} of granules mid/side"
+              f"slice's first window, lanes of {n_fr.min()}-{n_fr.max()} "
+              f"frames in it, {MP3_DSP_MS:.0%} of granules mid/side"
               f", short blocks {short}): PCM, overlap and history within "
               f"{max(gaps):.3g} of the twin's peak (PCM {gaps[0]:.3g}); "
               f"device time {dev_ms} ms, wrapper {ms:.4f} ms (its host "
@@ -2198,19 +2287,22 @@ def phase_mp3_dsp_kernel(card, streams):
               f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes} bytes, "
               f"{macs} multiply-adds), share of device time {share} "
               f"[{card}]")
-        res[f"b{B}"] = {"max_gap_of_peak": max(gaps), "device_ms": dev_ms,
-                        "ms": ms, "host_ms": host_ms,
-                        "route_device_ms": route_dev,
-                        "route_kernels": route_ops, "route_ms": route_ms,
-                        "plain_device_ms": twin_dev, "plain_kernels": twin_ops,
-                        "plain_ms": twin_ms, **b, "share": share}
+        key = f"b{B}" if frames == w24 else f"b{B}_w{frames}"
+        res[key] = {"max_gap_of_peak": max(gaps), "device_ms": dev_ms,
+                    "ms": ms, "host_ms": host_ms,
+                    "route_device_ms": route_dev,
+                    "route_kernels": route_ops, "route_ms": route_ms,
+                    "plain_device_ms": twin_dev, "plain_kernels": twin_ops,
+                    "plain_ms": twin_ms, **b, "share": share}
     return {"max_abs_err": max(r["max_gap_of_peak"] for r in res.values()),
             **res}
 
 
 def dsp_probe(workers=8):
-    """--dsp (on the card): phase_mp3_dsp_kernel alone, on MP3 masters of
-    6 s built in a process pool while nvcc builds K3 and K14."""
+    """--dsp (on the card): K3 at the fma_mp3.b32 cell's sized window
+    (phase_mp3_kernel_cell) and phase_mp3_dsp_kernel alone, on 8 MP3
+    masters of MP3_SECONDS built in a process pool while nvcc builds K3
+    and K14."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2224,7 +2316,7 @@ def dsp_probe(workers=8):
     with ProcessPoolExecutor(
             max_workers=workers,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        masters = pool.map(mp3_master, range(8), [6.0] * 8)
+        masters = pool.map(mp3_master, range(8))
         for name in ("mp3_huff", "mp3_dsp"):
             _kernels.load(name)
         masters = list(masters)
@@ -2233,7 +2325,140 @@ def dsp_probe(workers=8):
         for line in log.strip().splitlines():
             print(f"#   {name}: {line.strip()}")
     streams, _ = mp3_corpus(masters, n_lanes=max(MP3_DSP_LANES))
-    print(json.dumps({"mp3_dsp": phase_mp3_dsp_kernel(card, streams)}))
+    print(json.dumps({"mp3_huff_cell": phase_mp3_kernel_cell(card, streams),
+                      "mp3_dsp": phase_mp3_dsp_kernel(card, streams)}))
+    print(card)
+
+
+#: --windows: the device operations of an MP3 call, by the names of their
+#: kernels and copies (the rest fall under "other")
+WINDOW_OPS = (
+    ("k3", ("mp3_huff_kernel",)),
+    ("plan", ("plan_count_kernel", "plan_base_kernel", "plan_place_kernel")),
+    ("k14", ("mp3_dsp_kernel",)),
+    ("product", ("gemm", "splitK", "splitk")),
+    ("upload", ("Memcpy HtoD",)),
+)
+WINDOW_CALLS = 3          # traced calls a turn
+WINDOW_SEED = 2718281829  # the clips' seed (the generator's and the draw's)
+
+
+def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
+    """--windows (on the card): calls of the fma_mp3.b32 cell's shape (32
+    FMA-shaped 30 s clips of portbench's generator, drawn from its pool of
+    128) with Layer III windows forced to 24 frames or sized by
+    parallel/batch.py's mp3_window_frames, in turns (forward, then
+    backward), each turn one call untraced then `calls` calls under a
+    CUDA-only torch.profiler trace: the device time a call of each
+    operation (K3, its plan, K14, the synthesis product, the uploads, the
+    rest) and the union of the card's busy intervals, K3's launches and
+    its share of the kernel.k3_roofline bound, windows and frames a
+    window, and the memory peak; the sized windows' PCM within K14_TOL of
+    the peak of the 24-frame call on the same clips (the product's
+    sums run in another order where cuBLAS picks another kernel for the
+    taller operand)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_formats_torch import BatchDecoder
+    from audio_formats_torch.ops import mp3_huff
+    from audio_formats_torch.parallel import batch as tbatch
+    from portbench import harness, peaks
+    from portbench import trace as ptrace
+    from portbench.gen import mp3 as gen
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU: --windows runs on the card")
+    card = card_line()
+    print(card)
+    cfg = harness.load_json("portbench/configs/fma_mp3.json")
+    traffic = harness.load_json("portbench/traffic/clips30_b32.json")
+    t0 = time.perf_counter()
+    corpus = gen.build(cfg, traffic, np.random.default_rng(seed))
+    print(f"# corpus: {len(corpus.streams)} clips in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B = int(traffic["batch"])
+    rng = np.random.default_rng(seed + 1)
+    batches = [rng.choice(len(corpus.streams), B, replace=False)
+               for _ in range(calls)]
+    k3_bytes = sum(576 * 4 * corpus.work["huff_gc"][idx].sum()
+                   + corpus.work["huff_bits"][idx].sum() / 8
+                   for idx in batches)
+    audio_s = sum(corpus.seconds[idx].sum() for idx in batches)
+    sized = tbatch.mp3_window_frames
+
+    def forced(lanes_per_frame, frames_left, wave_lanes):
+        return tbatch.MP3_WINDOW_FRAMES
+
+    def call(idx):
+        dec = BatchDecoder([corpus.streams[i] for i in idx], device="cuda")
+        res = dec.decode_all(output="device").sync()
+        return dec.stats, res
+
+    def turn(label, rule):
+        tbatch.mp3_window_frames = rule
+        try:
+            call(batches[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            h0 = mp3_huff.HUFF_LAUNCHES
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stats = []
+                for idx in batches:
+                    st, res = call(idx)
+                    stats.append(st)
+                    del res
+                torch.cuda.synchronize()
+            launches = mp3_huff.HUFF_LAUNCHES - h0
+            mem = int(torch.cuda.max_memory_allocated())
+            pcm = call(batches[0])[1].to_numpy()
+        finally:
+            tbatch.mp3_window_frames = sized
+        op_ms = {k: 0.0 for k, _ in WINDOW_OPS}
+        op_ms["other"] = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if t is None else t
+            key = next((k for k, names in WINDOW_OPS
+                        if any(n in evt.key for n in names)), "other")
+            op_ms[key] += us / 1e3 / calls
+        busy_ms = ptrace.device_time(prof)["busy_s"] * 1e3 / calls
+        k3_s = (op_ms["k3"] + op_ms["plan"]) * calls / 1e3
+        out = {"label": label, "op_ms_a_call": op_ms,
+               "busy_ms_a_call": busy_ms,
+               "device_ms_per_audio_s": busy_ms * calls / audio_s,
+               "k3_launches_a_call": launches / calls,
+               "k3_share_of_bound": (peaks.bound_s(k3_bytes) / k3_s
+                                     if k3_s else None),
+               "windows": [st["windows"] for st in stats],
+               "frames_a_window": stats[0]["mp3_window_frames"],
+               "memory_peak_bytes": mem}
+        print(f"# windows {label}: " + json.dumps(out) + f" [{card}]")
+        return out, pcm
+
+    variants = (("w24", forced), ("sized", sized))
+    res, pcms = {}, {}
+    for label, rule in variants + variants[::-1]:
+        out, pcm = turn(label, rule)
+        res.setdefault(label, []).append(out)
+        pcms.setdefault(label, pcm)
+    gaps = {}
+    for label, got in pcms.items():
+        gap = 0.0
+        for a, b in zip(got, pcms["w24"]):
+            if a.shape != b.shape:
+                raise AssertionError(f"--windows {label}: shapes {a.shape} "
+                                     f"{b.shape}")
+            gap = max(gap, float(np.abs(a - b).max() / np.abs(b).max()))
+        gaps[label] = gap
+    print(json.dumps({"windows": res, "max_gap_of_peak": gaps,
+                      "card": card}))
+    if not max(gaps.values()) <= K14_TOL:
+        raise AssertionError(f"--windows: PCM {gaps} of the 24-frame "
+                             "PCM's peak")
     print(card)
 
 
@@ -5282,7 +5507,7 @@ def ab_compare(parent, names=AB_KERNELS):
     if "mp3_huff" in names:
         # K3 at one window of the MP3 slice
         mp3_streams, mp3_info = mp3_corpus(mp3_masters)
-        pool, meta16, W, lpf, _ = mp3_window(mp3_streams)
+        pool, meta16, W, lpf, _, _ = mp3_window(mp3_streams)
         p_d, m_d = (torch.from_numpy(a).to(dev) for a in (pool, meta16))
         L = meta16.shape[0]
         blob = mp3_huff.device_const(mp3_huff.HUFF_BLOB, dev)
@@ -6198,6 +6423,8 @@ if __name__ == "__main__":
         wire_compare()
     elif sys.argv[1:] == ["--dsp"]:
         dsp_probe()
+    elif sys.argv[1:] == ["--windows"]:
+        window_probe()
     elif sys.argv[1:2] == ["--sass"]:
         print_sass(sys.argv[2:])
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:

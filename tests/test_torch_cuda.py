@@ -637,6 +637,82 @@ def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
         np.testing.assert_array_equal(c, a)
 
 
+#: 30 s stereo MPEG-1 clips, as many as a call of the fma_mp3.b32 cell
+MP3_CLIP_FRAMES, MP3_CLIPS = 1148, 32
+
+
+def _mp3_clips():
+    """MP3_CLIPS joint-stereo clips of MP3_CLIP_FRAMES frames: the frames
+    of the 55-frame MS stream and the 12-frame intensity stream of
+    _mp3_streams, each clip from another frame on, over and over (the
+    golden encoder's 320 kbit/s frames are all 1,044 bytes and leave no
+    bits in the reservoir, so any sequence of them is a stream)."""
+    streams = _mp3_streams()
+    fb = 1044
+    frames = [s[i: i + fb] for s in (streams[4], streams[3])
+              for i in range(0, len(s), fb)]
+    return [b"".join(frames[(k * 7 + i) % len(frames)]
+                     for i in range(MP3_CLIP_FRAMES))
+            for k in range(MP3_CLIPS)]
+
+
+def test_mp3_windows_sized_to_the_batch(cuda, monkeypatch):
+    """Clips of the benchmark cell's shape decode in windows sized to a
+    wave of K3 (two of 576 frames on a 132-SM card) and in forced 24-frame
+    windows: the PCM of each is within K14_TOL of the peak of the other
+    and of the plain chain's on the CPU, for the clips the CPU decodes
+    (K3 and K14 act on a lane's rows alone; the product's sums run in
+    another order where cuBLAS picks another kernel for the taller
+    operand: on the cell's clips the two windows read 1.05e-6 of the
+    peak, chip_smoke.py --windows), one K3 launch runs a window, and each
+    window span carries its frames."""
+    from audio_formats_torch import trace
+    from audio_formats_torch.ops import mp3_huff
+
+    clips = _mp3_clips()
+    W = tbatch.mp3_window_frames(MP3_CLIPS * 4, MP3_CLIP_FRAMES,
+                                 tbatch.mp3_wave_lanes(cuda))
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert W == 576
+    assert W > tbatch.MP3_WINDOW_FRAMES
+
+    def run():
+        before = mp3_huff.HUFF_LAUNCHES
+        dec = BatchDecoder(clips, device=cuda)
+        trace.drain()
+        trace.enable()
+        try:
+            pcm = dec.decode_all(output="device").sync().to_numpy()
+        finally:
+            trace.disable()
+            spans = trace.drain()["spans"]
+        assert dec.stats["group_demotions"] == 0
+        assert mp3_huff.HUFF_LAUNCHES - before == dec.stats["windows"]
+        frames = {s["attrs"]["frames"] for s in spans
+                  if s["name"] == "window"}
+        return pcm, dec.stats, frames
+
+    def gap(a, b):
+        assert a.shape == b.shape == (MP3_CLIP_FRAMES * 1152, 2)
+        peak = np.abs(b).max()
+        assert peak > 0.05
+        return np.abs(a - b).max() / peak
+
+    sized, st, frames = run()
+    assert st["windows"] == -(-MP3_CLIP_FRAMES // W)
+    assert st["mp3_window_frames"] == W and frames == {W}
+    plain = BatchDecoder(clips[:2], device="cpu").decode_all()
+    monkeypatch.setattr(tbatch, "mp3_window_frames",
+                        lambda lpf, frames_left, wave: 24)
+    small, st24, frames24 = run()
+    assert st24["windows"] == -(-MP3_CLIP_FRAMES // 24)
+    assert st24["mp3_window_frames"] == 24 and frames24 == {24}
+    for a, b in zip(sized, small):
+        assert gap(a, b) <= K14_TOL
+    for a, b, c in zip(sized, small, plain):
+        assert gap(a, c) <= K14_TOL and gap(b, c) <= K14_TOL
+
+
 def test_mp3_facade_cuda_state_moves_to_cpu(cuda):
     """The facade on the card reads part of a stream; its carried state
     (tensors on the card) loads into a CPU decoder, which reads the rest:

@@ -12,7 +12,9 @@ within 1e-4 max abs (the ROADMAP bound; the streams' PCM lies in [-1, 1];
 the corrupt lane, which reads Huffman pairs past a granule's bits, against
 JAX's AudioStream facade), errors, windows and decoded seconds must be
 equal.  The ``Mp3Decoder``
-facade and carried-state loading are held to JAX's too.
+facade and carried-state loading are held to JAX's too.  The Layer III
+window's sizing rule is checked on its cases, and windows of other sizes,
+forced on the CPU, give the 24-frame windows' PCM bit for bit.
 """
 
 import numpy as np
@@ -25,10 +27,11 @@ from audio_formats_tpu.models.mp3 import Mp3Decoder as JMp3Decoder
 from audio_formats_tpu.ops import mp3_dsp as jdsp
 from audio_formats_tpu.parallel import BatchDecoder as JaxBatchDecoder
 
-from audio_formats_torch import BatchDecoder
+from audio_formats_torch import BatchDecoder, trace
 from audio_formats_torch.io.source import MemorySource
 from audio_formats_torch.models import mp3 as tmp3
 from audio_formats_torch.ops import mp3_dsp, mp3_huff
+from audio_formats_torch.parallel import batch as tbatch
 
 from golden import flac_ref, mp3_ref, qoa_ref
 from test_torch_mp3_huff import mp3_stream, mp3_stream_mpeg2
@@ -306,3 +309,146 @@ def test_kernel_error_is_not_demoted(monkeypatch, name, module, fn):
     with pytest.raises(KernelError, match="CUDA error 700"):
         dec.decode_all()
     assert dec.stats["group_demotions"] == 0
+
+
+# ------------------------------------------------ Layer III window sizing
+#: K3's lanes in one wave of an H100 SXM (132 SMs)
+WAVE_132 = 132 * mp3_huff.HUFF_BLOCKS_PER_SM * mp3_huff.HUFF_THREADS
+
+
+@pytest.mark.parametrize("lanes_per_frame,frames_left,wave,want", [
+    # 32 stereo MPEG-1 lanes of 30 s clips (1,148 frames): two windows of
+    # 576 frames, not 792 + 356
+    (32 * 4, 1148, WAVE_132, 576),
+    # 1,024 stereo MPEG-1 lanes, the default device group: a window of 24
+    # frames already holds 98,304 lanes
+    (1024 * 4, 1148, WAVE_132, 24),
+    # one short stereo stream: its 30 frames rounded up to 24, one window
+    (4, 30, WAVE_132, 48),
+    # mono MPEG-2 lanes (one granule a frame): 1,024 of them, and 32
+    (1024, 1148, WAVE_132, 96),
+    (32, 1148, WAVE_132, 1152),
+    # never below 24: a frame left, none, a frame wider than a wave
+    (128, 1, WAVE_132, 24),
+    (128, 0, WAVE_132, 24),
+    (8192 * 4, 1148, WAVE_132, 24),
+    # the CPU
+    (32 * 4, 1148, "cpu", 24),
+])
+def test_mp3_window_frames(lanes_per_frame, frames_left, wave, want):
+    if wave == "cpu":
+        wave = tbatch.mp3_wave_lanes(torch.device("cpu"))
+        assert wave == 0
+    W = tbatch.mp3_window_frames(lanes_per_frame, frames_left, wave)
+    assert W == want
+    step = tbatch.MP3_WINDOW_FRAMES
+    assert W % step == 0 and W >= step
+    # a sized window holds no more lanes than a wave, and the windows that
+    # take the longest lane are as few as at the wave's own size
+    if W > step:
+        assert W * lanes_per_frame <= wave
+        wave_w = step * (wave // (step * lanes_per_frame))
+        assert -(-frames_left // W) == -(-frames_left // wave_w)
+
+
+def test_huff_wave_constants_match_the_kernel_source():
+    """The threads a block and resident blocks an SM that size a window
+    are the kernel's own."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(mp3_huff.__file__), "..",
+                            "csrc", "mp3_huff.cu")).read()
+    assert f"constexpr int kThreads = {mp3_huff.HUFF_THREADS};" in src
+    assert (f"__launch_bounds__(kThreads, {mp3_huff.HUFF_BLOCKS_PER_SM})"
+            in src)
+
+
+#: Layer III lanes of unequal length (8 to 53 frames), mono and stereo,
+#: MPEG-1 and MPEG-2, MS, intensity (on from the start and switched on
+#: mid-stream), a Xing tag, free format and a corrupt lane
+LAYER3 = ("mono", "lr", "ms", "ms_switching", "intensity_1", "intensity_3",
+          "intensity_mid_stream", "multi_window", "free_format",
+          "xing_delay_padding", "mpeg2", "mpeg2_intensity", "corrupt_mp3")
+#: window sizes the card's rule could give, forced on the CPU: each
+#: group's longest stream in one window, and ragged sizes (not multiples
+#: of 24) at which lanes end mid-window at other frames
+WINDOW_RULES = {
+    "whole_stream": lambda lpf, frames_left, wave: max(frames_left, 1),
+    "ragged_7": lambda lpf, frames_left, wave: 7,
+    "ragged_37": lambda lpf, frames_left, wave: 37,
+}
+
+
+@pytest.fixture(scope="module")
+def layer3_24():
+    """The Layer III lanes decoded at the CPU's 24-frame windows."""
+    streams = [CASES[n]() for n in LAYER3]
+    dec = BatchDecoder(streams, device="cpu")
+    pcm = dec.decode_all()
+    assert dec.stats["mp3_window_frames"] == tbatch.MP3_WINDOW_FRAMES
+    return streams, pcm
+
+
+@pytest.mark.parametrize("rule", list(WINDOW_RULES))
+def test_window_size_keeps_the_pcm(monkeypatch, layer3_24, rule):
+    """A Layer III window of any size gives the PCM of 24-frame windows,
+    bit for bit: the overlap and the slot history cross each window edge
+    on the device, the reservoir and intensity positions on the host, and
+    every op of the plain chain acts on a lane's rows alone, none summing
+    across granules or lanes, so no row's sums change order.  The spans
+    carry the size: `frames` on each window, K3's lanes on each launch."""
+    streams, want = layer3_24
+    monkeypatch.setattr(tbatch, "mp3_window_frames", WINDOW_RULES[rule])
+    dec = BatchDecoder(streams, device="cpu")
+    trace.drain()
+    trace.enable()
+    try:
+        got = dec.decode_all()
+    finally:
+        trace.disable()
+        spans = trace.drain()["spans"]
+    assert dec.errors == [None] * len(streams)
+    for name, a, b in zip(LAYER3, got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    # four groups, (mono, stereo) x (MPEG-1, MPEG-2): K3's lanes a frame
+    decs = [tmp3.Mp3Decoder(MemorySource(s), device="cpu") for s in streams]
+    per_frame = {}
+    for d in decs:
+        key = (d.channels, d._mpeg1)
+        per_frame[key] = per_frame.get(key, 0) + d.channels * (
+            2 if d._mpeg1 else 1)
+    W = WINDOW_RULES[rule](0, max(len(d._index_offsets) for d in decs), 0)
+    assert dec.stats["mp3_window_frames"] == W
+    if rule == "whole_stream":
+        assert dec.stats["windows"] == len(per_frame)
+    # a window span each parse (the last finds a group's lanes ended where
+    # they filled their last window), a launch span each device window
+    by_id = {s["id"]: s for s in spans}
+    launches = [s for s in spans if s["name"] == "launch"]
+    assert len(launches) == dec.stats["windows"]
+    for s in launches:
+        w = by_id[s["parent"]]
+        assert w["name"] == "window" and 1 <= w["attrs"]["frames"] <= W
+        assert s["attrs"]["lanes"] in {w["attrs"]["frames"] * n
+                                       for n in per_frame.values()}
+
+
+def test_layer12_windows_stay_24(monkeypatch):
+    """Layers I/II run no Huffman kernel and no product: their windows
+    keep 24 frames whatever the Layer III rule gives."""
+    rng = np.random.default_rng(31)
+    gq = rng.integers(0, 16, size=(30, 3, 30, 12)).tolist()
+    scfs = rng.integers(10, 60, size=(30, 30)).tolist()
+    streams = [mp3_ref.build_mp3_l2(gq, scfs, ba=4)[0], _layer1(21)]
+    want = BatchDecoder(streams, device="cpu")
+    want_pcm = want.decode_all()
+    monkeypatch.setattr(tbatch, "mp3_window_frames",
+                        WINDOW_RULES["whole_stream"])
+    dec = BatchDecoder(streams, device="cpu")
+    for a, b in zip(dec.decode_all(), want_pcm):
+        np.testing.assert_array_equal(a, b)
+    # 30 Layer II frames: two windows of 24, and the Layer I lane's one
+    assert dec.stats["windows_by_format"]["mp3_l12"] == \
+        want.stats["windows_by_format"]["mp3_l12"] == 3
+    assert dec.stats["mp3_window_frames"] == 0
