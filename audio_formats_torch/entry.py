@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from .models.flac import device_of
+from .device import device_of
 from .ops import mp3_dsp
 from .parallel import mesh as pmesh
 

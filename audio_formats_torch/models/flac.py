@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import AudioFileFormat
+from ..device import device_of
 from ..errors import AudioFormatError
 from ..host import native
 from ..io.bits import BitReaderMSB
@@ -132,16 +133,6 @@ class _Subframe:
     shift: int
     bps: int  # effective subframe bits per sample
     residual: np.ndarray  # [B] int32, warmup in [:order]
-
-
-def device_of(device) -> torch.device:
-    """The torch device a decoder runs its device stages on.  Asking for
-    CUDA where there is none raises; there is no silent CPU fallback."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available")
-    return dev
 
 
 class FlacDecoder:

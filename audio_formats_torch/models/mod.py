@@ -29,7 +29,7 @@ import numpy as np
 from ..config import AudioFileFormat
 from ..errors import AudioFormatError
 from ..io.source import ByteSource
-from .flac import device_of
+from ..device import device_of
 
 MAX_CHANNELS = 32
 PITCH, VOLUME = 1, 2

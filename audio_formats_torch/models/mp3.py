@@ -44,7 +44,7 @@ from ..host import native
 from ..io.source import ByteSource
 from ..ops import mp3_dsp
 from ..utils.tables import mp3_tables as T
-from .flac import device_of
+from ..device import device_of
 
 _NATIVE_CACHE = []
 

@@ -33,7 +33,7 @@ from ..ops.lms import (
     QOA_SLICE_LEN,
     QOA_SLICES_PER_FRAME,
 )
-from .flac import device_of
+from ..device import device_of
 
 QOA_MAGIC = 0x716F6166  # 'qoaf'
 QOA_MIN_FILESIZE = 16

@@ -27,7 +27,7 @@ from ..config import AudioFileFormat, AudioSampleFormat, EncodingOptions
 from ..errors import AudioFormatError
 from ..io.source import ByteSource, ByteSink
 from ..ops import pcm
-from .flac import device_of
+from ..device import device_of
 
 _LINEAR_PCM = 0x0001
 _IEEE_FLOAT = 0x0003

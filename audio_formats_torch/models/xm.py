@@ -47,7 +47,7 @@ import numpy as np
 from ..config import AudioFileFormat
 from ..errors import AudioFormatError
 from ..io.source import ByteSource
-from .flac import device_of
+from ..device import device_of
 
 NUM_NOTES = 96
 MAX_NUM_ROWS = 256

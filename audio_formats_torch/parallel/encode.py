@@ -28,15 +28,15 @@ import numpy as np
 import torch
 
 from ..config import AudioSampleFormat, EncodingOptions
+from ..device import device_of
 from ..models import qoa as qoa_mod
 from ..models.wav import _FMT_INFO, wav_header
-from ..models.flac import device_of
 from ..models.qoa import (QOA_FRAME_LEN, QOA_LMS_LEN, QOA_MAGIC,
                           _frame_size as _qoa_frame_size)
 from ..ops import lms as lms_ops
 from ..ops import pcm as pcm_ops
 from ..ops.lms import QOA_SLICE_LEN, QOA_SLICES_PER_FRAME
-from .batch import _prefetch, _to_numpy
+from .window import _prefetch, _to_numpy
 from .mesh import mesh_device
 
 #: lanes per device call of the frame-parallel encoder

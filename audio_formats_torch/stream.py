@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 
 from . import models
-from .models.flac import device_of
+from .device import device_of
 from .config import (
     AUDIOSTREAM_UNKNOWN_LENGTH,
     AudioFileFormat,

@@ -1656,16 +1656,17 @@ def mp3_lane_expected(masters, mi, start, end):
 
 def mp3_window_sizes():
     """The frames of the Layer III windows the kernel phases take: the
-    batch path's fixed window (parallel/batch.py's MP3_WINDOW_FRAMES, 24)
+    batch path's fixed window (parallel/groups/mp3.py's MP3_WINDOW_FRAMES,
+    24)
     and the window mp3_window_frames sizes on this card for a call of the
     fma_mp3.b32 cell (32 stereo MPEG-1 clips of 1,148 frames; 576 on 132
     SMs)."""
     import torch
-    from audio_formats_torch.parallel import batch as tbatch
+    from audio_formats_torch.parallel.groups import mp3 as mp3_groups
 
-    wave = tbatch.mp3_wave_lanes(torch.device("cuda"))
-    return tbatch.MP3_WINDOW_FRAMES, tbatch.mp3_window_frames(32 * 4, 1148,
-                                                               wave)
+    wave = mp3_groups.mp3_wave_lanes(torch.device("cuda"))
+    return mp3_groups.MP3_WINDOW_FRAMES, mp3_groups.mp3_window_frames(
+        32 * 4, 1148, wave)
 
 
 def mp3_window(streams, frames=None):
@@ -1680,9 +1681,9 @@ def mp3_window(streams, frames=None):
     from audio_formats_torch.io.source import MemorySource
     from audio_formats_torch.models.mp3 import Mp3Decoder
     from audio_formats_torch.ops import mp3_huff
-    from audio_formats_torch.parallel import batch as tbatch
+    from audio_formats_torch.parallel.groups import mp3 as mp3_groups
 
-    F = frames or tbatch.MP3_WINDOW_FRAMES
+    F = frames or mp3_groups.MP3_WINDOW_FRAMES
     lib = native.get_lib()
     FW = native.FRAME_WORDS
     G = F * 2
@@ -2347,7 +2348,7 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
     """--windows (on the card): calls of the fma_mp3.b32 cell's shape (32
     FMA-shaped 30 s clips of portbench's generator, drawn from its pool of
     128) with Layer III windows forced to 24 frames or sized by
-    parallel/batch.py's mp3_window_frames, in turns (forward, then
+    parallel/groups/mp3.py's mp3_window_frames, in turns (forward, then
     backward), each turn one call untraced then `calls` calls under a
     CUDA-only torch.profiler trace: the device time a call of each
     operation (K3, its plan, K14, the synthesis product, the uploads, the
@@ -2363,7 +2364,7 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
 
     from audio_formats_torch import BatchDecoder
     from audio_formats_torch.ops import mp3_huff
-    from audio_formats_torch.parallel import batch as tbatch
+    from audio_formats_torch.parallel.groups import mp3 as mp3_groups
     from portbench import harness, peaks
     from portbench import trace as ptrace
     from portbench.gen import mp3 as gen
@@ -2386,10 +2387,10 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
                    + corpus.work["huff_bits"][idx].sum() / 8
                    for idx in batches)
     audio_s = sum(corpus.seconds[idx].sum() for idx in batches)
-    sized = tbatch.mp3_window_frames
+    sized = mp3_groups.mp3_window_frames
 
     def forced(lanes_per_frame, frames_left, wave_lanes):
-        return tbatch.MP3_WINDOW_FRAMES
+        return mp3_groups.MP3_WINDOW_FRAMES
 
     def call(idx):
         dec = BatchDecoder([corpus.streams[i] for i in idx], device="cuda")
@@ -2397,7 +2398,7 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
         return dec.stats, res
 
     def turn(label, rule):
-        tbatch.mp3_window_frames = rule
+        mp3_groups.mp3_window_frames = rule
         try:
             call(batches[0])
             torch.cuda.synchronize()
@@ -2414,7 +2415,7 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
             mem = int(torch.cuda.max_memory_allocated())
             pcm = call(batches[0])[1].to_numpy()
         finally:
-            tbatch.mp3_window_frames = sized
+            mp3_groups.mp3_window_frames = sized
         op_ms = {k: 0.0 for k, _ in WINDOW_OPS}
         op_ms["other"] = 0.0
         for evt in prof.key_averages():
@@ -3119,11 +3120,7 @@ def opus_slice(card, streams, expect, celt):
           f"{spot:.3g}, RMS within {rms:.3g}; {routes}; h2d_bytes "
           f"{st['h2d_bytes']}, d2h_bytes {st['d2h_bytes']}, host_ms "
           f"{st['host_ms']:.0f} (host_cpu_ms {st['host_cpu_ms']:.0f}), "
-          f"enqueue_ms {st['enqueue_ms']:.0f} (upload "
-          f"{st['enq_opus_upload_ms']:.0f}, the wait for K12a (and the "
-          f"long blocks' matmul) and the download "
-          f"{st['enq_opus_fetch_ms']:.0f}, postfilter and deemphasis "
-          f"{st['enq_opus_finish_ms']:.0f}) [{card}]")
+          f"enqueue_ms {st['enqueue_ms']:.0f} [{card}]")
     return launches, kept
 
 
@@ -3821,11 +3818,11 @@ def phase_mixed_threshold(card):
     the two outputs within OPUS_TOL of the peak of each other."""
     from audio_formats_torch import BatchDecoder
     import torch_opus_speech_cases as sc
-    from audio_formats_torch.parallel import batch
+    from audio_formats_torch.parallel.groups import opus as opus_groups
 
     ref = golden_opus_ref()
     tours = [m for m, k in zip(sc.load(), sc.kinds()) if k == "tour"]
-    saved = batch.OPUS_MIXED_DEVICE_MIN_LANES
+    saved = opus_groups.OPUS_MIXED_DEVICE_MIN_LANES
     walls = {}
     try:
         for n in MIXED_PROBE:
@@ -3833,7 +3830,7 @@ def phase_mixed_threshold(card):
                                  preskip=(0, 312)[i % 2]) for i in range(n)]
             outs = {}
             for path in ("host", "device", "device", "host"):
-                batch.OPUS_MIXED_DEVICE_MIN_LANES = \
+                opus_groups.OPUS_MIXED_DEVICE_MIN_LANES = \
                     n + 1 if path == "host" else 1
                 dec = BatchDecoder(streams, device="cuda")
                 t0 = time.perf_counter()
@@ -3847,7 +3844,7 @@ def phase_mixed_threshold(card):
                                          f"path {e:.3g} of the peak from the "
                                          "host path")
     finally:
-        batch.OPUS_MIXED_DEVICE_MIN_LANES = saved
+        opus_groups.OPUS_MIXED_DEVICE_MIN_LANES = saved
     print("# mixed Opus group, host against device CELT answers (50-packet "
           "mode tours, walls in s, host/device/device/host): " + "; ".join(
               f"{n} lanes host {walls[(n, 'host')]} device "

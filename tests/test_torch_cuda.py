@@ -23,7 +23,8 @@ from audio_formats_torch.ops import mdct as tmdct
 from audio_formats_torch.ops import pcm as tpcm
 from audio_formats_torch.ops import resample as trs
 from audio_formats_torch.ops import vorbis_win as twin
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import flac_rice as rice_groups
+from audio_formats_torch.parallel.groups import mp3 as mp3_groups
 
 import torch_flac_cases
 import torch_mp3_cases
@@ -670,11 +671,11 @@ def test_mp3_windows_sized_to_the_batch(cuda, monkeypatch):
     from audio_formats_torch.ops import mp3_huff
 
     clips = _mp3_clips()
-    W = tbatch.mp3_window_frames(MP3_CLIPS * 4, MP3_CLIP_FRAMES,
-                                 tbatch.mp3_wave_lanes(cuda))
+    W = mp3_groups.mp3_window_frames(MP3_CLIPS * 4, MP3_CLIP_FRAMES,
+                                 mp3_groups.mp3_wave_lanes(cuda))
     if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
         assert W == 576
-    assert W > tbatch.MP3_WINDOW_FRAMES
+    assert W > mp3_groups.MP3_WINDOW_FRAMES
 
     def run():
         before = mp3_huff.HUFF_LAUNCHES
@@ -702,7 +703,7 @@ def test_mp3_windows_sized_to_the_batch(cuda, monkeypatch):
     assert st["windows"] == -(-MP3_CLIP_FRAMES // W)
     assert st["mp3_window_frames"] == W and frames == {W}
     plain = BatchDecoder(clips[:2], device="cpu").decode_all()
-    monkeypatch.setattr(tbatch, "mp3_window_frames",
+    monkeypatch.setattr(mp3_groups, "mp3_window_frames",
                         lambda lpf, frames_left, wave: 24)
     small, st24, frames24 = run()
     assert st24["windows"] == -(-MP3_CLIP_FRAMES // 24)
@@ -982,7 +983,7 @@ def test_batch_decoder_rice_cuda_equals_cpu(cuda, gather, monkeypatch):
     and one K1 launch a dispatch."""
     streams = _rice_streams()
     if gather:
-        monkeypatch.setattr(tbatch, "RICE_GATHER_MIN_BYTES", 0)
+        monkeypatch.setattr(rice_groups, "RICE_GATHER_MIN_BYTES", 0)
     k4, k1 = trice.RICE_LAUNCHES, tlpc.KERNEL_LAUNCHES
     dec = BatchDecoder(streams, device=cuda, flac_wire="rice")
     res = dec.decode_all(output="device")

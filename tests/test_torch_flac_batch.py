@@ -19,7 +19,7 @@ from audio_formats_torch import AudioStream as TorchStream
 from audio_formats_torch import BatchDecoder
 from audio_formats_torch.io.source import MemorySource
 from audio_formats_torch.models.flac import FlacDecoder
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import flac as flac_groups
 
 from golden import flac_ref, opus_ref, wav_ref
 
@@ -154,7 +154,7 @@ def test_forced_split_width_plane_matches_jax(rng, monkeypatch):
         return 4, 512
 
     monkeypatch.setattr(jbatch, "_flac_width_plan", forced)
-    monkeypatch.setattr(tbatch, "_flac_width_plan", forced)
+    monkeypatch.setattr(flac_groups, "_flac_width_plan", forced)
     got, ref, _, _ = _both(streams)
     _assert_same(got, ref)
     _assert_same(got, plain)
@@ -165,9 +165,9 @@ def test_width_plan_is_the_jax_plan():
     for Ln, bs in ((512, 4096), (8, 4096), (96, 1024)):
         w_l = rng.integers(3, 27, Ln).astype(np.int32)
         wmax = int(w_l.max())
-        assert tbatch._flac_width_plan(w_l, wmax, Ln, bs) == \
+        assert flac_groups._flac_width_plan(w_l, wmax, Ln, bs) == \
             jbatch._flac_width_plan(w_l, wmax, Ln, bs)
-    assert tbatch._FLAC_W_BUCKETS == jbatch._FLAC_W_BUCKETS
+    assert flac_groups._FLAC_W_BUCKETS == jbatch._FLAC_W_BUCKETS
 
 
 def _ogg_flac(native, frames):

@@ -25,7 +25,7 @@ from audio_formats_tpu.parallel import BatchDecoder as JaxBatchDecoder
 from audio_formats_torch import BatchDecoder
 from audio_formats_torch.host import native
 from audio_formats_torch.ops import flac_rice
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import flac_rice as rice_groups
 
 from golden import flac_ref
 
@@ -260,7 +260,7 @@ def _rice_both(streams, monkeypatch, gather=False):
     monkeypatch.setenv("AF_TPU_FLAC_DEVICE_RICE", "1")
     if gather:
         monkeypatch.setenv("AF_TPU_FLAC_POOL", "gather")
-        monkeypatch.setattr(tbatch, "RICE_GATHER_MIN_BYTES", 0)
+        monkeypatch.setattr(rice_groups, "RICE_GATHER_MIN_BYTES", 0)
     jdec = JaxBatchDecoder(streams)
     want = jdec.decode_all()
     tdec = BatchDecoder(streams, device="cpu", flac_wire="rice")
@@ -375,7 +375,7 @@ def test_batch_rice_gather_pool(monkeypatch):
                cases.make_stream(rng, n=3000),
                cases.make_stream(rng, mode="fixed2", wasted=1),
                cases.make_stream(rng, mode="constant")]
-    monkeypatch.setattr(tbatch, "RICE_GATHER_MIN_BYTES", 1 << 40)
+    monkeypatch.setattr(rice_groups, "RICE_GATHER_MIN_BYTES", 1 << 40)
     host = BatchDecoder(streams, device="cpu", flac_wire="rice")
     ref = host.decode_all()
     tdec, got = _rice_both(streams, monkeypatch, gather=True)
@@ -397,7 +397,7 @@ def test_batch_rice_mono_and_stereo_groups_at_once(monkeypatch):
         44100, 16, block_size=1024, modes=["lpc8"]) for i in range(3)]
     stereo = [cases.make_stream(rng, mode="lpc8", stereo="mid_side"),
               cases.make_stream(rng, n=3500)]
-    monkeypatch.setattr(tbatch, "RICE_GATHER_MIN_BYTES", 0)
+    monkeypatch.setattr(rice_groups, "RICE_GATHER_MIN_BYTES", 0)
     streams = [mono[0], stereo[0], mono[1], stereo[1], mono[2]]
     dec = BatchDecoder(streams, device="cpu", flac_wire="rice")
     got = dec.decode_all()

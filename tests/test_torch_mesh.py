@@ -34,6 +34,7 @@ from audio_formats_torch.parallel import (batch_channel_sharding,
                                           batch_sharding, make_mesh,
                                           shard_batch)
 from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel import groups
 
 from golden import flac_ref, opus_ref, qoa_ref, vorbis_ref, wav_ref
 from test_mod import _simple_mod
@@ -289,13 +290,10 @@ def test_group_kind_13_lanes_over_4(kind):
 
 
 # ---------------------------------------------- the shard plan and sync
-GROUP_FNS = ("_decode_flac_group", "_decode_l12_group", "_decode_wav_group",
-             "_decode_vorbis_group", "_decode_silk_group",
-             "_decode_opus_mixed_group", "_decode_mp3_group")
-PLAN = (("flac", 6, "_decode_flac_group"), ("mp3_l1", 5, "_decode_l12_group"),
-        ("wav", 3, "_decode_wav_group"), ("vorbis", 4, "_decode_vorbis_group"),
-        ("mp3_l3", 5, "_decode_mp3_group"),
-        ("opus_mixed", 3, "_decode_opus_mixed_group"))
+GROUP_FNS = ("flac", "l12", "wav", "vorbis", "silk", "opus_mixed", "mp3")
+PLAN = (("flac", 6, "flac"), ("mp3_l1", 5, "l12"), ("wav", 3, "wav"),
+        ("vorbis", 4, "vorbis"), ("mp3_l3", 5, "mp3"),
+        ("opus_mixed", 3, "opus_mixed"))
 
 
 def test_each_group_call_gets_its_shard_device(monkeypatch):
@@ -303,19 +301,14 @@ def test_each_group_call_gets_its_shard_device(monkeypatch):
     the device of its shard: group_size 4, each chunk split over cpu:0 ..
     cpu:3 as np.array_split gives it, an empty shard running nothing."""
     calls = []
-    for name in GROUP_FNS:
-        orig = getattr(tbatch.BatchDecoder, name)
 
-        def record(self, decs, *args, device, to_device=False, _orig=orig,
-                   _name=name):
-            calls.append((_name, tuple(next(i for i, d in
-                                            enumerate(self.decoders)
-                                            if d is x) for x in decs),
-                          device))
-            return _orig(self, decs, *args, device=device,
-                         to_device=to_device)
+    def recorded(e):
+        def record(ctx, decs, key):
+            calls.append((e.name, decs, ctx.device))
+            return e.decode(ctx, decs, key)
+        return e._replace(decode=record) if e.name in GROUP_FNS else e
 
-        monkeypatch.setattr(tbatch.BatchDecoder, name, record)
+    monkeypatch.setattr(groups, "TABLE", tuple(map(recorded, groups.TABLE)))
     items, want = [], []
     devs = [torch.device("cpu", k) for k in range(4)]
     for kind, n, fn in PLAN:
@@ -328,6 +321,9 @@ def test_each_group_call_gets_its_shard_device(monkeypatch):
     dec = BatchDecoder(items, mesh=cpu_mesh(4, distinct=True), group_size=4)
     got = dec.decode_all()
     assert dec.errors == [None] * len(items)
+    calls = [(name, tuple(next(i for i, d in enumerate(dec.decoders)
+                               if d is x) for x in decs), device)
+             for name, decs, device in calls]
     assert sorted(calls, key=str) == sorted(want, key=str)
     assert set(dec.devices_used) == set(devs)
     assert all(g is not None for g in got)

@@ -31,7 +31,7 @@ from audio_formats_torch import BatchDecoder, trace
 from audio_formats_torch.io.source import MemorySource
 from audio_formats_torch.models import mp3 as tmp3
 from audio_formats_torch.ops import mp3_dsp, mp3_huff
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import mp3 as mp3_groups
 
 from golden import flac_ref, mp3_ref, qoa_ref
 from test_torch_mp3_huff import mp3_stream, mp3_stream_mpeg2
@@ -337,11 +337,11 @@ WAVE_132 = 132 * mp3_huff.HUFF_BLOCKS_PER_SM * mp3_huff.HUFF_THREADS
 ])
 def test_mp3_window_frames(lanes_per_frame, frames_left, wave, want):
     if wave == "cpu":
-        wave = tbatch.mp3_wave_lanes(torch.device("cpu"))
+        wave = mp3_groups.mp3_wave_lanes(torch.device("cpu"))
         assert wave == 0
-    W = tbatch.mp3_window_frames(lanes_per_frame, frames_left, wave)
+    W = mp3_groups.mp3_window_frames(lanes_per_frame, frames_left, wave)
     assert W == want
-    step = tbatch.MP3_WINDOW_FRAMES
+    step = mp3_groups.MP3_WINDOW_FRAMES
     assert W % step == 0 and W >= step
     # a sized window holds no more lanes than a wave, and the windows that
     # take the longest lane are as few as at the wave's own size
@@ -385,7 +385,7 @@ def layer3_24():
     streams = [CASES[n]() for n in LAYER3]
     dec = BatchDecoder(streams, device="cpu")
     pcm = dec.decode_all()
-    assert dec.stats["mp3_window_frames"] == tbatch.MP3_WINDOW_FRAMES
+    assert dec.stats["mp3_window_frames"] == mp3_groups.MP3_WINDOW_FRAMES
     return streams, pcm
 
 
@@ -398,7 +398,7 @@ def test_window_size_keeps_the_pcm(monkeypatch, layer3_24, rule):
     across granules or lanes, so no row's sums change order.  The spans
     carry the size: `frames` on each window, K3's lanes on each launch."""
     streams, want = layer3_24
-    monkeypatch.setattr(tbatch, "mp3_window_frames", WINDOW_RULES[rule])
+    monkeypatch.setattr(mp3_groups, "mp3_window_frames", WINDOW_RULES[rule])
     dec = BatchDecoder(streams, device="cpu")
     trace.drain()
     trace.enable()
@@ -443,7 +443,7 @@ def test_layer12_windows_stay_24(monkeypatch):
     streams = [mp3_ref.build_mp3_l2(gq, scfs, ba=4)[0], _layer1(21)]
     want = BatchDecoder(streams, device="cpu")
     want_pcm = want.decode_all()
-    monkeypatch.setattr(tbatch, "mp3_window_frames",
+    monkeypatch.setattr(mp3_groups, "mp3_window_frames",
                         WINDOW_RULES["whole_stream"])
     dec = BatchDecoder(streams, device="cpu")
     for a, b in zip(dec.decode_all(), want_pcm):

@@ -31,7 +31,7 @@ from audio_formats_torch.models import celt as tcelt
 from audio_formats_torch.models import opus as topus
 from audio_formats_torch.ops import celt_dsp
 from audio_formats_torch.ops._kernels import KernelError
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import opus as opus_groups
 
 from golden import opus_ref
 from test_opus_celt import FINAL_RANGES, PACKETS, RMS, SAMPLE_IDX, SAMPLES
@@ -185,7 +185,8 @@ def test_corpus_is_celt_only_and_grouped_by_jax():
     jdec = JaxBatchDecoder(streams)
     assert all(JaxBatchDecoder._opus_eligible(d) for d in jdec.decoders)
     tdec = BatchDecoder(streams, device="cpu")
-    assert all(tbatch.BatchDecoder._opus_eligible(d) for d in tdec.decoders)
+    assert all(opus_groups.classify(d)[0] == "celt"
+               for d in tdec.decoders)
 
 
 def _batch_lanes():
@@ -208,18 +209,18 @@ def test_batch_matches_jax(output, monkeypatch):
     streams = _batch_lanes()
     calls, scales = [], []
     imdct_ola = celt_dsp.celt_imdct_ola_packed
-    bucket = tbatch.BatchDecoder._celt_imdct_bucket
+    bucket = opus_groups._celt_imdct_bucket
 
     def counted(*a, **kw):
         calls.append(a[2:4])
         return imdct_ola(*a, **kw)
 
-    def watched(self, items, blocks, bs, device):
+    def watched(stats, items, blocks, bs, device):
         scales.append({float(p["imdct_scale"]) for _, p in items})
-        return bucket(self, items, blocks, bs, device)
+        return bucket(stats, items, blocks, bs, device)
 
     monkeypatch.setattr(celt_dsp, "celt_imdct_ola_packed", counted)
-    monkeypatch.setattr(tbatch.BatchDecoder, "_celt_imdct_bucket", watched)
+    monkeypatch.setattr(opus_groups, "_celt_imdct_bucket", watched)
     tdec = BatchDecoder(streams, device="cpu")
     got = tdec.decode_all(output=output)
     if output == "device":
@@ -230,7 +231,7 @@ def test_batch_matches_jax(output, monkeypatch):
     assert tdec.errors == jdec.errors == [None] * len(streams)
     assert st["group_demotions"] == 0 and not st.get("lanes_demoted")
     silk = len(streams) - 1
-    assert not tbatch.BatchDecoder._opus_eligible(tdec.decoders[silk])
+    assert opus_groups.classify(tdec.decoders[silk])[0] != "celt"
     assert st["opus_silk_lanes"] == 1
     for i, data in enumerate(streams):
         want = _facade(data)
@@ -239,8 +240,7 @@ def test_batch_matches_jax(output, monkeypatch):
     # one IMDCT and overlap-add a bucket a step; some steps hold two
     # buckets (short and long blocks), and some bucket mixes scales; the
     # SILK lane's steps are K13's
-    n_frames = [sum(len(topus.parse_packet(p)["frames"])
-                    for p in d._lockstep_packets)
+    n_frames = [sum(len(pk["frames"]) for pk in d._opus_packets)
                 for d in tdec.decoders[:silk]]
     wbf = st["windows_by_format"]
     assert len(calls) == wbf["opus"] == st["windows"] - wbf["opus_silk"]
@@ -287,7 +287,7 @@ def test_per_lane_demotion_keeps_group(monkeypatch):
                 raise AudioFormatError("injected lane fault")
             super().__init__(data)
 
-    monkeypatch.setattr(tbatch, "RangeDecoder", Faulty)
+    monkeypatch.setattr(opus_groups, "RangeDecoder", Faulty)
     monkeypatch.setattr(topus, "RangeDecoder", Faulty)
     for output in ("numpy", "device"):
         dec = BatchDecoder(streams, device="cpu")

@@ -34,7 +34,7 @@ from audio_formats_torch.models import opus as topus
 from audio_formats_torch.ops import celt_dsp
 from audio_formats_torch.ops import resample as trs
 from audio_formats_torch.ops._kernels import KernelError
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import opus as opus_groups
 
 from golden import opus_oracle, opus_ref
 from test_opus_silk import SILK_PACKETS
@@ -76,8 +76,9 @@ def _rel(got, want):
 
 
 def _route(cls, d):
-    """The Opus group `cls`'s eligibility cascade puts decoder d in, with
-    its key: CELT, SILK, hybrid, mixed, as both packages dispatch."""
+    """The Opus group the JAX package's eligibility cascade (`cls`, its
+    BatchDecoder) puts decoder d in, with its key: CELT, SILK, hybrid,
+    mixed, in the form of the port's ``classify``."""
     if cls._opus_eligible(d):
         return "celt", d.channels
     if cls._silk_eligible(d):
@@ -101,19 +102,20 @@ def _check(streams, routes=None, tol=TOL):
     want = jdec.decode_all()
     tdec = BatchDecoder(streams, device="cpu")
     got = tdec.decode_all()
-    t_routes = [_route(tbatch.BatchDecoder, d) for d in
+    t_routes = [opus_groups.classify(d) for d in
                 BatchDecoder(streams, device="cpu").decoders]
     j_routes = [_route(JaxBatchDecoder, d) for d in
                 JaxBatchDecoder(streams).decoders]
     assert t_routes == j_routes
+    # a lane no Opus group takes (multistream) has the route None
+    groups = [r and r[0] for r in t_routes]
     if routes is not None:
-        assert [r[0] for r in t_routes] == routes
+        assert groups == routes
     st = tdec.stats
     assert tdec.errors == jdec.errors == [None] * len(streams)
     assert st["group_demotions"] == 0 and not st.get("lanes_demoted")
     for kind in ("silk", "hybrid", "mixed"):
-        assert st.get(f"opus_{kind}_lanes", 0) == \
-            sum(r[0] == kind for r in t_routes)
+        assert st.get(f"opus_{kind}_lanes", 0) == groups.count(kind)
     for i, data in enumerate(streams):
         assert _rel(got[i], want[i]) < tol
         assert _rel(got[i], _facade(data)) < tol
@@ -149,7 +151,7 @@ def test_silk_multiframe_packets():
                opus_ref.build_ogg_opus(pkts[:1], channels=1, preskip=0)]
     dec, _ = _check(streams, ["silk", "silk"])
     assert dec.stats["windows_by_format"]["opus_silk"] == len(pkts)
-    keys = {_route(tbatch.BatchDecoder, d)[1] for d in dec.decoders}
+    keys = {opus_groups.classify(d)[1] for d in dec.decoders}
     assert keys == {(1, 9, False, 2)}
 
 
@@ -160,7 +162,7 @@ def test_corpus_silk_lanes():
     streams = [_speech("silk", k % 4, 20 + 7 * k, (0, 312)[k % 2])
                for k in range(6)] + [_speech("silk", 4, 25)]
     dec, _ = _check(streams, ["silk"] * 7)
-    keys = {_route(tbatch.BatchDecoder, d)[1] for d in dec.decoders}
+    keys = {opus_groups.classify(d)[1] for d in dec.decoders}
     assert keys == {(1, 9, False, 1), (2, 9, True, 1)}
 
 
@@ -176,7 +178,7 @@ def test_corpus_hybrid_lanes(stereo):
                    for k in range(5)]
     dec, _ = _check(streams, ["hybrid"] * len(streams))
     st = dec.stats
-    steps = max(len(d._silk_lockstep) for d in dec.decoders)
+    steps = max(len(d._opus_packets) for d in dec.decoders)
     assert st["windows_by_format"]["opus_silk"] == steps
     assert st["windows_by_format"]["opus"] >= steps
     assert st["windows"] == sum(st["windows_by_format"].values())
@@ -215,7 +217,7 @@ def test_hybrid_eos_drain_includes_celt_fifo():
     assert {topus.parse_packet(p)["config"] for p, _ in pkts} <= \
         set(range(12, 16))
     data = opus_ref.build_ogg_opus(pkts, channels=1, preskip=0)
-    route = _route(tbatch.BatchDecoder, BatchDecoder(
+    route = opus_groups.classify(BatchDecoder(
         [data], device="cpu").decoders[0])
     _, (got,) = _check([data], [route[0]])
     assert route[0] in ("hybrid", "mixed")
@@ -248,7 +250,8 @@ def test_mixed_group_device_threshold(lanes, threshold, monkeypatch):
     K12a (their twins here): 15 and 16 lanes at the default of 16, and 15
     lanes with the constant set to 15.  JAX's switch, its env variable, is
     set to the same value."""
-    monkeypatch.setattr(tbatch, "OPUS_MIXED_DEVICE_MIN_LANES", threshold)
+    monkeypatch.setattr(opus_groups, "OPUS_MIXED_DEVICE_MIN_LANES",
+                        threshold)
     monkeypatch.setenv("AF_TPU_OPUS_MIXED_DEVICE_MIN_LANES", str(threshold))
     dec, _ = _check(_tour_lanes(lanes), ["mixed"] * lanes)
     st = dec.stats
@@ -273,17 +276,85 @@ def test_mixed_and_every_group_in_one_batch():
                      "hybrid"])
 
 
+def _lace16(n):
+    """A self-delimited frame length (RFC 6716 appendix B)."""
+    if n < 252:
+        return bytes([n])
+    return bytes([252 + (n & 3), (n - 252 - (n & 3)) >> 2])
+
+
+def _multistream(packets, samples):
+    """A mapping-family-1 stream of two mono streams: each packet is the
+    self-delimited form of a one-frame packet for the first stream, then
+    that packet for the second (RFC 7845 §5.1.1, RFC 6716 appendix B)."""
+    import struct
+
+    from audio_formats_tpu.io import ogg
+
+    head = (b"OpusHead" + bytes([1, 2]) + struct.pack("<HIh", 0, 48000, 0)
+            + bytes([1, 2, 0, 0, 1]))
+    tags = b"OpusTags" + struct.pack("<I", 0) + struct.pack("<I", 0)
+    pages = [ogg.build_page([head], 7, 0, 0, bos=True),
+             ogg.build_page([tags], 7, 1, 0)]
+    for k, p in enumerate(packets):
+        pkt = p[:1] + _lace16(len(p) - 1) + p[1:] + p
+        pages.append(ogg.build_page([pkt], 7, 2 + k, (k + 1) * samples,
+                                    eos=k == len(packets) - 1))
+    return b"".join(pages)
+
+
+def test_classify_walks_and_parses_each_lane_once(monkeypatch):
+    """A batch of a CELT, a SILK, a hybrid, a mode-tour and a multistream
+    lane: one Ogg walk for each mapping-0 lane and one parse for each of
+    its packets, wherever the cascade puts it (the CELT test used to walk
+    and parse each lane, and each later test again, up to four times),
+    none for the multistream lane; each lane in JAX's group and within TOL
+    of JAX's batch and of the facade, the PCM that of a batch decoded
+    without the counters."""
+    from test_opus_celt import PACKETS
+
+    celt = [bytes.fromhex(h) for h in PACKETS]
+    streams = [opus_ref.build_ogg_opus([(p, 480) for p in celt],
+                                       channels=1, preskip=130),
+               _silk_packets(), _speech("hybrid", 2, 20),
+               _speech("tour", 0, 40), _multistream(celt, 480)]
+    routes = ["celt", "silk", "hybrid", "mixed", None]
+    walks, parses = [], []
+    collect, parse = topus.OpusDecoder._collect_packets, \
+        opus_groups.parse_packet
+
+    def counted_collect(d):
+        walks.append(d)
+        return collect(d)
+
+    def counted_parse(data):
+        parses.append(data)
+        return parse(data)
+
+    dec = BatchDecoder(streams, device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(topus.OpusDecoder, "_collect_packets", counted_collect)
+        m.setattr(opus_groups, "parse_packet", counted_parse)
+        got = dec.decode_all()
+    lanes = dec.decoders
+    assert sorted(next(i for i, d in enumerate(lanes) if d is w)
+                  for w in walks) == [0, 1, 2, 3]
+    assert len(parses) == sum(len(collect(d)) for d in lanes[:4])
+    assert [r and r[0] for r in map(opus_groups.classify, lanes)] == routes
+    _, want = _check(streams, routes)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_reference_resampler_lane_is_mixed():
     """A lane of the reference's speex resampler (JAX's
     AF_TPU_REFERENCE_RESAMPLER, the port's decoder argument) is neither
     SILK- nor hybrid-eligible; the mixed group takes it, as JAX's."""
     for data in (_silk_packets(), _speech("hybrid", 0, 10)):
         d = topus.OpusDecoder(MemorySource(data), reference_resampler=True)
-        assert not tbatch.BatchDecoder._silk_eligible(d)
-        assert not tbatch.BatchDecoder._hybrid_eligible(d)
-        assert tbatch.BatchDecoder._opus_mixed_eligible(d)
+        assert opus_groups.classify(d)[0] == "mixed"
         plain = topus.OpusDecoder(MemorySource(data))
-        assert _route(tbatch.BatchDecoder, plain)[0] in ("silk", "hybrid")
+        assert opus_groups.classify(plain)[0] in ("silk", "hybrid")
 
 
 def test_redundancy_tail_lane_is_demoted():

@@ -20,7 +20,7 @@ from audio_formats_tpu.parallel.encode import \
     encode_qoa_batch as jax_encode_qoa_batch
 
 from audio_formats_torch import BatchDecoder, encode_qoa_batch
-from audio_formats_torch.parallel import batch as tbatch
+from audio_formats_torch.parallel.groups import qoa as qoa_groups
 from audio_formats_torch.parallel import encode as tencode
 
 from golden import flac_ref, qoa_ref
@@ -92,7 +92,7 @@ def test_qoa_batch_decode_splits_windows(monkeypatch):
     """More lanes than a window holds: several windows, the same PCM."""
     streams = list(_qoa_streams())
     want = JaxBatchDecoder(streams).decode_all()
-    monkeypatch.setattr(tbatch, "QOA_WINDOW_LANES", 3)
+    monkeypatch.setattr(qoa_groups, "QOA_WINDOW_LANES", 3)
     dec = BatchDecoder(streams, device="cpu")
     _assert_same(dec.decode_all(), want)
     # mono: 1 + 3 frame lanes; stereo: (2 + 3) frames x 2 channels

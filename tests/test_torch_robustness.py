@@ -56,6 +56,7 @@ from audio_formats_torch.host import native as tnative
 from audio_formats_torch.models.flac import FlacDecoder
 from audio_formats_torch.ops import flac_rice, lpc
 from audio_formats_torch.ops._kernels import KernelError
+from audio_formats_torch.parallel.groups import opus as opus_groups
 
 from golden import flac_ref, opus_ref
 
@@ -451,10 +452,14 @@ def test_mp3_sweep_overruns_are_the_known_ones(monkeypatch):
 
 
 def _opus_group(cls, d):
-    """The Opus group that the eligibility cascade of `cls` (the port's
-    BatchDecoder or JAX's) picks for decoder d, as both dispatch."""
+    """The Opus group that the eligibility cascade of `cls` (JAX's
+    BatchDecoder, or the port's ``classify`` for the port's
+    BatchDecoder) picks for decoder d, as both dispatch."""
     if not hasattr(d, "_collect_packets"):
         return None
+    if cls is BatchDecoder:
+        route = opus_groups.classify(d)
+        return route and route[0]
     for group, fn in (("celt", cls._opus_eligible),
                       ("silk", cls._silk_eligible),
                       ("hybrid", cls._hybrid_eligible),
