@@ -67,6 +67,9 @@
 //   * every thread reads its lanes' side info itself (one broadcast load),
 //     so the loads of q, the band and reorder tables and the gains start
 //     at once, with no barrier before them.
+//
+// K15, the polyphase synthesis of K14's operand (af_mp3_synth), follows
+// K14 in this file, with its own note.
 
 #include <cstdint>
 
@@ -308,6 +311,207 @@ int launch(const void* q, const void* meta, const void* scfq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------------------------------- K15
+// MP3 Layer III polyphase synthesis on Hopper (sm_90a): af_mp3_synth.
+//
+// It replaces no TPU kernel: the JAX package leaves this step to XLA as one
+// dense Toeplitz matmul, [rows, 1088] x [1088, 576]
+// (audio_formats_tpu/ops/mp3_dsp.py:286 SYNTH_TOEPLITZ, :383), and the
+// port ran it as a cuBLAS fp32 GEMM: 626,688 multiply-adds a row, half of
+// them on structural zeros.  This kernel computes the same linear map the
+// way minimp3 does (tools/gen_mp3_synth.py extracted SYNTH_FIR from that
+// simulation): the 32-point DCT-II of each subband slot (mp3d_DCT_II,
+// g_sec), then the 16-tap window over the slots' DCT outputs (mp3d_synth,
+// g_win / 32768), 27,624 operations a row.  Its plain version is
+// ops/mp3_dsp.py synth_twin.
+//
+// Contract, as ops/mp3_dsp.py:synth_cuda:
+//   in   [L, 1088] f32  K14's operand: row l holds slots [18 g, 18 g + 34)
+//                       of its lane's (history ‖ slots), 32 bands a slot
+//   blob the tables of ops/mp3_dsp.py synth_blob (SYN_* word offsets)
+//   -> out [L, 576] f32 slot t of row l: sum over ages r = 0..15 of
+//                       coef[j, r] V[t + 16 - r][m[j, r & 1]], V[u] the
+//                       DCT of the row's slot u (slot 0 is never read:
+//                       SYNTH_FIR's tap 16 is zero)
+// Each step rounds alone (__fadd_rn, __fmul_rn: no contraction), in the
+// order of dct2_32 and, per output, the pairs of ages (k, 15 - k) summed
+// for k = 0..7 as mp3d_synth's steps do; tests/test_torch_mp3_dsp.py
+// _k15_emulate does the same in numpy.
+//
+// What bounds it: a row reads 4,224 bytes (33 slots) and writes 2,304, so
+// at the benchmark's sized window (73,728 rows) 481 MB, 0.144 ms at
+// 3.35 TB/s; its 2.04 G float32 operations (none fused: 296 a slot's DCT,
+// 31 a sample) take 0.061 ms at 33.5 T/s.  So bytes, and the shared-memory
+// traffic of the window.  The design:
+//   * a block takes kSynthRows rows: all its threads stage the rows'
+//     slots 1..33 with 16-byte loads into shared memory, a slot padded to
+//     33 floats, so a thread reading its own slot's 32 bands and a warp
+//     reading one band of 32 slots both hit 32 banks;
+//   * one thread a slot runs the DCT in registers and writes the slot's
+//     DCT back in place;
+//   * one thread an (output sample j, parity of the output slot): its 16
+//     taps and two DCT indices in registers, it reads the 32 DCT values
+//     its 9 output slots need once (an output slot t and t + 2 share 14
+//     of their 16 taps' inputs: the DCT index depends on the age's parity
+//     only) and writes 9 samples; a warp writes an output slot's 32
+//     samples, 128 contiguous bytes.
+constexpr int kSynthRows = 4;
+constexpr int kSynthThreads = 64 * kSynthRows;
+constexpr int kSlots = 33;       // slots 1..33 of a row
+constexpr int kSlotPad = 33;     // a slot's 32 bands in shared memory
+constexpr int kRowFloat4 = kSlots * 8;
+
+// word offsets in the blob (ops/mp3_dsp.py SYN_*)
+constexpr int kSynCoef = 0;      // [32][16] f32: tap of age r of sample j
+constexpr int kSynM = 512;       // [32][2] i32: DCT index at even, odd ages
+constexpr int kSynSec = 576;     // [24] f32: g_sec
+constexpr int kSynK = 600;       // [9] f32: the 8-point stages' scales
+
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
+// minimp3's 32-point DCT-II (tools/gen_mp3_synth.py dct2_32), in place
+__device__ __forceinline__ void dct32(float (&y)[32], const float* sec,
+                                      const float* kc) {
+  float t[4][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float x0 = y[i], x1 = y[15 - i], x2 = y[16 + i], x3 = y[31 - i];
+    const float t0 = add(x0, x3), t1 = add(x1, x2);
+    const float t2 = mul(sub(x1, x2), __ldg(sec + 3 * i));
+    const float t3 = mul(sub(x0, x3), __ldg(sec + 3 * i + 1));
+    const float s2 = __ldg(sec + 3 * i + 2);
+    t[0][i] = add(t0, t1);
+    t[1][i] = mul(sub(t0, t1), s2);
+    t[2][i] = add(t3, t2);
+    t[3][i] = mul(sub(t3, t2), s2);
+  }
+  const float k0 = __ldg(kc), k1 = __ldg(kc + 1), k2 = __ldg(kc + 2);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float(&x)[8] = t[q];
+    float xt = sub(x[0], x[7]);
+    x[0] = add(x[0], x[7]);
+    float x7 = sub(x[1], x[6]);
+    x[1] = add(x[1], x[6]);
+    float x6 = sub(x[2], x[5]);
+    x[2] = add(x[2], x[5]);
+    float x5 = sub(x[3], x[4]);
+    x[3] = add(x[3], x[4]);
+    const float x4 = sub(x[0], x[3]);
+    x[0] = add(x[0], x[3]);
+    float x3 = sub(x[1], x[2]);
+    x[1] = add(x[1], x[2]);
+    const float a0 = x[0], a1 = x[1];
+    x[0] = add(a0, a1);
+    x[4] = mul(sub(a0, a1), k0);
+    x5 = add(x5, x6);
+    x6 = mul(add(x6, x7), k0);
+    x7 = add(x7, xt);
+    x3 = mul(add(x3, x4), k0);
+    x5 = sub(x5, mul(x7, k1));
+    x7 = add(x7, mul(x5, k2));
+    x5 = sub(x5, mul(x7, k1));
+    const float x0 = sub(xt, x6);
+    xt = add(xt, x6);
+    x[1] = mul(add(xt, x7), __ldg(kc + 3));
+    x[2] = mul(add(x4, x3), __ldg(kc + 4));
+    x[3] = mul(sub(x0, x5), __ldg(kc + 5));
+    x[5] = mul(add(x0, x5), __ldg(kc + 6));
+    x[6] = mul(sub(x4, x3), __ldg(kc + 7));
+    x[7] = mul(sub(xt, x7), __ldg(kc + 8));
+  }
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    y[4 * i] = t[0][i];
+    y[4 * i + 1] = add(add(t[2][i], t[3][i]), t[3][i + 1]);
+    y[4 * i + 2] = add(t[1][i], t[1][i + 1]);
+    y[4 * i + 3] = add(add(t[2][i + 1], t[3][i]), t[3][i + 1]);
+  }
+  y[28] = t[0][7];
+  y[29] = add(t[2][7], t[3][7]);
+  y[30] = t[1][7];
+  y[31] = t[3][7];
+}
+
+__global__ void __launch_bounds__(kSynthThreads) mp3_synth_kernel(
+    const float* __restrict__ in, const float* __restrict__ blob, int L,
+    float* __restrict__ out) {
+  __shared__ float v[kSynthRows * kSlots * kSlotPad];
+  const int tid = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kSynthRows;
+  const int rows =
+      L - row0 < kSynthRows ? static_cast<int>(L - row0) : kSynthRows;
+
+  // 1. stage slots 1..33 of the block's rows
+  for (int f = tid; f < rows * kRowFloat4; f += kSynthThreads) {
+    const int r = f / kRowFloat4, o = f - r * kRowFloat4;
+    const float4 x = __ldg(reinterpret_cast<const float4*>(
+        in + (row0 + r) * kRowLen + 32) + o);
+    float* d = v + r * kSlots * kSlotPad + (o >> 3) * kSlotPad + (o & 7) * 4;
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
+  }
+  __syncthreads();
+
+  // 2. the DCT of each slot, in place
+  if (tid < rows * kSlots) {
+    float* s = v + tid * kSlotPad;  // row tid / 33, slot tid % 33
+    float y[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) y[k] = s[k];
+    dct32(y, reinterpret_cast<const float*>(blob) + kSynSec,
+          reinterpret_cast<const float*>(blob) + kSynK);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) s[k] = y[k];
+  }
+  __syncthreads();
+
+  // 3. the window: sample j of the output slots p, p + 2, .., p + 16
+  const int q = tid >> 6, p = (tid >> 5) & 1, j = tid & 31;
+  if (q >= rows) return;
+  float c[16];
+  const float4* c4 = reinterpret_cast<const float4*>(blob + kSynCoef) + 4 * j;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 w = __ldg(c4 + i);
+    c[4 * i] = w.x;
+    c[4 * i + 1] = w.y;
+    c[4 * i + 2] = w.z;
+    c[4 * i + 3] = w.w;
+  }
+  const int* mt = reinterpret_cast<const int*>(blob + kSynM) + 2 * j;
+  const int m_even = __ldg(mt), m_odd = __ldg(mt + 1);
+  // x[k]: DCT of local slot p + k (row slot p + k + 1), at the index its
+  // age takes: the age of output slot p + 2 i is 2 i + 15 - k
+  const float* vr = v + q * kSlots * kSlotPad + p * kSlotPad;
+  float x[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    x[k] = vr[k * kSlotPad + ((k & 1) ? m_even : m_odd)];
+  float* o = out + (row0 + q) * 576 + p * 32 + j;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float pair = add(mul(c[k], x[2 * i + 15 - k]),
+                             mul(c[15 - k], x[2 * i + k]));
+      acc = k == 0 ? pair : add(acc, pair);
+    }
+    o[i * 64] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" int af_mp3_window_dsp(const void* q, const void* meta,
@@ -333,4 +537,15 @@ extern "C" int af_mp3_window_dsp(const void* q, const void* meta,
   return short_blocks ? AF_DSP_LAUNCH(2, true, false)
                       : AF_DSP_LAUNCH(2, false, false);
 #undef AF_DSP_LAUNCH
+}
+
+extern "C" int af_mp3_synth(const void* in, const void* blob, int L,
+                            void* out, void* stream) {
+  if (L <= 0) return 0;
+  const int blocks = L / kSynthRows + (L % kSynthRows != 0);
+  mp3_synth_kernel<<<blocks, kSynthThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<const float*>(blob), L,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -63,7 +63,8 @@ _ENTRIES = {
                                         ctypes.c_float, _V]),),
     "silk_upsample": (("af_silk_upsample", [_V, _V, _V, _I, _I, _I, _I,
                                             _V]),),
-    "mp3_dsp": (("af_mp3_window_dsp", [_V] * 8 + [_I] * 4 + [_V] * 4),),
+    "mp3_dsp": (("af_mp3_window_dsp", [_V] * 8 + [_I] * 4 + [_V] * 4),
+                ("af_mp3_synth", [_V, _V, _I, _V, _V])),
 }
 
 

@@ -20,7 +20,10 @@ synthesis product's operand as one hand-written kernel, K14
 (``csrc/mp3_dsp.cu``, ``window_dsp_cuda``), over the tables of
 ``dsp_blob``; ``DSP_LAUNCHES`` counts its launches.  ``mp3_window_dsp``
 (after ops/mp3_huff.py ``spectrum_stage``) is its plain twin, which the CPU
-takes.
+takes.  The synthesis of K14's operand is a second kernel, K15
+(``synth_cuda``: minimp3's DCT-II of each slot, then its window, over the
+tables of ``synth_blob``; ``SYNTH_LAUNCHES``), whose plain version
+``synth_twin`` is the product with ``SYNTH_TOEPLITZ``.
 
 Carried per-stream state: IMDCT overlap [C, 32, 18] and the last 16
 subband slot vectors [C, 16, 32] (minimp3's mdct_overlap and qmf_state,
@@ -429,6 +432,123 @@ def window_dsp_cuda(q, meta16, scfq, n_act, overlap, shist, abcd=None, *,
     with _launch_lock:
         DSP_LAUNCHES += 1
     return operand, new_overlap, new_shist
+
+
+# ------------------------------------ K15, the polyphase synthesis kernel
+#: launches of the CUDA synthesis kernel (af_mp3_synth) in this process
+SYNTH_LAUNCHES = 0
+
+#: minimp3's g_sec, the secants of its 32-point DCT-II's first stage
+#: (mp3d_DCT_II; tools/spec_constants.py holds the same values)
+SYNTH_SEC = np.array([
+    10.19000816, 0.50060302, 0.50241929, 3.40760851, 0.50547093,
+    0.52249861, 2.05778098, 0.51544732, 0.56694406, 1.4841646, 0.53104258,
+    0.6468218, 1.16943991, 0.55310392, 0.7881546, 0.97256821, 0.58293498,
+    1.06067765, 0.83934963, 0.62250412, 1.72244716, 0.74453628, 0.67480832,
+    5.10114861], np.float32)
+#: the scales of mp3d_DCT_II's four 8-point stages, in the order
+#: tools/gen_mp3_synth.py dct2_32 uses them
+SYNTH_DCT_K = np.array([0.70710677, 0.198912367, 0.382683432, 0.50979561,
+                        0.54119611, 0.60134488, 0.89997619, 1.30656302,
+                        2.56291556], np.float32)
+#: mp3d_synth_pair's taps of a slot's outputs 0 (ages 1..8) and 16 (ages
+#: 1, 3, .., 15): minimp3 writes them as literals, not in g_win
+_PAIR0 = (29, 213, 459, 2037, 5153, 6574, 37489, 75038)
+_PAIR16 = (104, 1567, 9727, 64019, -9975, -45, 146, -5)
+
+
+def _synth_taps():
+    """K15's window, from minimp3's mp3d_synth: PCM sample j of output
+    slot t is sum over ages r = 0..15 of coef[j, r] V_{t-r}[m[j, r & 1]],
+    V_s the 32-point DCT-II of subband slot s (minimp3's order,
+    SYNTH_SEC and SYNTH_DCT_K).  g_win's iteration i (rows of 16, i = 14
+    down to 0) gives outputs 15 - i (its a sums) and 17 + i (its b sums),
+    its step k the ages k and 15 - k; mp3d_synth_pair gives outputs 0 and
+    16.  Returns (coef [32, 16] float32, g_win / 32768 exactly; m [32, 2]
+    int32).  Output 16 has no even-age taps (coefficient 0)."""
+    from ..utils.tables.mp3_tables import SYNTH_WIN
+
+    win = np.asarray(SYNTH_WIN, np.float64).reshape(15, 16)
+    coef = np.zeros((32, 16))
+    m = np.zeros((32, 2), np.int32)
+    for i in range(15):
+        w = win[14 - i]
+        ja, jb = 15 - i, 17 + i
+        for k in range(8):
+            w0, w1 = w[2 * k], w[2 * k + 1]
+            s = -1.0 if k % 2 else 1.0  # minimp3's S2 steps flip a's sign
+            coef[ja, k], coef[ja, 15 - k] = s * w0, -s * w1
+            coef[jb, k], coef[jb, 15 - k] = w1, w0
+        m[ja] = 16 + ja, 16 - ja
+        m[jb] = 48 - jb, jb - 16
+    for r in range(1, 9):
+        coef[0, r] = _PAIR0[r - 1]
+        if r < 8:
+            coef[0, 16 - r] = (-1) ** r * _PAIR0[r - 1]
+    m[0] = 16, 16
+    coef[16, 1::2] = _PAIR16
+    return (coef / 32768.0).astype(np.float32), m
+
+
+#: float32 word offsets in synth_blob() (csrc/mp3_dsp.cu reads the same)
+SYN_COEF = 0                 # [32, 16] f32: _synth_taps' coef
+SYN_M = SYN_COEF + 32 * 16   # [32, 2] i32: _synth_taps' m
+SYN_SEC = SYN_M + 32 * 2     # [24] f32: SYNTH_SEC
+SYN_K = SYN_SEC + 24         # [9] f32: SYNTH_DCT_K
+SYN_WORDS = SYN_K + 9
+
+
+@functools.lru_cache(maxsize=None)
+def synth_blob() -> np.ndarray:
+    """The float32 blob of K15's tables (SYN_* offsets), built once."""
+    coef, m = _synth_taps()
+    blob = np.concatenate([coef.reshape(-1), m.reshape(-1).view(np.float32),
+                           SYNTH_SEC, SYNTH_DCT_K])
+    assert blob.shape == (SYN_WORDS,)
+    return blob
+
+
+def synth_twin(operand: torch.Tensor) -> torch.Tensor:
+    """K15's plain version: ``operand @ SYNTH_TOEPLITZ``, on the operand's
+    device.  operand [L, 1088] float32 as window_dsp_cuda writes it;
+    returns pcm [L, 576]."""
+    return torch.matmul(operand, device_const(SYNTH_TOEPLITZ,
+                                              operand.device))
+
+
+def synth_cuda(operand: torch.Tensor) -> torch.Tensor:
+    """K15 (csrc/mp3_dsp.cu, af_mp3_synth) on the operand's card, on its
+    current stream: the polyphase synthesis of K14's operand, minimp3's
+    DCT-II of each slot then its window, in float32.
+
+    operand [L, 1088] float32, contiguous and 16-byte aligned on a CUDA
+    device (KernelArgError otherwise; L 0 launches nothing): row l holds 34
+    subband slots of 32 bands, [18 g, 18 g + 34) of its lane's (history ‖
+    slots).  Returns pcm [L, 576] float32, laid out as synth_twin's: slot
+    t of row l from the row's slots t + 1 .. t + 16 (SYNTH_FIR's tap 16 is
+    zero, so slot t itself adds nothing)."""
+    dev = operand.device
+    L = operand.shape[0] if operand.dim() == 2 else -1
+    _kernels.check_args("synth", dev, [
+        ("operand", operand, (torch.float32,), (L, 34 * 32))])
+    if operand.data_ptr() % 16:
+        raise _kernels.KernelArgError(
+            "synth: operand not 16-byte aligned (the kernel reads rows 16 "
+            "bytes at a time)")
+    pcm = torch.empty((L, 576), dtype=torch.float32, device=dev)
+    if L == 0:
+        return pcm
+    global SYNTH_LAUNCHES
+    lib = _kernels.load("mp3_dsp")
+    blob = device_const(synth_blob(), dev)
+    with torch.cuda.device(dev):
+        rc = lib.af_mp3_synth(operand.data_ptr(), blob.data_ptr(), L,
+                              pcm.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_launch("synth", rc)
+    with _launch_lock:
+        SYNTH_LAUNCHES += 1
+    return pcm
 
 
 def mp3_synth_slots(S, shist, nch: int):

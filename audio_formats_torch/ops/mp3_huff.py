@@ -21,7 +21,8 @@ independent bitstream, so a window's lanes decode in lockstep:
   mix, window types: plain torch ops, the front half of K14's twin
   (``packed_device_stage`` is the Huffman FSM and this stage).
 * ``packed_window`` — one window from the pooled wire to PCM: on the card
-  K3, K14 (ops/mp3_dsp.py ``window_dsp_cuda``) and the synthesis product;
+  K3, K14 (ops/mp3_dsp.py ``window_dsp_cuda``) and the synthesis kernel
+  K15 (ops/mp3_dsp.py ``synth_cuda``);
   on the CPU the twins, through ops/mp3_dsp.py's window DSP.
 
 Both the twin and the kernel read the code tables from one int32 blob
@@ -757,8 +758,9 @@ def packed_window(pool, meta16, scfq, ist, overlap, shist, n_act, *,
     """One MP3 window from the pooled wire to PCM.  On the card: the
     Huffman kernel K3, the window kernel K14 (mp3_dsp.window_dsp_cuda; in
     intensity windows after the mix's _intensity_abcd) and the synthesis
-    product.  On the CPU the plain chain: packed_device_stage, then the
-    scan-free window DSP.  ``ist`` is None outside intensity windows.
+    kernel K15 (mp3_dsp.synth_cuda).  On the CPU the plain chain:
+    packed_device_stage, then the scan-free window DSP.  ``ist`` is None
+    outside intensity windows.
     Returns (pcm [B, G, nch, 576], overlap', shist')."""
     dev = meta16.device
     if dev.type != "cuda":
@@ -776,5 +778,5 @@ def packed_window(pool, meta16, scfq, ist, overlap, shist, n_act, *,
     operand, new_overlap, new_shist = mp3_dsp.window_dsp_cuda(
         q, meta16, scfq, n_act, overlap, shist, abcd, B=B, G=G, nch=nch,
         short=short)
-    pcm = torch.matmul(operand, device_const(mp3_dsp.SYNTH_TOEPLITZ, dev))
+    pcm = mp3_dsp.synth_cuda(operand)
     return pcm.view(B, G, nch, 576), new_overlap, new_shist

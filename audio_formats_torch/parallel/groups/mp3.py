@@ -38,10 +38,10 @@ def mp3_window_frames(lanes_per_frame: int, frames_left: int,
     """Frames a Layer III device window takes, for a group whose frames
     each hold `lanes_per_frame` granule-channel lanes (B x ngr x nch) and
     whose longest lane has `frames_left` frames.  A window is one K3
-    launch and one synthesis product, whose rows are its lanes: the
+    launch and one synthesis launch (K15), whose rows are its lanes: the
     window aims at one wave of K3 (`wave_lanes`, mp3_wave_lanes), in
     steps of MP3_WINDOW_FRAMES, then splits the frames evenly over the
-    windows that takes, since K14 and the product run every row of a
+    windows that takes, since K14 and K15 run every row of a
     window, live or not.  Never below MP3_WINDOW_FRAMES, which it stays
     where a wave holds no more (the CPU, wave_lanes 0; 1,024 stereo
     MPEG-1 lanes)."""
@@ -282,6 +282,7 @@ def decode_layer3(ctx: GroupContext, decs: List[Mp3Decoder], key):
                         window=k, lanes=B * NL) as sp:
             n0 = mp3_huff.HUFF_LAUNCHES
             d0 = mp3_dsp.DSP_LAUNCHES
+            s0 = mp3_dsp.SYNTH_LAUNCHES
             pcm, dev_state["overlap"], dev_state["shist"] = \
                 mp3_huff.packed_window(
                     pool_d, meta_d, scf_d, ist_d, dev_state["overlap"],
@@ -289,7 +290,8 @@ def decode_layer3(ctx: GroupContext, decs: List[Mp3Decoder], key):
                     W=Wrow, mpeg1=ngr == 2, short=short)
             out = _prefetch(pcm, ctx.to_device)
             sp.set(launches=mp3_huff.HUFF_LAUNCHES - n0,
-                   dsp_launches=mp3_dsp.DSP_LAUNCHES - d0)
+                   dsp_launches=mp3_dsp.DSP_LAUNCHES - d0,
+                   synth_launches=mp3_dsp.SYNTH_LAUNCHES - s0)
         return out
 
     pending = []

@@ -196,16 +196,17 @@ before the result.
     python3 chip_smoke.py --dsp                     # the card
     python3 chip_smoke.py --windows                 # the card
 
-``--dsp`` (on the card) builds K3 and K14 and runs their phases at the
-fma_mp3.b32 cell's window (the size ``mp3_window_frames`` gives 32 stereo
-clips on this card: K3 bit-equal to its twin, K14 and the synthesis
-product within K14_TOL of theirs, timed) and K14's at 24-frame windows of
-32 and 128 lanes, on 128 lanes cut from 8 masters of 18 s.
+``--dsp`` (on the card) builds K3 and K14 (with K15) and runs their
+phases at the fma_mp3.b32 cell's window (the size ``mp3_window_frames``
+gives 32 stereo clips on this card: K3 bit-equal to its twin, K14 and K15
+within K14_TOL of theirs and K15 within K15_TOL of the Toeplitz product,
+timed beside the route with the product) and K14's and K15's at 24-frame
+windows of 32 and 128 lanes, on 128 lanes cut from 8 masters of 18 s.
 
 ``--windows`` (on the card) decodes calls of the fma_mp3.b32 cell's shape
 (32 clips of 30 s from portbench's generator) with Layer III windows of 24
 frames and of the size ``mp3_window_frames`` gives, in turns, and prints
-the device time a call of K3, its plan, K14, the synthesis product and the
+the device time a call of K3, its plan, K14, K15, any matmul and the
 uploads, K3's launches and share of its bound, and the memory peak.
 
 ``--grid`` (on the card) builds K12a's fused route with one block a tile
@@ -1281,6 +1282,7 @@ DECODE_COUNTERS = (
     ("qoa_decode", "lms", "DECODE_LAUNCHES"),
     ("mp3_huff", "mp3_huff", "HUFF_LAUNCHES"),
     ("mp3_dsp", "mp3_dsp", "DSP_LAUNCHES"),
+    ("mp3_synth", "mp3_dsp", "SYNTH_LAUNCHES"),
     ("flac_rice", "flac_rice", "RICE_LAUNCHES"),
     ("pcm", "pcm", "DECODE_LAUNCHES"),
     ("vorbis_win", "vorbis_win", "WIN_LAUNCHES"),
@@ -1321,6 +1323,7 @@ def check_window_launches(launches, st, flac_wire):
                      "qoa_decode": wbf.get("qoa", 0),
                      "mp3_huff": wbf.get("mp3", 0),
                      "mp3_dsp": wbf.get("mp3", 0),
+                     "mp3_synth": wbf.get("mp3", 0),
                      "flac_rice": wbf.get("flac", 0)
                      if flac_wire == "rice" else 0,
                      "pcm": wbf.get("wav", 0),
@@ -2176,13 +2179,18 @@ def phase_mp3_kernel_cell(card, streams):
             "plan_ms": plan_ms, **b, "share": share}
 
 
-#: K14 at the 24-frame window of 32 clips and of 4x their lanes, and at
-#: the benchmark cell's sized window (fma_mp3.b32: 32 clips,
+#: K14 and K15 at the 24-frame window of 32 clips and of 4x their lanes,
+#: and at the benchmark cell's sized window (fma_mp3.b32: 32 clips,
 #: mp3_window_frames); the share of granules coded mid/side there (the
 #: masters are LR)
 MP3_DSP_LANES = (32, 128)
 MP3_DSP_MS = 0.7
-K14_TOL = 1e-5        # of the peak: K14 and the product against the twin
+K14_TOL = 1e-5        # of the peak: K14 and K15 against the twin
+K15_TOL = 1e-5        # of the peak: K15 against the Toeplitz product
+#: float32 operations of K15 a granule-channel, none fused: the DCT of 33
+#: slots (296 adds, subtracts and multiplies each, as dct32 writes them)
+#: and 576 samples of 16 products and 15 sums
+SYNTH_F32_OPS = 33 * 296 + 576 * 31
 
 
 def mp3_dsp_work(B, G, nch):
@@ -2196,17 +2204,29 @@ def mp3_dsp_work(B, G, nch):
             L * 32 * 18 * 36)
 
 
+def mp3_synth_work(L):
+    """(bytes, float32 operations) of K15 on L rows: the 33 slots of a row
+    that the synthesis reads (its first slot is SYNTH_FIR's zero tap) read
+    once and the PCM written once."""
+    return L * (33 * 32 + 576) * 4, L * SYNTH_F32_OPS
+
+
 def phase_mp3_dsp_kernel(card, streams):
-    """K14, the MP3 window kernel, at the first 24-frame window of the MP3
-    slice's first 32 and first 128 lanes (G 48, stereo) and at the window
-    mp3_window_frames sizes for the fma_mp3.b32 cell's call (the first 32
-    lanes, G twice its frames; a lane shorter than the window ends inside
-    it, as n_act says), its granules flagged mid/side at the benchmark's
-    share: the route on the card (K14, then the synthesis product) against
-    the twin's chain (spectrum_stage, mp3_window_dsp) on the same K3
-    output, PCM and carried state; K14's device time (torch.profiler), its
-    wrapper, the route's and the twin's device time and kernels a call and
-    their walls, beside K14's bound."""
+    """K14, the MP3 window kernel, and K15, the synthesis kernel after it,
+    at the first 24-frame window of the MP3 slice's first 32 and first 128
+    lanes (G 48, stereo) and at the window mp3_window_frames sizes for the
+    fma_mp3.b32 cell's call (the first 32 lanes, G twice its frames; a
+    lane shorter than the window ends inside it, as n_act says), its
+    granules flagged mid/side at the benchmark's share: the port's route
+    on the card (K14, then K15) against the twin's chain (spectrum_stage,
+    mp3_window_dsp) on the same K3 output, PCM and carried state; K14's
+    device time (torch.profiler), its wrapper, the route's, the route
+    before K15's (K14, then the Toeplitz product) and the twin's device
+    time and kernels a call and their walls, beside K14's bound.  K15 on
+    K14's operand: within K15_TOL of its plain version (synth_twin), its
+    device time and wrapper beside its bound, the plain version's time and
+    the Toeplitz torch.matmul's (library_ms, the call K15 replaced).
+    Returns K14's results, K15's under "synth"."""
     import torch
     from audio_formats_torch.ops import mp3_dsp, mp3_huff
 
@@ -2215,7 +2235,7 @@ def phase_mp3_dsp_kernel(card, streams):
     nch = 2
     w24, sized = mp3_window_sizes()
     shapes = [(B, w24) for B in MP3_DSP_LANES] + [(MP3_DSP_LANES[0], sized)]
-    res = {}
+    res, synth = {}, {}
     for B, frames in shapes:
         G = 2 * frames
         pool, meta16, W, lpf, scfq, n_fr = mp3_window(streams[:B], frames)
@@ -2239,6 +2259,11 @@ def phase_mp3_dsp_kernel(card, streams):
 
         def route():
             operand, o2, s2 = k14()
+            return (mp3_dsp.synth_cuda(operand).view(B, G, nch, 576), o2,
+                    s2)
+
+        def product_route():
+            operand, o2, s2 = k14()
             return (torch.matmul(operand, toeplitz).view(B, G, nch, 576),
                     o2, s2)
 
@@ -2257,19 +2282,23 @@ def phase_mp3_dsp_kernel(card, streams):
         gaps = [float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(got, want)]
         if not max(gaps) <= K14_TOL:
-            raise AssertionError(f"K14 at B={B} G={G}: PCM, overlap, history "
-                                 f"{gaps} of the twin's peak")
+            raise AssertionError(f"K14, K15 at B={B} G={G}: PCM, overlap, "
+                                 f"history {gaps} of the twin's peak")
         for _ in range(3):
             route()
+            product_route()
             twin()
         torch.cuda.synchronize()
         dev_ms = device_ms(k14, "mp3_dsp_kernel", per_launch=True)
         route_dev = device_ms(route, "")
+        product_dev = device_ms(product_route, "")
         twin_dev = device_ms(twin, "")
         route_ops = len(kernel_names(route))
+        product_ops = len(kernel_names(product_route))
         twin_ops = len(kernel_names(twin))
         ms = time_cuda(k14, 20)
         route_ms = time_cuda(route, 20)
+        product_ms = time_cuda(product_route, 20)
         twin_ms = time_cuda(twin, 20)
         host_ms = time_host(k14)
         nbytes, macs = mp3_dsp_work(B, G, nch)
@@ -2281,22 +2310,72 @@ def phase_mp3_dsp_kernel(card, streams):
               f", short blocks {short}): PCM, overlap and history within "
               f"{max(gaps):.3g} of the twin's peak (PCM {gaps[0]:.3g}); "
               f"device time {dev_ms} ms, wrapper {ms:.4f} ms (its host "
-              f"enqueue {host_ms:.4f} ms); route (K14 and the synthesis "
-              f"product): device {route_dev} ms, {route_ops} kernels, wall "
-              f"{route_ms:.4f} ms; twin from q: device {twin_dev} ms, "
-              f"{twin_ops} kernels, wall {twin_ms:.4f} ms; bound_ms "
-              f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes} bytes, "
-              f"{macs} multiply-adds), share of device time {share} "
-              f"[{card}]")
+              f"enqueue {host_ms:.4f} ms); route (K14 and K15): device "
+              f"{route_dev} ms, {route_ops} kernels, wall {route_ms:.4f} "
+              f"ms; K14 and the Toeplitz product: device {product_dev} ms, "
+              f"{product_ops} kernels, wall {product_ms:.4f} ms; twin from "
+              f"q: device {twin_dev} ms, {twin_ops} kernels, wall "
+              f"{twin_ms:.4f} ms; bound_ms {b['bound_ms']:.4f} "
+              f"({b['bound_by']}: {nbytes} bytes, {macs} multiply-adds), "
+              f"share of device time {share} [{card}]")
         key = f"b{B}" if frames == w24 else f"b{B}_w{frames}"
         res[key] = {"max_gap_of_peak": max(gaps), "device_ms": dev_ms,
                     "ms": ms, "host_ms": host_ms,
                     "route_device_ms": route_dev,
                     "route_kernels": route_ops, "route_ms": route_ms,
+                    "product_route_device_ms": product_dev,
+                    "product_route_kernels": product_ops,
+                    "product_route_ms": product_ms,
                     "plain_device_ms": twin_dev, "plain_kernels": twin_ops,
                     "plain_ms": twin_ms, **b, "share": share}
+
+        # K15 alone on K14's operand
+        operand = k14()[0]
+
+        def k15():
+            return mp3_dsp.synth_cuda(operand)
+
+        def plain():
+            return mp3_dsp.synth_twin(operand)
+
+        def library():
+            return torch.matmul(operand, toeplitz)
+
+        want15 = plain()
+        gap15 = float((k15() - want15).abs().max() / want15.abs().max())
+        if not gap15 <= K15_TOL:
+            raise AssertionError(f"K15 at B={B} G={G}: {gap15:.3g} of the "
+                                 "plain version's peak")
+        del want15
+        s_dev = device_ms(k15, "mp3_synth_kernel", per_launch=True)
+        s_ms = time_cuda(k15, 20)
+        s_host = time_host(k15)
+        plain_ms = time_cuda(plain, 20)
+        library_ms = time_cuda(library, 20)
+        library_dev = device_ms(library, "")
+        nbytes, ops = mp3_synth_work(L)
+        sb = bound(nbytes, 0, ops)
+        s_share = sb["bound_ms"] / s_dev if s_dev else None
+        print(f"# kernel mp3_synth B={B} G={G} nch={nch} (L={L} rows of "
+              f"K14's operand): within {gap15:.3g} of the plain version's "
+              f"peak; device time {s_dev} ms, wrapper {s_ms:.4f} ms (its "
+              f"host enqueue {s_host:.4f} ms); plain version (synth_twin) "
+              f"{plain_ms:.4f} ms; library_ms (the Toeplitz torch.matmul) "
+              f"{library_ms:.4f} ms, device {library_dev} ms; bound_ms "
+              f"{sb['bound_ms']:.4f} ({sb['bound_by']}: {nbytes} bytes, "
+              f"{ops} float32 operations), share of device time {s_share} "
+              f"[{card}]")
+        synth[key] = {"max_gap_of_peak": gap15, "device_ms": s_dev,
+                      "ms": s_ms, "host_ms": s_host, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "library_device_ms": library_dev, **sb,
+                      "share": s_share}
+        del operand
     return {"max_abs_err": max(r["max_gap_of_peak"] for r in res.values()),
-            **res}
+            **res,
+            "synth": {"max_abs_err": max(r["max_gap_of_peak"]
+                                         for r in synth.values()),
+                      **synth}}
 
 
 def dsp_probe(workers=8):
@@ -2337,6 +2416,7 @@ WINDOW_OPS = (
     ("k3", ("mp3_huff_kernel",)),
     ("plan", ("plan_count_kernel", "plan_base_kernel", "plan_place_kernel")),
     ("k14", ("mp3_dsp_kernel",)),
+    ("k15", ("mp3_synth_kernel",)),
     ("product", ("gemm", "splitK", "splitk")),
     ("upload", ("Memcpy HtoD",)),
 )
@@ -2351,13 +2431,13 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
     parallel/groups/mp3.py's mp3_window_frames, in turns (forward, then
     backward), each turn one call untraced then `calls` calls under a
     CUDA-only torch.profiler trace: the device time a call of each
-    operation (K3, its plan, K14, the synthesis product, the uploads, the
+    operation (K3, its plan, K14, K15, any GEMM, the uploads, the
     rest) and the union of the card's busy intervals, K3's launches and
-    its share of the kernel.k3_roofline bound, windows and frames a
-    window, and the memory peak; the sized windows' PCM within K14_TOL of
-    the peak of the 24-frame call on the same clips (the product's
-    sums run in another order where cuBLAS picks another kernel for the
-    taller operand)."""
+    its share of the kernel.k3_roofline bound, K15's share of the
+    kernel.mp3_synth_roofline bound, windows and frames a window, and the
+    memory peak; the sized windows' PCM within K14_TOL of the peak of the
+    24-frame call on the same clips (K3, K14 and K15 act on each lane's
+    rows alone)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2386,6 +2466,8 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
     k3_bytes = sum(576 * 4 * corpus.work["huff_gc"][idx].sum()
                    + corpus.work["huff_bits"][idx].sum() / 8
                    for idx in batches)
+    k15_bytes = sum(576 * 8 * corpus.work["huff_gc"][idx].sum()
+                    for idx in batches)
     audio_s = sum(corpus.seconds[idx].sum() for idx in batches)
     sized = mp3_groups.mp3_window_frames
 
@@ -2428,12 +2510,15 @@ def window_probe(seed=WINDOW_SEED, calls=WINDOW_CALLS):
             op_ms[key] += us / 1e3 / calls
         busy_ms = ptrace.device_time(prof)["busy_s"] * 1e3 / calls
         k3_s = (op_ms["k3"] + op_ms["plan"]) * calls / 1e3
+        k15_s = op_ms["k15"] * calls / 1e3
         out = {"label": label, "op_ms_a_call": op_ms,
                "busy_ms_a_call": busy_ms,
                "device_ms_per_audio_s": busy_ms * calls / audio_s,
                "k3_launches_a_call": launches / calls,
                "k3_share_of_bound": (peaks.bound_s(k3_bytes) / k3_s
                                      if k3_s else None),
+               "k15_share_of_bound": (peaks.bound_s(k15_bytes) / k15_s
+                                      if k15_s else None),
                "windows": [st["windows"] for st in stats],
                "frames_a_window": stats[0]["mp3_window_frames"],
                "memory_peak_bytes": mem}
@@ -2469,7 +2554,8 @@ def phase_mp3(card, streams, info, masters):
         tol=MP3_TOL)
     st = dec.stats
     if launches["mp3_huff"] != st["windows"] or \
-            launches["mp3_dsp"] != st["windows"]:
+            launches["mp3_dsp"] != st["windows"] or \
+            launches["mp3_synth"] != st["windows"]:
         raise AssertionError(f"MP3 launches {launches}")
     secs = st["decoded_seconds"]
     print(f"# MP3 slice: {len(streams)} stereo lanes within {MP3_TOL} of "
@@ -2478,7 +2564,8 @@ def phase_mp3(card, streams, info, masters):
           f"{secs / wall:.1f}x realtime; h2d_bytes {st['h2d_bytes']}, "
           f"windows {st['windows']}, Huffman launches "
           f"{launches['mp3_huff']}, window DSP launches "
-          f"{launches['mp3_dsp']}, host_ms {st['host_ms']:.0f}, "
+          f"{launches['mp3_dsp']}, synthesis launches "
+          f"{launches['mp3_synth']}, host_ms {st['host_ms']:.0f}, "
           f"host_cpu_ms {st['host_cpu_ms']:.0f}, enqueue_ms "
           f"{st['enqueue_ms']:.0f} [{card}]")
     return launches["mp3_huff"], err
@@ -4717,6 +4804,7 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
           f"lanes, {sum(len(s) for s in mp3_streams) / 1e6:.1f} MB")
     hres = phase_mp3_kernel(card, mp3_streams)
     kres14 = phase_mp3_dsp_kernel(card, mp3_streams)
+    kres15 = kres14.pop("synth")
     mp3_launches, _ = phase_mp3(card, mp3_streams, mp3_info, mp3_masters)
     phase_mp3_mixed(card, streams[:4], q_lanes[:4])
 
@@ -4809,6 +4897,10 @@ def run_phases(card, mp3_masters, vorbis_masters, facade):
          "mesh_launches": ml["mp3_dsp"],
          "source": "audio_formats_torch/csrc/mp3_dsp.cu",
          "replaces": None, "launches": mp3_launches, **kres14},
+        {"name": "mp3_synth", "route": "cuda",
+         "mesh_launches": ml["mp3_synth"],
+         "source": "audio_formats_torch/csrc/mp3_dsp.cu",
+         "replaces": None, "launches": mp3_launches, **kres15},
         {"name": "flac_rice", "route": "cuda",
          "mesh_launches": ml["flac_rice"],
          "source": "audio_formats_torch/csrc/flac_rice.cu",

@@ -621,6 +621,7 @@ def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
     streams = _mp3_streams()
     before = mp3_huff.HUFF_LAUNCHES
     dsp_before = mp3_dsp.DSP_LAUNCHES
+    synth_before = mp3_dsp.SYNTH_LAUNCHES
     dec = BatchDecoder(streams, device=cuda)
     res = dec.decode_all(output="device")
     for kind, wins in res.windows():
@@ -629,6 +630,7 @@ def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
     assert dec.stats["group_demotions"] == 0
     assert mp3_huff.HUFF_LAUNCHES - before == dec.stats["windows"]
     assert mp3_dsp.DSP_LAUNCHES - dsp_before == dec.stats["windows"]
+    assert mp3_dsp.SYNTH_LAUNCHES - synth_before == dec.stats["windows"]
     want = BatchDecoder(streams, device="cpu").decode_all()
     got_np = BatchDecoder(streams, device=cuda).decode_all()
     for a, b, c in zip(got, want, got_np):
@@ -636,6 +638,27 @@ def test_batch_decoder_mp3_cuda_equals_cpu(cuda):
         # the same torch ops on the card and the CPU: sums in another order
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
         np.testing.assert_array_equal(c, a)
+
+
+def test_mp3_launch_spans_count_each_kernel(cuda):
+    """Each MP3 Layer III window's launch span reports one K3, one K14
+    and one K15 launch."""
+    from audio_formats_torch import trace
+
+    dec = BatchDecoder(_mp3_streams(), device=cuda)
+    trace.drain()
+    trace.enable()
+    try:
+        dec.decode_all(output="device").sync()
+    finally:
+        trace.disable()
+        spans = trace.drain()["spans"]
+    launches = [s["attrs"] for s in spans
+                if s["name"] == "launch" and s["attrs"]["format"] == "mp3"]
+    assert len(launches) == dec.stats["windows"] > 0
+    for attrs in launches:
+        assert (attrs["launches"], attrs["dsp_launches"],
+                attrs["synth_launches"]) == (1, 1, 1)
 
 
 #: 30 s stereo MPEG-1 clips, as many as a call of the fma_mp3.b32 cell
@@ -777,11 +800,11 @@ def _on_card(cuda, win):
 
 @pytest.mark.parametrize("name", torch_mp3_cases.WINDOW_CASES)
 def test_mp3_window_kernel_matches_twin(cuda, name):
-    """packed_window's route on the card (K3, K14, the synthesis product)
-    against K3 then the twin (packed_device_stage, mp3_window_dsp) on the
-    same lanes, over two chained windows, each route carrying its own
+    """packed_window's route on the card (K3, K14, the synthesis kernel
+    K15) against K3 then the twin (packed_device_stage, mp3_window_dsp) on
+    the same lanes, over two chained windows, each route carrying its own
     state: the PCM, overlap' and shist' within K14_TOL of the twin's peak,
-    and one K14 launch a window."""
+    and one K14 and one K15 launch a window."""
     from audio_formats_torch.ops import mp3_dsp, mp3_huff
 
     case = torch_mp3_cases.window_case(name)
@@ -793,10 +816,12 @@ def test_mp3_window_kernel_matches_twin(cuda, name):
     for win in case["windows"]:
         w = _on_card(cuda, win)
         before = mp3_dsp.DSP_LAUNCHES
+        synth_before = mp3_dsp.SYNTH_LAUNCHES
         pcm_k, *state_k = mp3_huff.packed_window(
             w["pool"], w["meta16"], w["scfq"], w["ist"], *state_k,
             w["n_act"], B=B, G=G, nch=nch, W=w["W"], **opts)
         assert mp3_dsp.DSP_LAUNCHES == before + 1
+        assert mp3_dsp.SYNTH_LAUNCHES == synth_before + 1
         xq, aa, wt = mp3_huff.packed_device_stage(
             w["pool"], w["meta16"], w["scfq"], w["W"], B, G, nch,
             ist=w["ist"], **opts)
@@ -846,6 +871,85 @@ def test_mp3_window_kernel_rejects_bad_arguments(cuda):
     with pytest.raises(ValueError):
         mp3_dsp.window_dsp_cuda(**good, B=B, G=G, nch=3)
     assert mp3_dsp.DSP_LAUNCHES == before + 2
+
+
+# ------------------------------------------------ MP3 synthesis, K15
+#: K15 against its plain version (operand @ SYNTH_TOEPLITZ, a cuBLAS fp32
+#: GEMM): the DCTs of 34 slots and 16 window taps against 1,088-term dot
+#: products, sums in other orders, as a share of the twin's peak
+K15_TOL = 1e-5
+
+
+def _gap(got, want):
+    assert got.is_cuda and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("name", torch_mp3_cases.WINDOW_CASES)
+def test_mp3_synth_kernel_matches_twin(cuda, name):
+    """K15 on K14's operand of two chained windows of each case against
+    synth_twin on the same operand: within K15_TOL of the twin's peak, one
+    launch a call."""
+    from audio_formats_torch.ops import mp3_dsp, mp3_huff
+
+    case = torch_mp3_cases.window_case(name)
+    B, G, nch = case["B"], case["G"], case["nch"]
+    state = [torch.from_numpy(case[k]).to(cuda) for k in ("overlap", "shist")]
+    for win in case["windows"]:
+        w = _on_card(cuda, win)
+        q, _ = mp3_huff.huff_decode(w["pool"], w["meta16"], w["W"],
+                                    w["lanes_per_frame"])
+        abcd = None
+        if w["ist"] is not None:
+            abcd = mp3_huff._window_abcd(
+                q, w["meta16"][:, mp3_huff.M_PATTERN].to(torch.int64),
+                w["meta16"][:, mp3_huff.M_STEREO].to(torch.int64), w["ist"],
+                B * G, nch, case["mpeg1"])
+        operand, *state = mp3_dsp.window_dsp_cuda(
+            q, w["meta16"], w["scfq"], w["n_act"], *state, abcd, B=B, G=G,
+            nch=nch, short=case["short"])
+        before = mp3_dsp.SYNTH_LAUNCHES
+        got = mp3_dsp.synth_cuda(operand)
+        assert mp3_dsp.SYNTH_LAUNCHES == before + 1
+        gap = _gap(got, mp3_dsp.synth_twin(operand))
+        assert gap <= K15_TOL, (name, gap)
+
+
+@pytest.mark.parametrize("L", [1, 3, 4, 4097])
+def test_mp3_synth_kernel_matches_twin_on_random_rows(cuda, L):
+    """Random operands of row counts around K15's block of 4 rows (a
+    partial last block, a grid of one block, of 1,025)."""
+    from audio_formats_torch.ops import mp3_dsp
+
+    rng = np.random.default_rng(L)
+    x = torch.from_numpy(rng.normal(0, 0.3, (L, 1088)).astype(np.float32))\
+        .to(cuda)
+    gap = _gap(mp3_dsp.synth_cuda(x), mp3_dsp.synth_twin(x))
+    assert gap <= K15_TOL, (L, gap)
+
+
+def test_mp3_synth_kernel_rejects_bad_arguments(cuda):
+    from audio_formats_torch.ops import mp3_dsp
+
+    L = 8
+    good = torch.zeros((L, 1088), device=cuda)
+    flat = torch.zeros(L * 1088 + 1, device=cuda)
+    before = mp3_dsp.SYNTH_LAUNCHES
+    pcm = mp3_dsp.synth_cuda(good)
+    torch.cuda.synchronize()
+    assert mp3_dsp.SYNTH_LAUNCHES == before + 1
+    assert pcm.shape == (L, 576) and not bool(pcm.any())
+    empty = mp3_dsp.synth_cuda(good[:0])
+    assert empty.shape == (0, 576) and empty.is_cuda
+    bad = [good.to(torch.float64), good[:, :1087].contiguous(),
+           good.reshape(-1), good.reshape(2, L // 2, 1088),
+           good.t().contiguous().t(), good.cpu(),
+           flat[1:].view(L, 1088)]
+    for t in bad:
+        with pytest.raises(ValueError):
+            mp3_dsp.synth_cuda(t)
+    assert mp3_dsp.SYNTH_LAUNCHES == before + 1
 
 
 # ------------------------------------------------------------- FLAC Rice

@@ -233,3 +233,183 @@ def test_k14_emulation_matches_twin(name):
         assert _gap_of_peak(pcm_e, pcm_t.numpy()) <= TOL_OF_PEAK
         for e, w in zip(state_e, state_t):
             assert _gap_of_peak(e, w.numpy()) <= TOL_OF_PEAK
+
+
+# ------------------------------------------ K15, the polyphase synthesis
+#: the emulated K15 on unit impulses against SYNTH_FIR (extracted in
+#: float64 and rounded once): float32 rounding at each stage of the DCT and
+#: of the window's 16 taps, a few ulps of the peak
+IMPULSE_TOL = 1e-6
+
+
+def _gen_mp3_synth():
+    """tools/gen_mp3_synth.py, the generator SYNTH_FIR came from."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools",
+                        "gen_mp3_synth.py")
+    spec = importlib.util.spec_from_file_location("gen_mp3_synth", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dct_emulate(y):
+    """csrc/mp3_dsp.cu dct32 over the last axis, in numpy float32: minimp3's
+    DCT-II in the order of tools/gen_mp3_synth.py dct2_32, each step
+    rounded alone, its constants read out of the blob."""
+    f = D.synth_blob()
+    sec, kc = f[D.SYN_SEC:D.SYN_K], f[D.SYN_K:D.SYN_WORDS]
+    y = y.astype(np.float32)
+    t = [[None] * 8 for _ in range(4)]
+    for i in range(8):
+        x0, x1, x2, x3 = y[..., i], y[..., 15 - i], y[..., 16 + i], \
+            y[..., 31 - i]
+        t0, t1 = x0 + x3, x1 + x2
+        t2 = (x1 - x2) * sec[3 * i]
+        t3 = (x0 - x3) * sec[3 * i + 1]
+        t[0][i] = t0 + t1
+        t[1][i] = (t0 - t1) * sec[3 * i + 2]
+        t[2][i] = t3 + t2
+        t[3][i] = (t3 - t2) * sec[3 * i + 2]
+    for x in t:
+        xt = x[0] - x[7]
+        x[0] = x[0] + x[7]
+        x7 = x[1] - x[6]
+        x[1] = x[1] + x[6]
+        x6 = x[2] - x[5]
+        x[2] = x[2] + x[5]
+        x5 = x[3] - x[4]
+        x[3] = x[3] + x[4]
+        x4 = x[0] - x[3]
+        x[0] = x[0] + x[3]
+        x3 = x[1] - x[2]
+        x[1] = x[1] + x[2]
+        x[0], x[4] = x[0] + x[1], (x[0] - x[1]) * kc[0]
+        x5 = x5 + x6
+        x6 = (x6 + x7) * kc[0]
+        x7 = x7 + xt
+        x3 = (x3 + x4) * kc[0]
+        x5 = x5 - x7 * kc[1]
+        x7 = x7 + x5 * kc[2]
+        x5 = x5 - x7 * kc[1]
+        x0 = xt - x6
+        xt = xt + x6
+        x[1] = (xt + x7) * kc[3]
+        x[2] = (x4 + x3) * kc[4]
+        x[3] = (x0 - x5) * kc[5]
+        x[5] = (x0 + x5) * kc[6]
+        x[6] = (x4 - x3) * kc[7]
+        x[7] = (xt - x7) * kc[8]
+    out = [None] * 32
+    for i in range(7):
+        out[4 * i] = t[0][i]
+        out[4 * i + 1] = t[2][i] + t[3][i] + t[3][i + 1]
+        out[4 * i + 2] = t[1][i] + t[1][i + 1]
+        out[4 * i + 3] = t[2][i + 1] + t[3][i] + t[3][i + 1]
+    out[28], out[29] = t[0][7], t[2][7] + t[3][7]
+    out[30], out[31] = t[1][7], t[3][7]
+    return np.stack(out, axis=-1)
+
+
+def _k15_emulate(operand):
+    """csrc/mp3_dsp.cu's K15 in numpy float32: the DCT of every slot of
+    each [34 x 32] row, then each output sample's window, the pairs of ages
+    (k, 15 - k) summed for k = 0..7, its taps read out of the blob.
+    Returns pcm [L, 576]."""
+    f = D.synth_blob()
+    coef = f[D.SYN_COEF:D.SYN_M].reshape(32, 16)
+    m = f[D.SYN_M:D.SYN_SEC].view(np.int32).reshape(32, 2)
+    L = operand.shape[0]
+    V = _dct_emulate(operand.reshape(L, 34, 32))
+    pcm = np.empty((L, 18, 32), np.float32)
+    for t in range(18):
+        for k in range(8):
+            # slot t + 16 - r has age r: ages k and 15 - k
+            pair = (coef[:, k] * V[:, t + 16 - k, m[:, k & 1]]
+                    + coef[:, 15 - k] * V[:, t + 1 + k, m[:, (15 - k) & 1]])
+            pcm[:, t] = pair if k == 0 else pcm[:, t] + pair
+    return pcm.reshape(L, 576)
+
+
+def test_synth_blob_holds_minimp3s_constants():
+    """K15's constants are the generator's: g_sec, and the taps of g_win
+    and mp3d_synth_pair laid out by output sample and age."""
+    gen = _gen_mp3_synth()
+    g_sec, g_win = gen.load_tables()
+    f = D.synth_blob()
+    assert f.dtype == np.float32 and f.shape == (D.SYN_WORDS,)
+    np.testing.assert_array_equal(f[D.SYN_SEC:D.SYN_K],
+                                  g_sec.astype(np.float32))
+    coef, m = D._synth_taps()
+    np.testing.assert_array_equal(f[D.SYN_COEF:D.SYN_M], coef.reshape(-1))
+    np.testing.assert_array_equal(f[D.SYN_M:D.SYN_SEC].view(np.int32),
+                                  m.reshape(-1))
+    # every tap is a g_win value (or a synth_pair literal) over 32768
+    taps = np.abs(coef[np.r_[1:16, 17:32]]) * 32768
+    assert set(taps.ravel()) == set(np.abs(g_win))
+    assert (m >= 0).all() and (m < 32).all()
+
+
+def test_k15_dct_is_minimp3s():
+    """The emulated kernel's DCT is dct2_32 to within float32 rounding."""
+    gen = _gen_mp3_synth()
+    g_sec, _ = gen.load_tables()
+    y = np.random.default_rng(15).normal(0, 1, (64, 32)).astype(np.float32)
+    want = np.stack([gen.dct2_32(row.astype(np.float64), g_sec)
+                     for row in y])
+    got = _dct_emulate(y)
+    assert _gap_of_peak(got, want) <= IMPULSE_TOL
+
+
+def test_k15_emulation_reproduces_synth_fir():
+    """On unit impulses (an operand row a subband sample: slot u, band k)
+    the emulated kernel gives SYNTH_FIR's taps where the Toeplitz form puts
+    them, output slot t tap 16 + t - u, and zeros elsewhere: the constants
+    and the slot alignment are the generator's."""
+    eye = np.eye(34 * 32, dtype=np.float32)
+    got = _k15_emulate(eye).reshape(34, 32, 18, 32)   # [u, k, t, j]
+    want = np.zeros((34, 32, 18, 32))
+    for u in range(34):
+        for t in range(18):
+            if 0 <= 16 + t - u <= 16:
+                want[u, :, t] = D.SYNTH_FIR[16 + t - u].T
+    assert _gap_of_peak(got, want) <= IMPULSE_TOL
+    assert not got[0].any()   # slot 0 of a row: SYNTH_FIR's tap 16 is 0
+
+
+@pytest.mark.parametrize("name", WINDOW_CASES)
+def test_k15_emulation_matches_the_product(name):
+    """Two chained windows of each case, on the emulated K14's operand:
+    the emulated K15 is the synthesis product (operand @ SYNTH_TOEPLITZ in
+    float64) within TOL_OF_PEAK."""
+    case = window_case(name)
+    B, G, nch = case["B"], case["G"], case["nch"]
+    state = [case["overlap"], case["shist"]]
+    for win in case["windows"]:
+        t = _tensors(win)
+        q, _ = mp3_huff.huff_decode(t["pool"], t["meta16"], win["W"],
+                                    win["lanes_per_frame"])
+        abcd = None
+        if t["ist"] is not None:
+            abcd = mp3_huff._window_abcd(
+                q, t["meta16"][:, mp3_huff.M_PATTERN].to(torch.int64),
+                t["meta16"][:, mp3_huff.M_STEREO].to(torch.int64), t["ist"],
+                B * G, nch, case["mpeg1"]).numpy()
+        operand, *state = _k14_emulate(
+            q.numpy(), win["meta16"], win["scfq"], win["n_act"], *state,
+            abcd, B, G, nch, case["short"])
+        want = operand.astype(np.float64) @ D.SYNTH_TOEPLITZ.astype(
+            np.float64)
+        got = _k15_emulate(operand)
+        assert np.isfinite(got).all()
+        assert _gap_of_peak(got, want) <= TOL_OF_PEAK
+
+
+def test_synth_cuda_refuses_cpu_tensors():
+    """A CPU operand never reaches the kernel; synth_twin takes it."""
+    x = torch.zeros((2, 1088))
+    with pytest.raises(_kernels.KernelArgError):
+        D.synth_cuda(x)
+    assert D.synth_twin(x).shape == (2, 576)
